@@ -1,0 +1,9 @@
+"""Deterministic in-process network simulation (burst mode)."""
+
+from hyperdrive_tpu_torch.harness.sim import (
+    Simulation,
+    SimulationResult,
+    VirtualClock,
+)
+
+__all__ = ["Simulation", "SimulationResult", "VirtualClock"]

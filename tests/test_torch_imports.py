@@ -1,0 +1,72 @@
+"""The PyTorch port stands alone: no module of ``hyperdrive_tpu_torch``,
+and not ``chip_smoke.py``, imports JAX or anything of ``hyperdrive_tpu``;
+its entry points default to the card and refuse to run without one."""
+
+import ast
+import pathlib
+import subprocess
+import sys
+
+import pytest
+import torch
+
+from hyperdrive_tpu_torch.ops.ed25519 import TorchBatchVerifier
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+
+_PROBE = r"""
+import importlib, pkgutil, sys
+import hyperdrive_tpu_torch as pkg
+names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+for name in names:
+    importlib.import_module(name)
+import chip_smoke  # noqa: F401
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.") or m == "jaxlib"
+             or m == "hyperdrive_tpu" or m.startswith("hyperdrive_tpu."))
+print(len(names), bad)
+"""
+
+
+def test_port_imports_neither_jax_nor_the_jax_package():
+    out = subprocess.run(
+        [sys.executable, "-c", _PROBE], cwd=ROOT, capture_output=True,
+        text=True, timeout=120, check=True,
+    ).stdout.split()
+    assert int(out[0]) >= 15
+    assert out[1:] == ["[]"]
+
+
+def test_no_source_names_jax_or_the_jax_package():
+    files = sorted((ROOT / "hyperdrive_tpu_torch").rglob("*.py"))
+    files.append(ROOT / "chip_smoke.py")
+    for path in files:
+        for node in ast.walk(ast.parse(path.read_text())):
+            if isinstance(node, ast.Import):
+                mods = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                mods = [node.module or ""]
+            else:
+                continue
+            for mod in mods:
+                top = mod.split(".")[0]
+                assert top not in ("jax", "jaxlib", "hyperdrive_tpu"), (path, mod)
+
+
+def test_batch_verifier_defaults_to_the_card():
+    if torch.cuda.is_available():
+        assert TorchBatchVerifier().device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            TorchBatchVerifier()
+
+
+def test_chip_smoke_refuses_to_run_without_a_card(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a card is present; chip_smoke.py would run on it")
+    proc = subprocess.run(
+        [sys.executable, str(ROOT / "chip_smoke.py")], cwd=tmp_path,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout
