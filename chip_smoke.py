@@ -2,21 +2,37 @@
 
     python3 chip_smoke.py
 
-Phases, each printing one line:
+Phases, each printing its lines:
 
 1. card: the card's name and power limit as nvidia-smi prints them, then
-   the nvcc build of every kernel of the main path from the sources in
-   this checkout;
-2. kernel: the Ed25519 ladder kernel against its plain PyTorch version on
-   the card, mask for mask, at the verifier's bucket sizes (64, 256, 1024,
-   4096) and one 65,536-lane batch (16 launches of 4096), on mixed lanes
-   made from a fixed seed; a 256-lane sample against the host oracle;
-   kernel and plain times (CUDA events), the operation bound, the packer's
-   time;
-3. main path: the signed 256-validator burst network
-   (``Simulation(n=256, sign=True, burst=True, dedup_verify=True)``) to
-   height 5 with every settle verified by the kernel, checked for safety
-   and against the same run with the host verifier.
+   the nvcc build of the kernel library (all three verify kernels) from
+   the sources in this checkout, with each kernel's registers, stack and
+   spills as ptxas reports them;
+2. kernels against their plain PyTorch versions on the card, mask for mask
+   on every lane, on mixed lanes made from a fixed seed:
+   - ``ed25519_verify`` (packed limbs) at the verifier's bucket sizes (64,
+     256, 1024, 4096) and one 65,536-lane batch (16 launches of 4096);
+   - ``ed25519_wire`` (raw wire rows) at 64 to 4096 lanes, with the
+     decompression edge encodings as A and as R in raw rows that no
+     prevalid mask covers;
+   - ``ed25519_semiwire`` (table-indexed A) at 64 to 65,536 lanes, with
+     the edge encodings as R and lanes on a table slot that holds a bogus
+     pubkey;
+   each with a 256-lane sample against the host oracle, kernel and plain
+   times (CUDA events), the operation bound and its share;
+3. the challenge leg (SHA-512 and mod-L reduction as PyTorch ops) on the
+   card: k rows equal the host's challenge scalars; its time at 256 and
+   4,096 lanes;
+4. main path: the signed 256-validator burst network
+   (``Simulation(n=256, sign=True, burst=True, dedup_verify=True,
+   small_window_host=False)``) to height 5, three times, every settle
+   verified on the card: through the packed verifier (``ed25519_verify``),
+   through ``TorchWireVerifier`` with a ``ValidatorTable`` of the 256
+   validator keys (grouped challenge route, ``ed25519_semiwire``), and
+   through ``TorchWireVerifier`` with no table (full wire route,
+   ``ed25519_wire``). Each run is checked for safety, against one run with
+   the host verifier (digest, steps, heights), and for having launched
+   its own kernel and no other.
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``. Any failed check raises, so the script
@@ -26,6 +42,7 @@ exits non-zero; without CUDA it exits non-zero before printing a result.
 from __future__ import annotations
 
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -37,18 +54,31 @@ import torch
 SEED = 20260
 SIZES = (64, 256, 1024, 4096)
 BIG = 65_536
+POOL = 512
 HEIGHT = 5
 N_VALIDATORS = 256
+PATH_LANES = 256  # a vote window at n=256: one lane per validator
 #: INT32 multiply-adds per SM per clock on compute capability 9.0 (the
 #: CUDA C++ Programming Guide's arithmetic-instruction throughput table).
 IMAD_PER_SM_CLOCK = 64
+#: Device memory rate of an H100 SXM (NVIDIA's data sheet), bytes/s.
+HBM_BYTES_PER_S = 3.35e12
+BOGUS = b"\xff" * 32  # y >= p: never decompresses
+KERNELS = {
+    "ed25519_verify": ("hyperdrive_tpu_torch/csrc/ed25519_verify.cu",
+                       "hyperdrive_tpu/ops/ed25519_pallas.py:373"),
+    "ed25519_wire": ("hyperdrive_tpu_torch/csrc/ed25519_wire.cu",
+                     "hyperdrive_tpu/ops/ed25519_pallas.py:486"),
+    "ed25519_semiwire": ("hyperdrive_tpu_torch/csrc/ed25519_wire.cu",
+                         "hyperdrive_tpu/ops/ed25519_pallas.py:522"),
+}
 
 
 def card_line() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
-    ).stdout.strip()
+    ).stdout.strip().splitlines()[0]
 
 
 def sm_clock_mhz() -> float:
@@ -59,51 +89,89 @@ def sm_clock_mhz() -> float:
     return float(out)
 
 
-def imad_per_signature() -> int:
-    """32-bit multiply(-add)s of one signature's ladder under the 20 x
-    13-bit limbs of ``csrc/fe25519.cuh``, counted from its structure:
-    fe_mul 400 products + 23 fold multiplies, fe_sqr 210 + 23, fe_mul_small
-    20 + 4, add/sub/neg 2 fold multiplies, fe_is_zero_mod_p 22.
-    Per signature: the [0..8]A' table (66 mul, 8 mul_small, 68 add-like),
-    64 windows of 4 doublings, one projective and one affine addition (16
-    sqr, 27 mul, 6 mul_small, 42 add-like each), and the check (2 mul, 2
-    sub, 2 zero tests)."""
-    mul, sqr, small, addlike, zero = 423, 233, 24, 2, 22
-    table = 66 * mul + 8 * small + 68 * addlike
-    window = 16 * sqr + 27 * mul + 6 * small + 42 * addlike
-    check = 2 * mul + 2 * addlike + 2 * zero
+# 32-bit multiply(-add)s of the field operations of csrc/fe25519.cuh under
+# 20 x 13-bit limbs: fe_mul 400 products + 23 fold multiplies, fe_sqr
+# 210 + 23, fe_mul_small 20 + 4, add/sub/neg 2 fold multiplies,
+# fe_is_zero_mod_p 22, fe_canonical 2.
+MUL, SQR, SMALL, ADDLIKE, ZERO, CANON = 423, 233, 24, 2, 22, 2
+
+
+def imad_ladder() -> int:
+    """One signature's ladder: the [0..8]A' table (66 mul, 8 mul_small,
+    68 add-like), 64 windows of 4 doublings, one projective and one affine
+    addition (16 sqr, 27 mul, 6 mul_small, 42 add-like each), and the
+    check (2 mul, 2 sub, 2 zero tests)."""
+    table = 66 * MUL + 8 * SMALL + 68 * ADDLIKE
+    window = 16 * SQR + 27 * MUL + 6 * SMALL + 42 * ADDLIKE
+    check = 2 * MUL + 2 * ADDLIKE + 2 * ZERO
     return table + 64 * window + check
 
 
-def bound_ms(lanes: int, clock_mhz: float, sms: int) -> float:
-    rate = sms * IMAD_PER_SM_CLOCK * clock_mhz * 1e6
-    return lanes * imad_per_signature() / rate * 1e3
+def imad_decompress() -> int:
+    """One decompression (csrc/decompress.cuh): 255 squarings and 17
+    multiplications (251 and 11 of them in the pow22523 chain), 4
+    add-likes, 3 zero tests and one canonical reduction. The sqrt(-1)
+    multiply and the final negation run only on the lanes whose data
+    needs them and are not counted, so this stays a lower bound."""
+    return 255 * SQR + 17 * MUL + 4 * ADDLIKE + 3 * ZERO + CANON
 
 
-def time_ms(fn, reps: int) -> float:
+def imad_per_signature(kernel: str) -> int:
+    if kernel == "ed25519_verify":
+        return imad_ladder()
+    if kernel == "ed25519_wire":  # two decompressions, -A and t = x' * y
+        return imad_ladder() + 2 * imad_decompress() + ADDLIKE + MUL
+    return imad_ladder() + imad_decompress()
+
+
+#: Bytes each lane reads and writes once: packed limbs 5 x 80 + 2 x 256
+#: in; wire rows 4 x 32 in; semiwire idx 4 + R, s, k rows 96 + its table
+#: row 3 x 80 + 1 valid byte in; 1 verdict byte out.
+BYTES_PER_LANE = {"ed25519_verify": 913, "ed25519_wire": 129,
+                  "ed25519_semiwire": 342}
+
+
+def bound_ms(kernel: str, lanes: int, clock_mhz: float, sms: int):
+    """(bound ms, bound_by): the larger of the operation time at the INT32
+    multiply rate and the byte time at the memory rate."""
+    ops = lanes * imad_per_signature(kernel) / (sms * IMAD_PER_SM_CLOCK * clock_mhz * 1e6)
+    byt = lanes * BYTES_PER_LANE[kernel] / HBM_BYTES_PER_S
+    return (ops * 1e3, "operations") if ops >= byt else (byt * 1e3, "bytes")
+
+
+def time_ms(fn, reps: int, warm: bool = True, keep=None) -> float:
     """Median over ``reps`` of one call's device time (CUDA events), after
-    one warm-up call."""
-    fn()
+    one warm-up call unless ``warm`` is False; ``keep`` (a list) receives
+    each call's result."""
+    if warm:
+        fn()
     torch.cuda.synchronize()
     times = []
     for _ in range(reps):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
-        fn()
+        got = fn()
         b.record()
         b.synchronize()
         times.append(a.elapsed_time(b))
+        if keep is not None:
+            keep.append(got)
     return statistics.median(times)
+
+
+def _ring():
+    from hyperdrive_tpu_torch.crypto.keys import KeyRing
+
+    return KeyRing.deterministic(32, namespace=b"chip-smoke")
 
 
 def mixed_pool(size: int, rng):
     """Signed (pub, digest, sig) items of every verdict class: valid,
     flipped s bit, wrong digest, malformed point, s >= L."""
     from hyperdrive_tpu_torch.crypto import ed25519 as host_ed
-    from hyperdrive_tpu_torch.crypto.keys import KeyRing
 
-    ring = KeyRing.deterministic(32, namespace=b"chip-smoke")
+    ring = _ring()
     items = []
     for i in range(size):
         kp = ring[i % 32]
@@ -123,6 +191,38 @@ def mixed_pool(size: int, rng):
     return items
 
 
+def edge_encodings() -> list:
+    """The decompression edge encodings: identity, the sign bit on x = 0,
+    y = 0 (both signs), y = p - 1, y = p, y = p + 1, y = 2^255 - 1, and a
+    non-residue."""
+    from hyperdrive_tpu_torch.crypto import ed25519 as host_ed
+
+    p = host_ed.P
+
+    def enc(y, sign=0):
+        return int.to_bytes(y | (sign << 255), 32, "little")
+
+    nonres = next(enc(y) for y in range(2, 50)
+                  if host_ed.point_decompress(enc(y)) is None)
+    return [enc(1), enc(1, 1), enc(0), enc(0, 1), enc(p - 1), enc(p),
+            enc(p + 1), enc((1 << 255) - 1), nonres]
+
+
+def ptxas_report(log: str) -> list:
+    """Per entry kernel: (name, registers, stack bytes, spill stores, spill
+    loads) from the -Xptxas -v log, where each entry's figures follow its
+    "Compiling entry function" line."""
+    out = []
+    for m in re.finditer(
+        r"Compiling entry function '[^']*?(hd_ed25519_\w+?_kernel)[^']*'.*?"
+        r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads"
+        r".*?Used (\d+) registers", log, re.S,
+    ):
+        name, stack, st, ld, regs = m.groups()
+        out.append((name, int(regs), int(stack), int(st), int(ld)))
+    return out
+
+
 def phase_card():
     from hyperdrive_tpu_torch.ops import ed25519_cuda
 
@@ -131,146 +231,301 @@ def phase_card():
     lib = ed25519_cuda.build(force=True)
     build_s = time.perf_counter() - t0
     log = (lib.parent / "nvcc.log").read_text()
-    ptxas = [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln]
-    print(f"build: nvcc {build_s:.2f} s for {lib.name}; ptxas: {' | '.join(ptxas)}",
-          flush=True)
+    report = ptxas_report(log)
+    if len(report) != 3:
+        raise AssertionError(f"expected 3 kernels in the ptxas log, got {report}")
+    print(f"build: nvcc {build_s:.2f} s for {lib.name} (3 kernels, one unit)", flush=True)
+    for name, regs, stack, st, ld in report:
+        print(f"ptxas: {name} registers={regs} stack_bytes={stack} "
+              f"spill_stores={st} spill_loads={ld}", flush=True)
 
 
-def phase_kernel(clock_mhz: float, sms: int) -> dict:
+def compare_sizes(kernel: str, pool, run_kernel, run_plain, sizes, rng,
+                  clock_mhz: float, sms: int, must_include=()) -> dict:
+    """Kernel against plain, mask for mask, at each size (batches above
+    4096 run as launches of 4096), then the timings. ``pool`` is a tuple
+    of POOL-lane tensors on the card; ``must_include`` lanes join every
+    batch."""
+    rows = {}
+    keep = np.asarray(must_include, dtype=np.int64)
+    for size in sizes:
+        idx = np.concatenate([keep, rng.integers(0, POOL, size - len(keep))])
+        idx_t = torch.from_numpy(idx).to("cuda")
+        batch = [t[idx_t].contiguous() for t in pool]
+        chunk = min(size, SIZES[-1])
+        parts = [[t[lo:lo + chunk] for t in batch] for lo in range(0, size, chunk)]
+
+        def kern(parts=parts):
+            return [run_kernel(*p) for p in parts]
+
+        def plain(parts=parts):
+            return [run_plain(*p) for p in parts]
+
+        k_mask = torch.cat(kern()).cpu().numpy()
+        # The plain version runs once: the compared call is the timed one.
+        p_ms = time_ms(plain, 1, warm=False, keep=(out := []))
+        p_mask = torch.cat(out[0]).cpu().numpy()
+        err = int(np.abs(k_mask.astype(np.int32) - p_mask.astype(np.int32)).max())
+        if err:
+            bad = int((k_mask != p_mask).sum())
+            raise AssertionError(f"{kernel}: kernel != plain on {bad} of {size} lanes")
+        k_ms = time_ms(kern, 7)
+        b_ms, b_by = bound_ms(kernel, size, clock_mhz, sms)
+        rows[size] = {"ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
+                      "bound_by": b_by, "err": err}
+        print(f"kernel {kernel}: lanes={size} launches={len(parts)} kernel_ms={k_ms:.4f} "
+              f"plain_ms={p_ms:.2f} sigs_per_s={size / k_ms * 1e3:.0f} "
+              f"bound_ms={b_ms:.4f} bound_by={b_by} bound_share={b_ms / k_ms:.4f} "
+              f"valid_lanes={int(k_mask.sum())} mismatches=0", flush=True)
+    return rows
+
+
+def phase_verify_kernel(clock_mhz: float, sms: int) -> dict:
     from hyperdrive_tpu_torch.crypto import ed25519 as host_ed
     from hyperdrive_tpu_torch.ops import ed25519 as ted
     from hyperdrive_tpu_torch.ops import ed25519_cuda
 
     rng = np.random.default_rng(SEED)
-    items = mixed_pool(512, rng)
-    host = ted.Ed25519BatchHost(buckets=(512,))
+    items = mixed_pool(POOL, rng)
+    host = ted.Ed25519BatchHost(buckets=(POOL,))
     t0 = time.perf_counter()
     arrays, prevalid, _ = host.pack(items[:256])
     pack_ms = (time.perf_counter() - t0) * 1e3
     pool, pool_valid, _ = host.pack(items)
     # Raw lanes outside the packer's precondition (s nibbles of s + L on a
-    # valid row) and explicit all-zero lanes join the pool: the kernel
-    # must match the plain version on them too.
+    # valid row) and an explicit all-zero lane.
     pool = [a.copy() for a in pool]
-    for j in range(0, 512, 50):
+    for j in range(0, POOL, 50):
         if pool_valid[j]:
             s = sum(int(v) << (4 * k) for k, v in enumerate(pool[5][j])) + host_ed.L
             pool[5][j] = [(s >> (4 * k)) & 0xF for k in range(64)]
     for a in pool:
-        a[511] = 0
+        a[POOL - 1] = 0
 
-    dev = torch.device("cuda")
-    sample = [torch.from_numpy(a).to(dev) for a in arrays]
+    sample = [torch.from_numpy(a).to("cuda") for a in arrays]
     got = ed25519_cuda.verify(*sample).cpu().numpy() & prevalid
     oracle = np.array([host_ed.verify(*it) for it in items[:256]])
     if not np.array_equal(got[:256], oracle):
-        raise AssertionError("kernel disagrees with the host oracle")
-
-    rows = {}
-    for size in SIZES + (BIG,):
-        idx = rng.integers(0, 512, size)
-        batch = [torch.from_numpy(np.ascontiguousarray(a[idx])).to(dev) for a in pool]
-        chunk = min(size, SIZES[-1])
-        parts = [[t[lo:lo + chunk] for t in batch] for lo in range(0, size, chunk)]
-
-        def kernel(parts=parts):
-            return [ed25519_cuda.verify(*p) for p in parts]
-
-        def plain(parts=parts):
-            return [ted.verify_plain(*p) for p in parts]
-
-        k_mask = torch.cat(kernel()).cpu().numpy()
-        p_mask = torch.cat(plain()).cpu().numpy()
-        err = int(np.abs(k_mask.astype(np.int32) - p_mask.astype(np.int32)).max())
-        if err:
-            bad = int((k_mask != p_mask).sum())
-            raise AssertionError(f"kernel != plain on {bad} of {size} lanes")
-        k_ms = time_ms(kernel, 7)
-        p_ms = time_ms(plain, 3 if size < BIG else 1)
-        b_ms = bound_ms(size, clock_mhz, sms)
-        rows[size] = {"ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "err": err,
-                      "valid": int(k_mask.sum())}
-        print(f"kernel: lanes={size} launches={len(parts)} kernel_ms={k_ms:.4f} "
-              f"plain_ms={p_ms:.2f} sigs_per_s={size / k_ms * 1e3:.0f} "
-              f"bound_ms={b_ms:.4f} bound_share={b_ms / k_ms:.4f} "
-              f"valid_lanes={rows[size]['valid']} mismatches=0", flush=True)
-    print(f"kernel: oracle sample 256 lanes agree; pack_ms(256 items)={pack_ms:.1f}",
-          flush=True)
-    return rows
+        raise AssertionError("ed25519_verify disagrees with the host oracle")
+    print(f"kernel ed25519_verify: oracle sample 256 lanes agree; "
+          f"pack_ms(256 items)={pack_ms:.1f}", flush=True)
+    pool_t = tuple(torch.from_numpy(a).to("cuda") for a in pool)
+    return compare_sizes("ed25519_verify", pool_t, ed25519_cuda.verify, ted.verify_plain,
+                         SIZES + (BIG,), rng, clock_mhz, sms, must_include=[0, 50, POOL - 1])
 
 
-def phase_main_path(device: str = "cuda"):
+def _raw_lanes(arrays, slots, edges, rng):
+    """Overwrite the pool's last 32 lanes with raw rows outside the
+    packer's precondition, built on lane 0 (a valid signature): each edge
+    encoding in each of ``slots`` (the A and R rows of ``arrays``), then
+    random bytes in the last slot. Returns the lanes."""
+    lanes = list(range(POOL - 32, POOL))
+    for a in arrays:
+        a[lanes] = a[0]
+    cases = [(slot, e) for e in edges for slot in slots]
+    for lane, (slot, e) in zip(lanes, cases):
+        arrays[slot][lane] = np.frombuffer(e, dtype=np.uint8)
+    for lane in lanes[len(cases):]:
+        arrays[slots[-1]][lane] = rng.integers(0, 256, 32, dtype=np.uint8)
+    return lanes
+
+
+def phase_wire_kernels(clock_mhz: float, sms: int):
+    from hyperdrive_tpu_torch.crypto import ed25519 as host_ed
+    from hyperdrive_tpu_torch.ops import ed25519_cuda
+    from hyperdrive_tpu_torch.ops import ed25519_wire as wire
+
+    rng = np.random.default_rng(SEED + 1)
+    items = mixed_pool(POOL, rng)
+    edges = edge_encodings()
+    host = wire.Ed25519WireHost(buckets=(POOL,))
+    dev = torch.device("cuda")
+
+    # Full wire: the packer's rows, then raw edge rows as A and as R.
+    rows, prevalid, _ = host.pack_wire(items)
+    rows = [r.copy() for r in rows]
+    raw = _raw_lanes(rows, (0, 1), edges, rng)
+    t = [torch.from_numpy(r).to(dev) for r in rows]
+    got = ed25519_cuda.wire_verify(*(x[:256] for x in t)).cpu().numpy() & prevalid[:256]
+    oracle = np.array([host_ed.verify(*it) for it in items[:256]])
+    if not np.array_equal(got, oracle):
+        raise AssertionError("ed25519_wire disagrees with the host oracle")
+    print("kernel ed25519_wire: oracle sample 256 lanes agree", flush=True)
+    wire_rows = compare_sizes("ed25519_wire", tuple(t), ed25519_cuda.wire_verify,
+                              wire.wire_verify_plain, SIZES, rng, clock_mhz, sms,
+                              must_include=raw)
+
+    # Semiwire: a table of the pool's keys plus one bogus pubkey; every
+    # seventh lane points at the bogus slot; raw edge rows as R.
+    ring = _ring()
+    table = wire.ValidatorTable(ring.signatories + [BOGUS], device=dev)
+    rows, prevalid, _ = host.pack_wire_indexed(items, table)
+    rows = [r.copy() for r in rows]  # idx, R, s, k
+    rows[0][6::7] = table.index[BOGUS]
+    raw = _raw_lanes(rows, (1,), edges, rng)
+    pubs = ring.signatories + [BOGUS]
+    eff = [(pubs[rows[0][i]], d, sig) for i, (_, d, sig) in enumerate(items)]
+    pool = (table.upload_index(rows[0]),
+            *(torch.from_numpy(r).to(dev) for r in rows[1:]))
+    got = ed25519_cuda.semiwire_verify(*(x[:256] for x in pool),
+                                       *table.arrays()).cpu().numpy() & prevalid[:256]
+    oracle = np.array([host_ed.verify(*it) for it in eff[:256]])
+    if not np.array_equal(got, oracle):
+        raise AssertionError("ed25519_semiwire disagrees with the host oracle")
+    print("kernel ed25519_semiwire: oracle sample 256 lanes agree "
+          f"(bogus-slot lanes {len(range(6, 256, 7))})", flush=True)
+
+    def semi(i, r, s, k):
+        return ed25519_cuda.semiwire_verify(i, r, s, k, *table.arrays())
+
+    def semi_plain(i, r, s, k):
+        return wire.semiwire_verify_plain(i, r, s, k, *table.arrays())
+
+    semi_rows = compare_sizes("ed25519_semiwire", pool, semi, semi_plain,
+                              SIZES + (BIG,), rng, clock_mhz, sms, must_include=raw)
+    return wire_rows, semi_rows, (items, table, pool, eff)
+
+
+def phase_challenge(state) -> dict:
+    from hyperdrive_tpu_torch.crypto import ed25519 as host_ed
+    from hyperdrive_tpu_torch.ops import ed25519_wire as wire
+
+    items, table, pool, eff = state
+    idx, r_rows = pool[0][:256], pool[1][:256]
+    m = np.frombuffer(b"".join(d for _, d, _ in items[:256]), dtype=np.uint8).reshape(256, 32)
+    m_t = torch.from_numpy(m.copy()).to("cuda")
+    per_lane = wire.challenge(idx, r_rows, m_t, table.rows).cpu().numpy()
+    m_uniq = m_t[:16].contiguous()
+    m_idx = (torch.arange(256, device="cuda") % 16).to(torch.uint8)
+    grouped = wire.challenge_grouped(idx, r_rows, m_idx, m_uniq, table.rows).cpu().numpy()
+    r_host = r_rows.cpu().numpy()
+    for i in range(256):
+        pub, _, _ = eff[i]
+        want = host_ed.challenge_scalar(bytes(r_host[i]), pub, bytes(m[i]))
+        if bytes(per_lane[i]) != want.to_bytes(32, "little"):
+            raise AssertionError(f"per-lane challenge differs from the host on lane {i}")
+        want = host_ed.challenge_scalar(bytes(r_host[i]), pub, bytes(m[i % 16]))
+        if bytes(grouped[i]) != want.to_bytes(32, "little"):
+            raise AssertionError(f"grouped challenge differs from the host on lane {i}")
+    out = {}
+    for lanes in (256, 4096):
+        rep = lanes // 256
+        args = (idx.repeat(rep), r_rows.repeat(rep, 1), m_idx.repeat(rep), m_uniq, table.rows)
+        out[lanes] = time_ms(lambda args=args: wire.challenge_grouped(*args), 5)
+    print(f"challenge: k rows of 256 lanes equal the host's (per-lane and grouped legs); "
+          f"grouped leg ms: 256 lanes {out[256]:.3f}, 4096 lanes {out[4096]:.3f}", flush=True)
+    return out
+
+
+def _timed(spent, depth, key, fn):
+    # Outermost calls only: the packer calls itself on a dedup fan-out.
+    def run(*args, **kwargs):
+        depth[key] = depth.get(key, 0) + 1
+        t0 = time.perf_counter()
+        try:
+            return fn(*args, **kwargs)
+        finally:
+            depth[key] -= 1
+            if not depth[key]:
+                spent[key] = spent.get(key, 0.0) + time.perf_counter() - t0
+    return run
+
+
+def run_path(label: str, own: str, verifier, ref) -> int:
+    """One n=256 network run with ``verifier`` on every settle; checks it
+    against the host-verifier result ``ref`` and the kernel counts, prints
+    the line. Returns ``own``'s launches."""
     from hyperdrive_tpu_torch.crypto.keys import KeyPair
     from hyperdrive_tpu_torch.harness import Simulation
     from hyperdrive_tpu_torch.ops import ed25519_cuda
-    from hyperdrive_tpu_torch.verifier import HostVerifier
 
     sim = Simulation(n=N_VALIDATORS, target_height=HEIGHT, seed=1, sign=True,
                      burst=True, dedup_verify=True, small_window_host=False,
-                     device=device)
+                     batch_verifier=verifier)
     bv = sim.batch_verifier
-    spent = {"pack": 0.0, "verify": 0.0, "sign": 0.0}
-    depth = {"pack": 0, "verify": 0, "sign": 0}
-
-    def timed(key, fn):
-        # Outermost calls only: the packer calls itself on a dedup fan-out.
-        def run(*args, **kwargs):
-            depth[key] += 1
-            t0 = time.perf_counter()
-            try:
-                return fn(*args, **kwargs)
-            finally:
-                depth[key] -= 1
-                if not depth[key]:
-                    spent[key] += time.perf_counter() - t0
-        return run
-
-    bv.host.pack = timed("pack", bv.host.pack)
-    bv.verify_signatures = timed("verify", bv.verify_signatures)
     bv.warmup()
     torch.cuda.synchronize()
+    spent: dict = {}
+    depth: dict = {}
+    for name in ("pack", "pack_wire", "pack_wire_challenge", "group_digests", "index_lanes"):
+        if hasattr(bv.host, name):
+            setattr(bv.host, name, _timed(spent, depth, "pack", getattr(bv.host, name)))
+    for name in ("_chal", "_chal_grouped"):
+        if hasattr(bv, name):
+            setattr(bv, name, _timed(spent, depth, "chal", getattr(bv, name)))
+    bv.verify_signatures = _timed(spent, depth, "verify", bv.verify_signatures)
 
     sign = KeyPair.sign_digest
-    KeyPair.sign_digest = timed("sign", sign)
+    KeyPair.sign_digest = _timed(spent, depth, "sign", sign)
     try:
-        ed25519_cuda.stats.reset()
+        ed25519_cuda.reset_stats()
+        if hasattr(bv, "reset_stats"):
+            bv.reset_stats()
         t0 = time.perf_counter()
         res = sim.run()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        launches, lanes = ed25519_cuda.stats.launches, ed25519_cuda.stats.lanes
+        counts = {k: (v.launches, v.lanes) for k, v in ed25519_cuda.stats.items()}
     finally:
         KeyPair.sign_digest = sign
 
     if not res.completed or min(res.heights) <= HEIGHT:
-        raise AssertionError(f"network did not reach height {HEIGHT}: {res.heights}")
+        raise AssertionError(f"{label}: network did not reach height {HEIGHT}: {res.heights}")
     res.assert_safety()
-    t1 = time.perf_counter()
-    ref = Simulation(n=N_VALIDATORS, target_height=HEIGHT, seed=1, sign=True,
-                     burst=True, dedup_verify=True, small_window_host=False,
-                     batch_verifier=HostVerifier()).run()
-    host_wall = time.perf_counter() - t1
     if res.commit_digest(up_to=HEIGHT) != ref.commit_digest(up_to=HEIGHT):
-        raise AssertionError("commit digest differs from the host-verifier run")
+        raise AssertionError(f"{label}: commit digest differs from the host-verifier run")
     if (res.steps, res.heights) != (ref.steps, ref.heights):
-        raise AssertionError("steps or heights differ from the host-verifier run")
+        raise AssertionError(f"{label}: steps or heights differ from the host-verifier run")
+    launches = counts[own][0]
     if launches < sim.vote_settles or launches == 0:
         raise AssertionError(
-            f"{launches} kernel launches for {sim.vote_settles} vote-bearing settles")
-    print(f"main: n={N_VALIDATORS} height={HEIGHT} completed={res.completed} "
+            f"{label}: {launches} {own} launches for {sim.vote_settles} vote-bearing settles")
+    moved = {k: c for k, c in counts.items() if k != own and c[0]}
+    if moved:
+        raise AssertionError(f"{label}: other kernels launched: {moved}")
+    extra = ""
+    if hasattr(bv, "stats"):
+        key = "lanes_grouped" if bv.table is not None else "lanes_wire"
+        if bv.stats[key] != sim.verified_sigs:
+            raise AssertionError(
+                f"{label}: {key}={bv.stats[key]} for {sim.verified_sigs} verified signatures")
+        extra = (f" {key}={bv.stats[key]} bytes_per_lane={bv.bytes_per_lane():.2f}")
+    shares = " ".join(f"{k}_share={spent.get(k, 0.0) / wall:.3f}"
+                      for k in ("sign", "pack", "chal", "verify"))
+    print(f"main {label}: n={N_VALIDATORS} height={HEIGHT} completed={res.completed} "
           f"steps={res.steps} wall_s={wall:.2f} heights_per_s={HEIGHT / wall:.3f} "
           f"verified_sigs={sim.verified_sigs} "
           f"verified_sigs_per_s={sim.verified_sigs / wall:.0f} "
           f"settle_passes={sim.settle_passes} vote_settles={sim.vote_settles} "
-          f"kernel_launches={launches} kernel_lanes={lanes} "
-          f"launches_per_height={launches / HEIGHT:.1f} "
-          f"pack_share={spent['pack'] / wall:.3f} "
-          f"verify_share={spent['verify'] / wall:.3f} "
-          f"sign_share={spent['sign'] / wall:.3f} "
-          f"host_verifier_wall_s={host_wall:.2f} "
-          f"digest={res.commit_digest(up_to=HEIGHT)[:16]} matches_host=True",
-          flush=True)
+          f"{own}_launches={launches} {own}_lanes={counts[own][1]} "
+          f"launches_per_height={launches / HEIGHT:.1f}{extra} {shares} "
+          f"digest={res.commit_digest(up_to=HEIGHT)[:16]} matches_host=True", flush=True)
     return launches
+
+
+def phase_main_path() -> dict:
+    from hyperdrive_tpu_torch.crypto.keys import KeyRing
+    from hyperdrive_tpu_torch.harness import Simulation
+    from hyperdrive_tpu_torch.ops.ed25519 import TorchBatchVerifier
+    from hyperdrive_tpu_torch.ops.ed25519_wire import TorchWireVerifier, ValidatorTable
+    from hyperdrive_tpu_torch.verifier import HostVerifier
+
+    t0 = time.perf_counter()
+    ref = Simulation(n=N_VALIDATORS, target_height=HEIGHT, seed=1, sign=True,
+                     burst=True, dedup_verify=True, small_window_host=False,
+                     batch_verifier=HostVerifier()).run()
+    print(f"main host: host_verifier_wall_s={time.perf_counter() - t0:.2f} "
+          f"digest={ref.commit_digest(up_to=HEIGHT)[:16]}", flush=True)
+    ring = KeyRing.deterministic(N_VALIDATORS, namespace=b"sim-1")
+    table = ValidatorTable(ring.signatories, device="cuda")
+    return {
+        "ed25519_verify": run_path("packed", "ed25519_verify",
+                                   TorchBatchVerifier(device="cuda"), ref),
+        "ed25519_semiwire": run_path("chal", "ed25519_semiwire",
+                                     TorchWireVerifier(device="cuda", table=table), ref),
+        "ed25519_wire": run_path("wire", "ed25519_wire",
+                                 TorchWireVerifier(device="cuda"), ref),
+    }
 
 
 def main() -> int:
@@ -280,28 +535,33 @@ def main() -> int:
         return 2
     props = torch.cuda.get_device_properties(0)
     clock = sm_clock_mhz()
+    sms = props.multi_processor_count
     phase_card()
-    rows = phase_kernel(clock, props.multi_processor_count)
+    rows = {"ed25519_verify": phase_verify_kernel(clock, sms)}
+    rows["ed25519_wire"], rows["ed25519_semiwire"], state = phase_wire_kernels(clock, sms)
+    phase_challenge(state)
     launches = phase_main_path()
-    path_lanes = 256  # a vote window at n=256: one lane per validator
-    row = rows[path_lanes]
-    print(json.dumps({"kernels": [{
-        "name": "ed25519_verify",
-        "route": "cuda",
-        "source": "hyperdrive_tpu_torch/csrc/ed25519_verify.cu",
-        "replaces": "hyperdrive_tpu/ops/ed25519_pallas.py:373",
-        "launches": launches,
-        "max_abs_err": max(r["err"] for r in rows.values()),
-        "ms": row["ms"],
-        "plain_ms": row["plain_ms"],
-        "bound_ms": row["bound_ms"],
-        "bound_by": "operations",
-        "library_ms": None,
-    }]}))
+    table = []
+    for name, (source, replaces) in KERNELS.items():
+        row = rows[name][PATH_LANES]
+        table.append({
+            "name": name,
+            "route": "cuda",
+            "source": source,
+            "replaces": replaces,
+            "launches": launches[name],
+            "max_abs_err": max(r["err"] for r in rows[name].values()),
+            "ms": row["ms"],
+            "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"],
+            "library_ms": None,
+        })
+    print(json.dumps({"kernels": table}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count(),
+        "count": 1,
     }}))
     return 0
 

@@ -9,8 +9,10 @@ Hopper (``csrc/``), each beside its plain PyTorch version.
   the consensus automaton and its driver (copies of the JAX package's).
 - ``crypto`` — host Ed25519 oracle and deterministic keys.
 - ``ops`` — the GF(2^255-19) field (``fe25519``), the packer, plain
-  ladder and batch verifier (``ed25519``), and the CUDA kernel's build
-  and wrapper (``ed25519_cuda``).
+  ladder and batch verifier (``ed25519``), the wire path with its
+  validator table and verifier (``ed25519_wire``), the device challenge
+  leg (``sha512``), and the CUDA kernels' build and wrappers
+  (``ed25519_cuda``).
 - ``harness`` — the burst-mode network simulator.
 
 Entry points run on the card unless the caller asks for the CPU

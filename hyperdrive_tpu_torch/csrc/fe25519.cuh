@@ -25,16 +25,20 @@
 #define FE_TOP_MASK 0xFF
 
 // The constant block, uploaded once from Python (ops/ed25519_cuda.py,
-// _consts_block) in exactly this layout: subtraction bias, 2d, the exact
+// consts_block) in exactly this layout: subtraction bias, 2d, the exact
 // base-2^13 digits of p and 2p, then the 9-entry affine niels table of
-// [0..8]B as three [9][20] planes (y+x, y-x, 2d*x*y).
+// [0..8]B as three [9][20] planes (y+x, y-x, 2d*x*y), then d and sqrt(-1)
+// for point decompression (appended, so the slots before them keep their
+// offsets).
 #define HD_C_BIAS 0
 #define HD_C_K2D 20
 #define HD_C_P 40
 #define HD_C_P2 60
 #define HD_C_BTAB 80
 #define HD_C_BTAB_LEN (3 * 9 * FE_N)
-#define HD_C_TOTAL (HD_C_BTAB + HD_C_BTAB_LEN)
+#define HD_C_D (HD_C_BTAB + HD_C_BTAB_LEN)
+#define HD_C_SQRTM1 (HD_C_D + FE_N)
+#define HD_C_TOTAL (HD_C_SQRTM1 + FE_N)
 
 static __constant__ int32_t hd_consts[HD_C_TOTAL];
 

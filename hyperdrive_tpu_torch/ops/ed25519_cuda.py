@@ -1,28 +1,45 @@
-"""The hand-written Hopper Ed25519 verify kernel: build, binding, wrapper.
+"""The hand-written Hopper Ed25519 verify kernels: build, binding, wrappers.
 
-Replaces the TPU kernel ``_verify_kernel_body`` / ``_verify_kernel_inner``
-of the JAX package (``hyperdrive_tpu/ops/ed25519_pallas.py:373``, shared
-ladder ``_ladder_ok`` at ``:402``). The source is ``csrc/ed25519_verify.cu``
-with the ladder in ``csrc/ladder.cuh`` and the field in
-``csrc/fe25519.cuh``; one thread verifies one signature.
+Three kernels, one per TPU kernel of the JAX package
+(``hyperdrive_tpu/ops/ed25519_pallas.py``), all on the one ladder of
+``csrc/ladder.cuh`` and the field of ``csrc/fe25519.cuh``, one thread per
+signature:
 
-What bounds it on the card: 32-bit integer multiplies. A signature needs
-about 2,800 field multiplications or squarings of 20 x 13-bit limbs, about
-1.0M multiply-adds with the carry folds, against ~912 bytes of input, so
-the byte bound is negligible. At the main path's shapes (256-lane vote
-windows, 8 warps) the time is set by each thread's dependent chain and its
-per-thread table in local memory, far above the multiply bound. The design
-reads each input once, unrolls the field loops so product columns stay in
-registers, runs one warp per block so small batches spread over SMs,
-stages the constant B table into shared memory, and launches on PyTorch's
-current stream without synchronizing. Splitting a signature across
-threads, or fewer and wider limbs, is later work.
+- ``ed25519_verify`` (``csrc/ed25519_verify.cu``) replaces
+  ``_verify_kernel_body`` / ``_verify_kernel_inner`` (``:373/:380``):
+  packed, host-decompressed limbs. Plain version
+  :func:`~hyperdrive_tpu_torch.ops.ed25519.verify_plain`.
+- ``ed25519_wire`` (``csrc/ed25519_wire.cu``) replaces
+  ``_wire_kernel_body`` / ``_wire_kernel_inner`` (``:486/:493``): raw
+  [B, 32] uint8 A, R, s, k rows, both points decompressed in the kernel
+  (``csrc/decompress.cuh``). Plain version
+  :func:`~hyperdrive_tpu_torch.ops.ed25519_wire.wire_verify_plain`.
+- ``ed25519_semiwire`` (``csrc/ed25519_wire.cu``) replaces
+  ``_semiwire_kernel_body`` / ``_semiwire_kernel_inner`` (``:522/:529``):
+  -A read from the resident validator table by index, R decompressed in
+  the kernel. Plain version
+  :func:`~hyperdrive_tpu_torch.ops.ed25519_wire.semiwire_verify_plain`.
 
-Build: at first use, ``nvcc`` compiles the sources into a shared library
-with a plain C interface under ``hyperdrive_tpu_torch/_build/``, keyed on
-a hash of the sources, and ``ctypes`` binds it. A CUDA tensor launches the
-kernel or raises; a CPU tensor takes :func:`verify_plain`. There is no
-fallback from one to the other.
+What bounds them on the card: 32-bit integer multiplies. A signature's
+ladder is about 2,800 field multiplications or squarings of 20 x 13-bit
+limbs, about 1.0M multiply-adds with the carry folds; a decompression adds
+273 more field operations. Bytes in are at most ~912 a lane, so the byte
+bound is negligible. At the main path's shapes (256-lane vote windows, 8
+warps) the time is set by each thread's dependent chain and its per-thread
+table in local memory, far above the multiply bound. The design reads each
+input once, unrolls the field loops so product columns stay in registers,
+runs one warp per block so small batches spread over SMs, stages the
+constant B table into shared memory, and launches on PyTorch's current
+stream without synchronizing. Splitting a signature across threads, or
+fewer and wider limbs, is later work.
+
+Build: at first use, ``nvcc`` compiles ``csrc/ed25519_kernels.cu`` (the
+one translation unit that includes every kernel, so there is one constant
+block per device) into a shared library with a plain C interface under
+``hyperdrive_tpu_torch/_build/``, keyed on a hash of all the sources, and
+``ctypes`` binds it. A CUDA tensor launches the kernel or raises, with the
+launch's ``cudaGetLastError`` checked; a CPU tensor takes the plain
+version. There is no fallback from one to the other.
 """
 
 from __future__ import annotations
@@ -38,14 +55,26 @@ import threading
 import numpy as np
 import torch
 
+from hyperdrive_tpu_torch.ops import ed25519_wire as wire
 from hyperdrive_tpu_torch.ops import fe25519 as fe
 from hyperdrive_tpu_torch.ops.ed25519 import K2D_LIMBS, _b_niels_np, verify_plain
 
-__all__ = ["build", "stats", "verify", "KernelStats"]
+__all__ = [
+    "build",
+    "stats",
+    "reset_stats",
+    "verify",
+    "wire_verify",
+    "semiwire_verify",
+    "KernelStats",
+]
 
 _PKG = pathlib.Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
-SOURCES = ("fe25519.cuh", "ladder.cuh", "ed25519_verify.cu")
+SOURCES = (
+    "fe25519.cuh", "ladder.cuh", "decompress.cuh",
+    "ed25519_verify.cu", "ed25519_wire.cu", "ed25519_kernels.cu",
+)
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -54,7 +83,7 @@ NVCC_FLAGS = (
 )
 #: Entries of the constant block, in the layout ``csrc/fe25519.cuh``
 #: declares (HD_C_*).
-CONSTS_LEN = 80 + 3 * 9 * fe.N_LIMBS
+CONSTS_LEN = 80 + 3 * 9 * fe.N_LIMBS + 2 * fe.N_LIMBS
 
 
 class KernelStats:
@@ -70,17 +99,28 @@ class KernelStats:
         self.lanes = 0
 
 
-stats = KernelStats()
+#: One count per kernel, keyed by kernel name.
+stats = {
+    "ed25519_verify": KernelStats(),
+    "ed25519_wire": KernelStats(),
+    "ed25519_semiwire": KernelStats(),
+}
+
+
+def reset_stats() -> None:
+    for st in stats.values():
+        st.reset()
 
 
 def consts_block() -> np.ndarray:
     """The kernel's constant block, from the same values the plain version
-    uses: subtraction bias, 2d, digits of p and 2p, then the [0..8]B niels
-    planes (y+x, y-x, 2d*x*y), each [9, 20]."""
+    uses: subtraction bias, 2d, digits of p and 2p, the [0..8]B niels
+    planes (y+x, y-x, 2d*x*y), each [9, 20], then d and sqrt(-1)."""
     byp, bym, bt2 = _b_niels_np(9)
     block = np.concatenate(
         [fe._SUB_BIAS, K2D_LIMBS, fe.P_LIMBS, fe.P2_LIMBS,
-         byp.ravel(), bym.ravel(), bt2.ravel()]
+         byp.ravel(), bym.ravel(), bt2.ravel(),
+         wire.D_LIMBS, wire.SQRTM1_LIMBS]
     ).astype(np.int32)
     if block.shape != (CONSTS_LEN,):
         raise AssertionError("constant block layout drifted from fe25519.cuh")
@@ -107,17 +147,17 @@ def _nvcc() -> str:
 
 
 def build(force: bool = False) -> pathlib.Path:
-    """Compile the kernel library from the sources in the package (once per
-    source hash, or anew with ``force``) and return its path. The
-    compiler's register and spill report is kept beside it as
-    ``nvcc.log``."""
+    """Compile the kernel library (all three kernels) from the sources in
+    the package (once per source hash, or anew with ``force``) and return
+    its path. The compiler's register and spill report is kept beside it
+    as ``nvcc.log``."""
     out_dir = BUILD_DIR / f"ed25519_{source_hash()}"
     lib = out_dir / "libhd_ed25519.so"
     if lib.exists() and not force:
         return lib
     out_dir.mkdir(parents=True, exist_ok=True)
     tmp = out_dir / f"libhd_ed25519.{os.getpid()}.tmp.so"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / "ed25519_verify.cu")]
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / "ed25519_kernels.cu")]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     (out_dir / "nvcc.log").write_text(proc.stdout + proc.stderr)
     if proc.returncode != 0:
@@ -139,7 +179,13 @@ class _Library:
         self.lib.hd_ed25519_set_consts.argtypes = [ci, vp]
         self.lib.hd_ed25519_set_consts.restype = ci
         self.lib.hd_ed25519_verify.argtypes = [ci] + [vp] * 8 + [ci, vp]
-        self.lib.hd_ed25519_verify.restype = ctypes.c_int
+        self.lib.hd_ed25519_verify.restype = ci
+        self.lib.hd_ed25519_wire_verify.argtypes = [ci] + [vp] * 5 + [ci, vp]
+        self.lib.hd_ed25519_wire_verify.restype = ci
+        self.lib.hd_ed25519_semiwire_verify.argtypes = (
+            [ci] + [vp] * 8 + [ci, vp, ci, vp]
+        )
+        self.lib.hd_ed25519_semiwire_verify.restype = ci
         self.ready: set = set()
         self._consts = consts_block()
 
@@ -167,22 +213,58 @@ def _library(index: int) -> _Library:
         return _LIB
 
 
+def _check_like(name, t, shape, dtype, device):
+    if tuple(t.shape) != shape:
+        raise ValueError(f"{name}: shape {tuple(t.shape)}, want {shape}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: dtype {t.dtype}, want {dtype}")
+    if t.device != device:
+        raise ValueError(f"{name} on {t.device}, want {device}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} is not contiguous")
+
+
 def _check(tensors) -> torch.device:
+    """Checks the packed-limb inputs (int32 [B, 20] x 5, [B, 64] x 2) on
+    one device; returns the device."""
     ax = tensors[0]
     if ax.dim() != 2:
         raise ValueError(f"expected [B, 20] limb rows, got {tuple(ax.shape)}")
     bsz = ax.shape[0]
     for i, t in enumerate(tensors):
         want = (bsz, fe.N_LIMBS) if i < 5 else (bsz, 64)
-        if tuple(t.shape) != want:
-            raise ValueError(f"input {i}: shape {tuple(t.shape)}, want {want}")
-        if t.dtype != torch.int32:
-            raise TypeError(f"input {i}: dtype {t.dtype}, want torch.int32")
-        if t.device != ax.device:
-            raise ValueError(f"input {i} on {t.device}, input 0 on {ax.device}")
-        if not t.is_contiguous():
-            raise ValueError(f"input {i} is not contiguous")
+        _check_like(f"input {i}", t, want, torch.int32, ax.device)
     return ax.device
+
+
+def _rows_device(rows) -> torch.device:
+    """Checks [B, 32] uint8 wire rows on one device; returns the device."""
+    r0 = rows[0]
+    if r0.dim() != 2:
+        raise ValueError(f"expected [B, 32] rows, got {tuple(r0.shape)}")
+    for i, t in enumerate(rows):
+        _check_like(f"rows {i}", t, (r0.shape[0], 32), torch.uint8, r0.device)
+    return r0.device
+
+
+def _launch(name: str, device: torch.device, bsz: int, fn, args) -> torch.Tensor:
+    """Run one kernel on ``device``'s current stream into a fresh bool [B]
+    (the kernel writes 0/1 bytes, torch.bool's representation), raise on
+    a failed launch, count it."""
+    if device.type != "cuda":
+        raise ValueError(f"unsupported device {device}")
+    out = torch.empty(bsz, dtype=torch.bool, device=device)
+    if bsz == 0:
+        return out
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    lib = _library(index)
+    stream = torch.cuda.current_stream(index).cuda_stream
+    rc = getattr(lib.lib, fn)(index, *args, out.data_ptr(), bsz, stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed: cudaError {rc}")
+    stats[name].launches += 1
+    stats[name].lanes += bsz
+    return out
 
 
 def verify(ax, ay, at, rx, ry, s_nib, k_nib) -> torch.Tensor:
@@ -194,21 +276,42 @@ def verify(ax, ay, at, rx, ry, s_nib, k_nib) -> torch.Tensor:
     device = _check(tensors)
     if device.type == "cpu":
         return verify_plain(*tensors)
-    if device.type != "cuda":
-        raise ValueError(f"unsupported device {device}")
-    bsz = ax.shape[0]
-    # The kernel writes 0/1 bytes, which is torch.bool's representation.
-    out = torch.empty(bsz, dtype=torch.bool, device=device)
-    if bsz == 0:
-        return out
-    index = device.index if device.index is not None else torch.cuda.current_device()
-    lib = _library(index)
-    stream = torch.cuda.current_stream(index).cuda_stream
-    rc = lib.lib.hd_ed25519_verify(
-        index, *(t.data_ptr() for t in tensors), out.data_ptr(), bsz, stream
-    )
-    if rc != 0:
-        raise RuntimeError(f"Ed25519 verify kernel launch failed: cudaError {rc}")
-    stats.launches += 1
-    stats.lanes += bsz
-    return out
+    return _launch("ed25519_verify", device, ax.shape[0], "hd_ed25519_verify",
+                   [t.data_ptr() for t in tensors])
+
+
+def wire_verify(a_rows, r_rows, s_rows, k_rows) -> torch.Tensor:
+    """bool[B]: the wire kernel on [B, 32] uint8 A, R, s, k rows (both
+    points decompressed in the kernel), lane for lane
+    :func:`~hyperdrive_tpu_torch.ops.ed25519_wire.wire_verify_plain`,
+    which CPU tensors run. Lanes must be masked by the packer's prevalid."""
+    rows = (a_rows, r_rows, s_rows, k_rows)
+    device = _rows_device(rows)
+    if device.type == "cpu":
+        return wire.wire_verify_plain(*rows)
+    return _launch("ed25519_wire", device, a_rows.shape[0],
+                   "hd_ed25519_wire_verify", [t.data_ptr() for t in rows])
+
+
+def semiwire_verify(idx, r_rows, s_rows, k_rows,
+                    tnax, tay, tnat, tvalid) -> torch.Tensor:
+    """bool[B]: the semiwire kernel: -A read from the validator table
+    (tnax, tay, tnat int32 [V, 20], tvalid bool [V]) at ``idx`` (int32
+    [B]), R decompressed in the kernel, lane for lane
+    :func:`~hyperdrive_tpu_torch.ops.ed25519_wire.semiwire_verify_plain`,
+    which CPU tensors run. Indices are range-checked by the caller on the
+    host before upload (``ValidatorTable.upload_index``); a lane whose
+    index lies outside the table reads nothing and rejects."""
+    rows = (r_rows, s_rows, k_rows)
+    device = _rows_device(rows)
+    bsz = r_rows.shape[0]
+    v = tvalid.shape[0] if tvalid.dim() == 1 else -1  # -1 fails the check
+    _check_like("idx", idx, (bsz,), torch.int32, device)
+    for name, t in (("tnax", tnax), ("tay", tay), ("tnat", tnat)):
+        _check_like(name, t, (v, fe.N_LIMBS), torch.int32, device)
+    _check_like("tvalid", tvalid, (v,), torch.bool, device)
+    if device.type == "cpu":
+        return wire.semiwire_verify_plain(idx, *rows, tnax, tay, tnat, tvalid)
+    ptrs = [t.data_ptr() for t in (idx, *rows, tnax, tay, tnat, tvalid)]
+    return _launch("ed25519_semiwire", device, bsz,
+                   "hd_ed25519_semiwire_verify", [*ptrs, v])

@@ -15,10 +15,11 @@ sum(l_i * 2^(13 i)), on tensors shaped ``[..., 20]`` (any batch prefix).
 
 torch's int32 multiply wraps just as XLA's does; right shift on int32 is
 arithmetic, so ``c >> 13`` is a floor division and ``c & 0x1FFF`` the
-non-negative residue. The CUDA kernel's field (``csrc/fe25519.cuh``) is
-the same arithmetic in C; the constants it uses come from this module.
-``inv`` and ``pow22523`` are not ported: nothing on the packed-input path
-needs them.
+non-negative residue. The CUDA kernels' field (``csrc/fe25519.cuh``,
+``csrc/decompress.cuh``) is the same arithmetic in C; the constants they
+use come from this module. ``inv`` is not ported: the wire path
+decompresses through :func:`pow22523`, and the validator table
+decompresses on the host.
 """
 
 from __future__ import annotations
@@ -40,8 +41,10 @@ __all__ = [
     "mul",
     "sqr",
     "mul_small",
+    "pow22523",
     "canonical",
     "eq",
+    "is_zero",
     "select",
     "ZERO",
     "ONE",
@@ -272,6 +275,31 @@ def mul_small(a: torch.Tensor, k: int) -> torch.Tensor:
     return _fold_top(x)
 
 
+def _nsqr(x: torch.Tensor, n: int) -> torch.Tensor:
+    for _ in range(n):
+        x = sqr(x)
+    return x
+
+
+def pow22523(a: torch.Tensor) -> torch.Tensor:
+    """a^((p-5)/8) = a^(2^252 - 3), the exponent of the combined
+    square-root/division step of point decompression (RFC 8032 §5.1.3):
+    x = u*v^3 * (u*v^7)^((p-5)/8). The reference's addition chain, 251
+    squarings and 11 multiplications, so the limbs out are its limbs."""
+    z2 = sqr(a)
+    z9 = mul(a, _nsqr(z2, 2))
+    z11 = mul(z2, z9)
+    z_5_0 = mul(z9, sqr(z11))
+    z_10_0 = mul(_nsqr(z_5_0, 5), z_5_0)
+    z_20_0 = mul(_nsqr(z_10_0, 10), z_10_0)
+    z_40_0 = mul(_nsqr(z_20_0, 20), z_20_0)
+    z_50_0 = mul(_nsqr(z_40_0, 10), z_10_0)
+    z_100_0 = mul(_nsqr(z_50_0, 50), z_50_0)
+    z_200_0 = mul(_nsqr(z_100_0, 100), z_100_0)
+    z_250_0 = mul(_nsqr(z_200_0, 50), z_50_0)
+    return mul(_nsqr(z_250_0, 2), a)  # 2^252 - 3
+
+
 # ------------------------------------------------------------- canonical
 
 
@@ -290,6 +318,11 @@ def canonical(x: torch.Tensor) -> torch.Tensor:
 def eq(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Field equality (handles redundant representations)."""
     return (canonical(a) == canonical(b)).all(dim=-1)
+
+
+def is_zero(a: torch.Tensor) -> torch.Tensor:
+    """Per element: a == 0 mod p."""
+    return (canonical(a) == 0).all(dim=-1)
 
 
 def select(mask: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

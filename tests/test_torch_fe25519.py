@@ -19,6 +19,10 @@ from hyperdrive_tpu.ops.ed25519_pallas import _consts as ref_pallas_consts
 from hyperdrive_tpu_torch.ops import ed25519_cuda
 from hyperdrive_tpu_torch.ops import fe25519 as fe
 
+# The port's tests work on small tensors, where torch's intra-op threads
+# only spin: one thread leaves the cores to the other test workers.
+torch.set_num_threads(1)
+
 P = fe.P_INT
 EDGE_INTS = [0, 1, P - 1, P, P + 1, 2 * P - 1, 2**255 - 1, 2**256 - 1]
 
@@ -71,6 +75,16 @@ def test_field_op_matches_python_ints(name):
         assert _value(rg) < 2**256
 
 
+def test_pow22523_matches_python_ints():
+    """Limb for limb with the JAX chain through decompression
+    (``test_torch_sha512.py``); here its value, which needs no JAX."""
+    a = _operands(seed=6)
+    got = fe.pow22523(torch.from_numpy(a)).numpy()
+    assert got.min() >= 0 and got.max() <= fe.SLACK_MAX
+    for ra, rg in zip(a, got):
+        assert _value(rg) % P == pow(_value(ra), (P - 5) // 8, P)
+
+
 def test_canonical_eq_select_match_reference():
     a = _operands(seed=5)
     b = np.concatenate([a[1:], a[:1]])
@@ -83,6 +97,10 @@ def test_canonical_eq_select_match_reference():
     np.testing.assert_array_equal(
         fe.eq(ta, tb).numpy(), np.asarray(ref.eq(jnp.asarray(a), jnp.asarray(b)))
     )
+    np.testing.assert_array_equal(
+        fe.is_zero(ta).numpy(), np.asarray(ref.is_zero(jnp.asarray(a)))
+    )
+    assert fe.is_zero(ta).sum() == 2  # the rows of 0 and p
     # p and 0 are one field element in two representations.
     p_vs_0 = fe.eq(torch.from_numpy(fe.P_LIMBS), torch.from_numpy(fe.ZERO))
     assert bool(p_vs_0)
@@ -114,10 +132,12 @@ def test_packing_and_constants_match_reference():
 
 
 def test_cuda_constant_block_matches_the_pallas_kernels_constants():
-    """Every constant the CUDA kernel reads, slot by slot, against the TPU
-    kernel's own const block (bias, 2d, digits of p and 2p, [0..8]B)."""
+    """Every constant the CUDA kernels read, slot by slot, against the TPU
+    kernels' own const block (bias, 2d, digits of p and 2p, [0..8]B, then
+    d and sqrt(-1), which the wire kernels' decompression reads)."""
     block = ed25519_cuda.consts_block()
-    bias, k2d, pdig, p2dig, _d, _sqrtm1, byp, bym, bt2 = (
+    assert block.shape == (ed25519_cuda.CONSTS_LEN,)
+    bias, k2d, pdig, p2dig, d, sqrtm1, byp, bym, bt2 = (
         np.asarray(c) for c in ref_pallas_consts()
     )
     n = fe.N_LIMBS
@@ -125,8 +145,11 @@ def test_cuda_constant_block_matches_the_pallas_kernels_constants():
     np.testing.assert_array_equal(block[n:2 * n], k2d[:, 0])
     np.testing.assert_array_equal(block[2 * n:3 * n], pdig[:, 0])
     np.testing.assert_array_equal(block[3 * n:4 * n], p2dig[:, 0])
-    tab = block[4 * n:].reshape(3, 9, n)
+    tab = block[4 * n:4 * n + 27 * n].reshape(3, 9, n)
     for plane, want in zip(tab, (byp, bym, bt2)):
         np.testing.assert_array_equal(plane, want.T)
+    np.testing.assert_array_equal(block[31 * n:32 * n], d[:, 0])
+    np.testing.assert_array_equal(block[32 * n:33 * n], sqrtm1[:, 0])
+    assert block.shape == (33 * n,)
     for got, want in zip(ed25519_cuda._b_niels_np(16), ref_b_niels(16)):
         np.testing.assert_array_equal(got, want)

@@ -7,6 +7,7 @@ same final heights as the reference ``Simulation`` with its host verifier.
 """
 
 import pytest
+import torch
 
 from hyperdrive_tpu.crypto.keys import KeyRing as RefKeyRing
 from hyperdrive_tpu.harness import Simulation as RefSimulation
@@ -14,6 +15,10 @@ from hyperdrive_tpu.verifier import HostVerifier as RefHostVerifier
 from hyperdrive_tpu_torch.harness import Simulation
 from hyperdrive_tpu_torch.ops.ed25519 import TorchBatchVerifier
 from hyperdrive_tpu_torch.verifier import HostVerifier
+
+# The port's tests work on small tensors, where torch's intra-op threads
+# only spin: one thread leaves the cores to the other test workers.
+torch.set_num_threads(1)
 
 ARGS = dict(n=4, target_height=3, sign=True, burst=True, dedup_verify=True,
             small_window_host=False)
