@@ -19,7 +19,10 @@ Phases, each printing its lines:
      the edge encodings as R and lanes on a table slot that holds a bogus
      pubkey;
    each with a 256-lane sample against the host oracle, kernel and plain
-   times (CUDA events), the operation bound and its share;
+   times (CUDA events), threads per signature, the operation bound (the
+   multiply instructions of the 8 x 32-bit field for the same work) and
+   its share; then the 256-lane time of each wire kernel over
+   ``ed25519_verify``'s in the same run;
 3. the challenge leg (SHA-512 and mod-L reduction as PyTorch ops) on the
    card: k rows equal the host's challenge scalars; its time at 256 and
    4,096 lanes;
@@ -64,6 +67,8 @@ IMAD_PER_SM_CLOCK = 64
 #: Device memory rate of an H100 SXM (NVIDIA's data sheet), bytes/s.
 HBM_BYTES_PER_S = 3.35e12
 BOGUS = b"\xff" * 32  # y >= p: never decompresses
+#: Threads that verify one signature, per kernel.
+THREADS_PER_SIG = {"ed25519_verify": 1, "ed25519_wire": 4, "ed25519_semiwire": 4}
 KERNELS = {
     "ed25519_verify": ("hyperdrive_tpu_torch/csrc/ed25519_verify.cu",
                        "hyperdrive_tpu/ops/ed25519_pallas.py:373"),
@@ -89,39 +94,61 @@ def sm_clock_mhz() -> float:
     return float(out)
 
 
-# 32-bit multiply(-add)s of the field operations of csrc/fe25519.cuh under
-# 20 x 13-bit limbs: fe_mul 400 products + 23 fold multiplies, fe_sqr
-# 210 + 23, fe_mul_small 20 + 4, add/sub/neg 2 fold multiplies,
-# fe_is_zero_mod_p 22, fe_canonical 2.
-MUL, SQR, SMALL, ADDLIKE, ZERO, CANON = 423, 233, 24, 2, 22, 2
+# Multiply instructions of the field operations of csrc/fe25519_w32.cuh (8
+# x 32-bit limbs on carry chains): a product is 64 low and 64 high halves
+# plus the fold's 16 + 2, a squaring 28 cross products (56 halves), 8
+# squares (16) and the fold; an addition folds its carry twice as 38 * c;
+# a subtraction folds its borrow with a mask; a canonical reduction
+# multiplies bit 255 by 19; a table row of 20 x 13-bit limbs converts with
+# one addition and one x38. The bound counts the work of one signature once
+# (the reference's formulas, 2Z as an addition), in these costs, for all
+# three kernels: the copies that the four-thread layout runs on idle
+# threads are not counted, so it stays a lower bound.
+MUL, SQR, ADD, SUB, CANON, LIMBS13 = 146, 90, 2, 0, 1, 3
+
+
+def _dbl(need_t: bool) -> int:
+    """_dbl: 4 squarings, 3 products (4 with T), X + Y, 2 Z^2 and G as
+    additions, -A, E (two), F and H as subtractions."""
+    return 4 * SQR + (4 if need_t else 3) * MUL + 3 * ADD + 5 * SUB
+
+
+def _padd() -> int:
+    """_padd with T: 8 products; Y + X, 2 Z z, G, H; Y - X, E, F."""
+    return 8 * MUL + 4 * ADD + 3 * SUB
+
+
+def _madd(need_t: bool) -> int:
+    """_madd: 6 products (7 with T); Y + X, 2 Z, G, H; Y - X, E, F."""
+    return (7 if need_t else 6) * MUL + 4 * ADD + 3 * SUB
 
 
 def imad_ladder() -> int:
-    """One signature's ladder: the [0..8]A' table (66 mul, 8 mul_small,
-    68 add-like), 64 windows of 4 doublings, one projective and one affine
-    addition (16 sqr, 27 mul, 6 mul_small, 42 add-like each), and the
-    check (2 mul, 2 sub, 2 zero tests)."""
-    table = 66 * MUL + 8 * SMALL + 68 * ADDLIKE
-    window = 16 * SQR + 27 * MUL + 6 * SMALL + 42 * ADDLIKE
-    check = 2 * MUL + 2 * ADDLIKE + 2 * ZERO
+    """One signature's ladder: A' in niels form (1 product, 1 addition, 1
+    subtraction), the [0..8]A' table (9 entries of 1 product, 2 additions
+    and 1 subtraction; 8 affine additions with T), 64 windows of 4
+    doublings, one projective and one affine addition and 2 entry
+    negations, and the check (2 products, 2 subtractions, 2 canonical
+    reductions)."""
+    table = MUL + ADD + SUB + 9 * (MUL + 2 * ADD + SUB) + 8 * _madd(True)
+    window = 3 * _dbl(False) + _dbl(True) + _padd() + _madd(False) + 2 * SUB
+    check = 2 * MUL + 2 * SUB + 2 * CANON
     return table + 64 * window + check
 
 
 def imad_decompress() -> int:
-    """One decompression (csrc/decompress.cuh): 255 squarings and 17
-    multiplications (251 and 11 of them in the pow22523 chain), 4
-    add-likes, 3 zero tests and one canonical reduction. The sqrt(-1)
-    multiply and the final negation run only on the lanes whose data
-    needs them and are not counted, so this stays a lower bound."""
-    return 255 * SQR + 17 * MUL + 4 * ADDLIKE + 3 * ZERO + CANON
+    """One decompression (csrc/decompress.cuh): 255 squarings and 18
+    products (251 and 11 of them in the pow22523 chain), 2 additions, 3
+    subtractions and 4 canonical reductions (3 zero tests, the parity)."""
+    return 255 * SQR + 18 * MUL + 2 * ADD + 3 * SUB + 4 * CANON
 
 
 def imad_per_signature(kernel: str) -> int:
     if kernel == "ed25519_verify":
         return imad_ladder()
     if kernel == "ed25519_wire":  # two decompressions, -A and t = x' * y
-        return imad_ladder() + 2 * imad_decompress() + ADDLIKE + MUL
-    return imad_ladder() + imad_decompress()
+        return imad_ladder() + 2 * imad_decompress() + SUB + MUL
+    return imad_ladder() + imad_decompress() + 3 * LIMBS13
 
 
 #: Bytes each lane reads and writes once: packed limbs 5 x 80 + 2 x 256
@@ -273,7 +300,8 @@ def compare_sizes(kernel: str, pool, run_kernel, run_plain, sizes, rng,
         b_ms, b_by = bound_ms(kernel, size, clock_mhz, sms)
         rows[size] = {"ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
                       "bound_by": b_by, "err": err}
-        print(f"kernel {kernel}: lanes={size} launches={len(parts)} kernel_ms={k_ms:.4f} "
+        print(f"kernel {kernel}: lanes={size} threads_per_sig={THREADS_PER_SIG[kernel]} "
+              f"launches={len(parts)} kernel_ms={k_ms:.4f} "
               f"plain_ms={p_ms:.2f} sigs_per_s={size / k_ms * 1e3:.0f} "
               f"bound_ms={b_ms:.4f} bound_by={b_by} bound_share={b_ms / k_ms:.4f} "
               f"valid_lanes={int(k_mask.sum())} mismatches=0", flush=True)
@@ -539,6 +567,10 @@ def main() -> int:
     phase_card()
     rows = {"ed25519_verify": phase_verify_kernel(clock, sms)}
     rows["ed25519_wire"], rows["ed25519_semiwire"], state = phase_wire_kernels(clock, sms)
+    base = rows["ed25519_verify"][PATH_LANES]["ms"]
+    print(f"redesign: {PATH_LANES}-lane kernel time over ed25519_verify's in this run: "
+          + " ".join(f"{k}={rows[k][PATH_LANES]['ms'] / base:.4f}"
+                     for k in ("ed25519_wire", "ed25519_semiwire")), flush=True)
     phase_challenge(state)
     launches = phase_main_path()
     table = []

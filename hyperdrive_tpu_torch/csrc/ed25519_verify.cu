@@ -61,15 +61,6 @@ hd_ed25519_verify_kernel(const int32_t* __restrict__ ax,
     ok[lane] = hd_ladder_ok(lax_, lay, lat, lrx, lry, sd, kd, btab) ? 1 : 0;
 }
 
-// Upload the constant block (layout in fe25519.cuh) to `device`. Returns a
-// cudaError_t. The library links its own CUDA runtime, whose current
-// device is per runtime, so every entry point selects the device itself.
-extern "C" int hd_ed25519_set_consts(int device, const int32_t* host) {
-    cudaError_t err = cudaSetDevice(device);
-    if (err != cudaSuccess) return (int)err;
-    return (int)cudaMemcpyToSymbol(hd_consts, host, sizeof(int32_t) * HD_C_TOTAL);
-}
-
 // Enqueue one verification of n lanes on `stream` of `device`; never
 // synchronizes. `ok` receives 0/1 per lane. Returns cudaGetLastError()
 // after the launch (0 = launched).

@@ -1,105 +1,100 @@
 // Batched Ed25519 verification from wire bytes on Hopper: the ports of the
 // TPU kernels _wire_kernel_body / _wire_kernel_inner (hyperdrive_tpu/ops/
 // ed25519_pallas.py:486/493) and _semiwire_kernel_body /
-// _semiwire_kernel_inner (:522/529). Both run the ladder of ladder.cuh,
-// the one shared with ed25519_verify.cu, after decompress.cuh.
+// _semiwire_kernel_inner (:522/529), on the field of fe25519_w32.cuh, the
+// decompression of decompress.cuh and the four-thread ladder of
+// ladder4.cuh.
 //
 // Layout: the wire packer's rows go in as they are, [B, 32] uint8 A, R, s
 // and k rows (and for the semiwire kernel an int32 [B] table index plus the
-// validator table's [V, 20] int32 -A coordinates and [V] bool valid mask).
-// Each thread unpacks its own rows (limbs_from_rows: bit 255 cleared and
-// taken as the sign; the nibble split; the signed recode), one thread per
-// signature, HD_WIRE_THREADS threads a block, a masked tail. The TPU layout
-// (limb-major [20, block] tiles, the VMEM table scratch, the block-multiple
-// batch) is not carried over. The semiwire kernel reads its table row by
-// index itself and ANDs the slot's valid bit; an index outside [0, V)
-// reads nothing and rejects (the wrapper's caller checks indices on the
-// host before upload, so this costs no synchronization).
+// validator table's [V, 20] int32 -A coordinates, 13-bit limbs, and [V]
+// bool valid mask). Four consecutive threads verify one signature; a block
+// is one warp, 8 signatures, and there are ceil(B / 8) blocks. The TPU
+// layout (limb-major [20, block] tiles, the VMEM table scratch, the
+// block-multiple batch) is not carried over.
 //
-// What bounds them: integer multiplies, as for ed25519_verify.cu. The
-// ladder is about 1.0M 32-bit multiply-adds a signature; each
-// decompression adds 255 squarings and 18 multiplications (about 67k
-// more). The wire kernel decompresses two points, the semiwire kernel one.
-// Bytes (128 B in a lane for the wire kernel, about 68 B plus the table
-// row for the semiwire kernel, 1 B out) are negligible. At the main path's
-// shapes (one 256-lane vote window, 8 warps) the time is set by each
-// thread's dependent chain, far above that bound. The design keeps
-// ed25519_verify.cu's answers (unrolled field loops, one-warp blocks so a
-// small batch spreads over SMs, the B table staged into shared memory) and
-// keeps the decompression and its pow22523 chain out of line with rolled
-// squaring loops, so the kernels add little to the ladder's registers and
-// code. Splitting a signature across threads is later work.
+// What bounds them: 32-bit multiply instructions. A signature's ladder is
+// about 2,800 field multiplications or squarings and a decompression 273
+// more; bytes are 129 a lane (wire) and 342 (semiwire: idx, R, s, k rows,
+// the table row and its valid byte), about 1e-3 of the time. The design
+// cuts the multiplies and the dependent chain: full-radix 32-bit limbs on
+// carry chains (146 multiply instructions a product against the TPU
+// field's 423), the four products of each round of a point formula on four
+// threads at once, the wire kernel's two decompressions side by side (A on
+// threads 0 and 2, R on 1 and 3), and no local memory: field elements in
+// registers, the [0..8]A' table, the B table and the signed digits in
+// shared memory.
+//
+// Why not tensor cores or TMA: every signature multiplies its own pair of
+// 256-bit numbers, a batch of independent products with no shared operand,
+// not a matrix product; and the input bytes take about 1e-3 of the time.
+//
+// No thread returns before the last shuffle: a lane past the batch works
+// on lane 0's rows and a semiwire lane whose index lies outside the table
+// on zeros; only their store is dropped or their verdict forced to 0.
 #include <cuda_runtime.h>
 
 #include "decompress.cuh"
-#include "ladder.cuh"
+#include "ladder4.cuh"
 
 constexpr int HD_WIRE_THREADS = 32;
+constexpr int HD_WIRE_SIGS = HD_WIRE_THREADS / L4_GROUP;
 
-// limbs_from_rows for one 32-byte little-endian field encoding: 20 limbs of
-// 13 bits with bit 255 cleared. Returns the sign (bit 255).
-HD_INL int hd_limbs_from_row(int32_t* y, const uint8_t* __restrict__ row) {
-    int32_t b[34];
-    #pragma unroll
-    for (int i = 0; i < 32; ++i) b[i] = row[i];
-    int sign = b[31] >> 7;
-    b[31] &= 0x7F;
-    b[32] = 0;
-    b[33] = 0;
-    #pragma unroll
-    for (int i = 0; i < FE_N; ++i) {
-        const int bit = 13 * i, byte = bit >> 3, off = bit & 7;
-        int32_t v = b[byte] | (b[byte + 1] << 8) | (b[byte + 2] << 16);
-        y[i] = (v >> off) & FE_MASK;
-    }
-    return sign;
+// The block's shared tables: the B planes, each thread's component of
+// [0..8]A', and each group's signed digits of s and k.
+struct hd_wire_shared {
+    uint32_t btab[HD_W_BTAB_LEN];
+    uint32_t atab[L4_ENTRIES * 8 * HD_WIRE_THREADS];
+    int8_t dig[HD_WIRE_SIGS][2][64];
+};
+
+HD_INL void hd_stage_btab(hd_wire_shared& sm) {
+    for (int i = threadIdx.x; i < HD_W_BTAB_LEN; i += blockDim.x)
+        sm.btab[i] = hd_consts_w32[HD_W_BTAB + i];
 }
 
-// nibbles_from_rows and the signed recode of one 32-byte little-endian
-// scalar.
-HD_INL void hd_recode_row(int8_t* out, const uint8_t* __restrict__ row) {
-    int32_t nib[64];
-    #pragma unroll
-    for (int i = 0; i < 32; ++i) {
-        int32_t b = row[i];
-        nib[2 * i] = b & 0xF;
-        nib[2 * i + 1] = b >> 4;
-    }
-    hd_recode_signed(out, nib);
+// Threads 0 and 1 of the group recode s and k into the group's digits.
+HD_INL void hd_stage_digits(hd_wire_shared& sm, int g, int j,
+                            const uint8_t* s_row, const uint8_t* k_row) {
+    if (j < 2) l4_recode(sm.dig[g][j], j == 0 ? s_row : k_row);
 }
 
 // ok = ladder && ok_A && ok_R, with A and R decompressed here and A negated
-// (x -> p - x, t = x' * y), as the packed path's host packer does.
+// (x -> -x, t = x' y), as the packed path's host packer does.
 __global__ void __launch_bounds__(HD_WIRE_THREADS)
 hd_ed25519_wire_kernel(const uint8_t* __restrict__ a_rows,
                        const uint8_t* __restrict__ r_rows,
                        const uint8_t* __restrict__ s_rows,
                        const uint8_t* __restrict__ k_rows,
                        uint8_t* __restrict__ ok, int n) {
-    __shared__ int32_t btab[HD_C_BTAB_LEN];
-    for (int i = threadIdx.x; i < HD_C_BTAB_LEN; i += blockDim.x)
-        btab[i] = hd_consts[HD_C_BTAB + i];
+    __shared__ hd_wire_shared sm;
+    hd_stage_btab(sm);
+    const int j = threadIdx.x & (L4_GROUP - 1);
+    const int g = threadIdx.x / L4_GROUP;
+    const int sig = blockIdx.x * HD_WIRE_SIGS + g;
+    const bool live = sig < n;
+    const size_t r32 = (size_t)(live ? sig : 0) * 32;
+    hd_stage_digits(sm, g, j, s_rows + r32, k_rows + r32);
     __syncthreads();
 
-    int lane = blockIdx.x * blockDim.x + threadIdx.x;
-    if (lane >= n) return;
-    size_t r32 = (size_t)lane * 32;
-    int32_t ay[FE_N], ry[FE_N], nax[FE_N], rx[FE_N], nat[FE_N];
-    int a_sign = hd_limbs_from_row(ay, a_rows + r32);
-    int r_sign = hd_limbs_from_row(ry, r_rows + r32);
-    bool ok_a = hd_decompress(nax, ay, a_sign);
-    bool ok_r = hd_decompress(rx, ry, r_sign);
-    fe_neg(nax, nax);
-    fe_mul(nat, nax, ay);
-    int8_t sd[64], kd[64];
-    hd_recode_row(sd, s_rows + r32);
-    hd_recode_row(kd, k_rows + r32);
-    bool ok_l = hd_ladder_ok(nax, ay, nat, rx, ry, sd, kd, btab);
-    ok[lane] = (ok_l && ok_a && ok_r) ? 1 : 0;
+    fe8 py, px;
+    int sign = fe8_from_row(py, ((j & 1) ? r_rows : a_rows) + r32);
+    bool pok = fe8_decompress(px, py, sign);
+    fe8 nax = fe8_neg(l4_shfl(px, 0));
+    fe8 ay = l4_shfl(py, 0);
+    fe8 rx = l4_shfl(px, 1);
+    fe8 ry = l4_shfl(py, 1);
+    bool ok_a = l4_shfl_bool(pok, 0);
+    bool ok_r = l4_shfl_bool(pok, 1);
+    fe8 nat = fe8_mul(nax, ay);
+    bool ok_l = l4_ladder_ok(nax, ay, nat, rx, ry, sm.dig[g][0], sm.dig[g][1],
+                             sm.atab, sm.btab);
+    if (j == 0 && live) ok[sig] = (ok_l && ok_a && ok_r) ? 1 : 0;
 }
 
 // ok = ladder && ok_R && tvalid[idx], with -A read from the validator table
-// row idx and R decompressed here.
+// row idx (converted to the 8 x 32-bit field by value) and R decompressed
+// here on all four threads of the group.
 __global__ void __launch_bounds__(HD_WIRE_THREADS)
 hd_ed25519_semiwire_kernel(const int32_t* __restrict__ idx,
                            const uint8_t* __restrict__ r_rows,
@@ -110,34 +105,36 @@ hd_ed25519_semiwire_kernel(const int32_t* __restrict__ idx,
                            const int32_t* __restrict__ tnat,
                            const uint8_t* __restrict__ tvalid, int n_table,
                            uint8_t* __restrict__ ok, int n) {
-    __shared__ int32_t btab[HD_C_BTAB_LEN];
-    for (int i = threadIdx.x; i < HD_C_BTAB_LEN; i += blockDim.x)
-        btab[i] = hd_consts[HD_C_BTAB + i];
+    __shared__ hd_wire_shared sm;
+    hd_stage_btab(sm);
+    const int j = threadIdx.x & (L4_GROUP - 1);
+    const int g = threadIdx.x / L4_GROUP;
+    const int sig = blockIdx.x * HD_WIRE_SIGS + g;
+    const bool live = sig < n;
+    const size_t r32 = (size_t)(live ? sig : 0) * 32;
+    hd_stage_digits(sm, g, j, s_rows + r32, k_rows + r32);
     __syncthreads();
 
-    int lane = blockIdx.x * blockDim.x + threadIdx.x;
-    if (lane >= n) return;
-    int v = idx[lane];
-    if (v < 0 || v >= n_table) {
-        ok[lane] = 0;
-        return;
+    const int v = live ? idx[sig] : -1;
+    const bool in_table = v >= 0 && v < n_table;
+    fe8 nax = fe8_small(0), ay = fe8_small(0), nat = fe8_small(0);
+    bool valid = false;
+    if (in_table) {
+        const size_t t20 = (size_t)v * 20;
+        nax = fe8_from_limbs13(tnax + t20);
+        ay = fe8_from_limbs13(tay + t20);
+        nat = fe8_from_limbs13(tnat + t20);
+        valid = tvalid[v] != 0;
     }
-    size_t r32 = (size_t)lane * 32;
-    size_t t20 = (size_t)v * FE_N;
-    int32_t nax[FE_N], ay[FE_N], nat[FE_N], ry[FE_N], rx[FE_N];
-    for (int i = 0; i < FE_N; ++i) {
-        nax[i] = tnax[t20 + i];
-        ay[i] = tay[t20 + i];
-        nat[i] = tnat[t20 + i];
-    }
-    int r_sign = hd_limbs_from_row(ry, r_rows + r32);
-    bool ok_r = hd_decompress(rx, ry, r_sign);
-    int8_t sd[64], kd[64];
-    hd_recode_row(sd, s_rows + r32);
-    hd_recode_row(kd, k_rows + r32);
-    bool ok_l = hd_ladder_ok(nax, ay, nat, rx, ry, sd, kd, btab);
-    ok[lane] = (ok_l && ok_r && tvalid[v]) ? 1 : 0;
+    fe8 ry, rx;
+    int r_sign = fe8_from_row(ry, r_rows + r32);
+    bool ok_r = fe8_decompress(rx, ry, r_sign);
+    bool ok_l = l4_ladder_ok(nax, ay, nat, rx, ry, sm.dig[g][0], sm.dig[g][1],
+                             sm.atab, sm.btab);
+    if (j == 0 && live) ok[sig] = (ok_l && ok_r && valid) ? 1 : 0;
 }
+
+static int hd_wire_blocks(int n) { return (n + HD_WIRE_SIGS - 1) / HD_WIRE_SIGS; }
 
 // Enqueue one wire verification of n lanes on `stream` of `device`; never
 // synchronizes. Returns cudaGetLastError() after the launch (0 = launched).
@@ -148,8 +145,7 @@ extern "C" int hd_ed25519_wire_verify(int device, const uint8_t* a_rows,
     if (n <= 0) return 0;
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return (int)err;
-    int blocks = (n + HD_WIRE_THREADS - 1) / HD_WIRE_THREADS;
-    hd_ed25519_wire_kernel<<<blocks, HD_WIRE_THREADS, 0, (cudaStream_t)stream>>>(
+    hd_ed25519_wire_kernel<<<hd_wire_blocks(n), HD_WIRE_THREADS, 0, (cudaStream_t)stream>>>(
         a_rows, r_rows, s_rows, k_rows, ok, n);
     return (int)cudaGetLastError();
 }
@@ -165,8 +161,8 @@ extern "C" int hd_ed25519_semiwire_verify(int device, const int32_t* idx,
     if (n <= 0) return 0;
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return (int)err;
-    int blocks = (n + HD_WIRE_THREADS - 1) / HD_WIRE_THREADS;
-    hd_ed25519_semiwire_kernel<<<blocks, HD_WIRE_THREADS, 0, (cudaStream_t)stream>>>(
+    hd_ed25519_semiwire_kernel<<<hd_wire_blocks(n), HD_WIRE_THREADS, 0,
+                                 (cudaStream_t)stream>>>(
         idx, r_rows, s_rows, k_rows, tnax, tay, tnat, tvalid, n_table, ok, n);
     return (int)cudaGetLastError();
 }

@@ -1,45 +1,53 @@
 """The hand-written Hopper Ed25519 verify kernels: build, binding, wrappers.
 
 Three kernels, one per TPU kernel of the JAX package
-(``hyperdrive_tpu/ops/ed25519_pallas.py``), all on the one ladder of
-``csrc/ladder.cuh`` and the field of ``csrc/fe25519.cuh``, one thread per
-signature:
+(``hyperdrive_tpu/ops/ed25519_pallas.py``):
 
 - ``ed25519_verify`` (``csrc/ed25519_verify.cu``) replaces
   ``_verify_kernel_body`` / ``_verify_kernel_inner`` (``:373/:380``):
   packed, host-decompressed limbs. Plain version
-  :func:`~hyperdrive_tpu_torch.ops.ed25519.verify_plain`.
+  :func:`~hyperdrive_tpu_torch.ops.ed25519.verify_plain`. One thread a
+  signature, on the ladder of ``csrc/ladder.cuh`` and the TPU's field of
+  ``csrc/fe25519.cuh`` (20 x 13-bit limbs), its [0..8]A' table a
+  per-thread array in local memory.
 - ``ed25519_wire`` (``csrc/ed25519_wire.cu``) replaces
   ``_wire_kernel_body`` / ``_wire_kernel_inner`` (``:486/:493``): raw
   [B, 32] uint8 A, R, s, k rows, both points decompressed in the kernel
-  (``csrc/decompress.cuh``). Plain version
+  (``csrc/decompress.cuh``), A on threads 0 and 2 of a group while R runs
+  on threads 1 and 3. Plain version
   :func:`~hyperdrive_tpu_torch.ops.ed25519_wire.wire_verify_plain`.
 - ``ed25519_semiwire`` (``csrc/ed25519_wire.cu``) replaces
   ``_semiwire_kernel_body`` / ``_semiwire_kernel_inner`` (``:522/:529``):
-  -A read from the resident validator table by index, R decompressed in
-  the kernel. Plain version
+  -A read from the resident validator table by index (its 13-bit limbs
+  converted by value), R decompressed in the kernel. Plain version
   :func:`~hyperdrive_tpu_torch.ops.ed25519_wire.semiwire_verify_plain`.
 
-What bounds them on the card: 32-bit integer multiplies. A signature's
-ladder is about 2,800 field multiplications or squarings of 20 x 13-bit
-limbs, about 1.0M multiply-adds with the carry folds; a decompression adds
-273 more field operations. Bytes in are at most ~912 a lane, so the byte
-bound is negligible. At the main path's shapes (256-lane vote windows, 8
-warps) the time is set by each thread's dependent chain and its per-thread
-table in local memory, far above the multiply bound. The design reads each
-input once, unrolls the field loops so product columns stay in registers,
-runs one warp per block so small batches spread over SMs, stages the
-constant B table into shared memory, and launches on PyTorch's current
-stream without synchronizing. Splitting a signature across threads, or
-fewer and wider limbs, is later work.
+The two wire kernels run on the field of ``csrc/fe25519_w32.cuh`` (8 x
+32-bit limbs in full radix on PTX carry chains: 146 multiply instructions
+a product against 423 for 20 x 13-bit limbs) and the ladder of
+``csrc/ladder4.cuh``: four threads a signature, thread j owning coordinate
+j of (X, Y, Z, T), each point formula two rounds of four products
+exchanged by warp shuffles; the [0..8]A' table, the B table and the
+signed digits in shared memory, field elements in registers. A block is
+one warp, 8 signatures.
+
+What bounds them on the card: 32-bit multiply instructions; bytes in are
+at most ~912 a lane, negligible. At the main path's shape (one 256-lane
+vote window) every kernel is latency-bound, far above that bound: the
+time is the dependent chain of one signature. Times, bounds and launches
+on the card are in ``PERF.md`` (``chip_smoke.py``, NVIDIA H100 80GB HBM3,
+700.00 W).
 
 Build: at first use, ``nvcc`` compiles ``csrc/ed25519_kernels.cu`` (the
-one translation unit that includes every kernel, so there is one constant
-block per device) into a shared library with a plain C interface under
-``hyperdrive_tpu_torch/_build/``, keyed on a hash of all the sources, and
-``ctypes`` binds it. A CUDA tensor launches the kernel or raises, with the
-launch's ``cudaGetLastError`` checked; a CPU tensor takes the plain
-version. There is no fallback from one to the other.
+one translation unit that includes every kernel, so each constant block
+has one copy per device and one upload) into a shared library with a
+plain C interface under ``hyperdrive_tpu_torch/_build/``, keyed on a hash
+of all the sources, and ``ctypes`` binds it. The constant blocks are
+:func:`consts_block` (20 x 13-bit limbs) and :func:`consts_block_w32` (8 x
+32-bit limbs), built from the same integers. A CUDA tensor launches the
+kernel or raises, with the launch's ``cudaGetLastError`` checked; a CPU
+tensor takes the plain version. There is no fallback from one to the
+other.
 """
 
 from __future__ import annotations
@@ -72,8 +80,9 @@ __all__ = [
 _PKG = pathlib.Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 SOURCES = (
-    "fe25519.cuh", "ladder.cuh", "decompress.cuh",
-    "ed25519_verify.cu", "ed25519_wire.cu", "ed25519_kernels.cu",
+    "fe25519.cuh", "ladder.cuh", "fe25519_w32.cuh", "ladder4.cuh",
+    "decompress.cuh", "ed25519_verify.cu", "ed25519_wire.cu",
+    "ed25519_kernels.cu",
 )
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = (
@@ -84,6 +93,11 @@ NVCC_FLAGS = (
 #: Entries of the constant block, in the layout ``csrc/fe25519.cuh``
 #: declares (HD_C_*).
 CONSTS_LEN = 80 + 3 * 9 * fe.N_LIMBS + 2 * fe.N_LIMBS
+#: Limbs of the 8 x 32-bit field (``csrc/fe25519_w32.cuh``).
+W32_LIMBS = 8
+#: Entries of the second constant block, in the layout
+#: ``csrc/fe25519_w32.cuh`` declares (HD_W_*).
+CONSTS_W32_LEN = 4 * W32_LIMBS + 3 * 9 * W32_LIMBS
 
 
 class KernelStats:
@@ -124,6 +138,34 @@ def consts_block() -> np.ndarray:
     ).astype(np.int32)
     if block.shape != (CONSTS_LEN,):
         raise AssertionError("constant block layout drifted from fe25519.cuh")
+    return block
+
+
+def _words32(values) -> np.ndarray:
+    """Integers in [0, 2^256) -> [..., 8] uint32 little-endian limbs."""
+    vals = np.asarray(values, dtype=object)
+    out = np.zeros(vals.shape + (W32_LIMBS,), dtype=np.uint32)
+    for pos, v in np.ndenumerate(vals):
+        v = int(v)
+        if not 0 <= v < 1 << 256:
+            raise ValueError(f"{v} is outside [0, 2^256)")
+        out[pos] = [(v >> (32 * k)) & 0xFFFFFFFF for k in range(W32_LIMBS)]
+    return out
+
+
+def consts_block_w32() -> np.ndarray:
+    """The wire kernels' constant block, from the same integers as
+    :func:`consts_block`: p, 2d, d, sqrt(-1), then the [0..8]B niels
+    planes (y+x, y-x, 2d*x*y), each [9, 8], all as canonical values in
+    uint32 limbs."""
+    ints = [fe.P_INT, fe.from_limbs(K2D_LIMBS), fe.from_limbs(wire.D_LIMBS),
+            fe.from_limbs(wire.SQRTM1_LIMBS)]
+    planes = [[fe.from_limbs(row) for row in plane] for plane in _b_niels_np(9)]
+    block = np.concatenate(
+        [_words32(ints).ravel(), _words32(planes).ravel()]
+    ).astype(np.uint32)
+    if block.shape != (CONSTS_W32_LEN,):
+        raise AssertionError("constant block layout drifted from fe25519_w32.cuh")
     return block
 
 
@@ -176,7 +218,7 @@ class _Library:
         self.lib = ctypes.CDLL(str(path))
         vp = ctypes.c_void_p
         ci = ctypes.c_int
-        self.lib.hd_ed25519_set_consts.argtypes = [ci, vp]
+        self.lib.hd_ed25519_set_consts.argtypes = [ci, vp, vp]
         self.lib.hd_ed25519_set_consts.restype = ci
         self.lib.hd_ed25519_verify.argtypes = [ci] + [vp] * 8 + [ci, vp]
         self.lib.hd_ed25519_verify.restype = ci
@@ -188,12 +230,14 @@ class _Library:
         self.lib.hd_ed25519_semiwire_verify.restype = ci
         self.ready: set = set()
         self._consts = consts_block()
+        self._consts_w32 = consts_block_w32()
 
     def upload_consts(self, index: int) -> None:
         if index in self.ready:
             return
         rc = self.lib.hd_ed25519_set_consts(
-            index, self._consts.ctypes.data_as(ctypes.c_void_p)
+            index, self._consts.ctypes.data_as(ctypes.c_void_p),
+            self._consts_w32.ctypes.data_as(ctypes.c_void_p),
         )
         if rc != 0:
             raise RuntimeError(f"constant upload failed: cudaError {rc}")

@@ -142,6 +142,60 @@ def test_from_reference_round_trips():
     np.testing.assert_array_equal(valid.numpy(), port_valid)
 
 
+# The four-thread schedule of csrc/ladder4.cuh in Python integers: thread j
+# owns coordinate j of (X, Y, Z, T); each formula is one product a thread,
+# then E, F, G, H from the four, then one product a thread again.
+_P = ref_ed.P
+_K2D = 2 * ref_ed.D % _P
+
+
+def _round2(e, f, g, h):
+    return tuple(l * r % _P for l, r in ((e, f), (g, h), (f, g), (e, h)))
+
+
+def _sched_dbl(pt):
+    x, y, z, _ = pt
+    a, b, zz, s = (v * v % _P for v in (x, y, z, x + y))
+    d = -a
+    g = d + b
+    return _round2(s - a - b, g - 2 * zz, g, d - b)
+
+
+def _sched_add(pt, q):
+    """``q``: the threads' components of the niels entry (ym, yp, 2z,
+    2d t)."""
+    x, y, z, t = pt
+    a, b, d, c = (v * w % _P for v, w in zip((y - x, y + x, z, t), q))
+    return _round2(b - a, d - c, d + c, b + a)
+
+
+def _affine(pt):
+    zi = pow(pt[2], _P - 2, _P)
+    return pt[0] * zi % _P, pt[1] * zi % _P
+
+
+def test_four_thread_schedule_matches_host_point_arithmetic():
+    rng = np.random.default_rng(31)
+    pts = [ref_ed.scalar_mult(int(rng.integers(1, 2**62)), ref_ed.BASE) for _ in range(3)]
+    pts.append(ref_ed.IDENTITY)
+    for p, q in zip(pts, pts[1:] + pts[:1]):
+        qx, qy = _affine(q)
+        niels = ((q[1] - q[0]) % _P, (q[1] + q[0]) % _P, 2 * q[2] % _P, _K2D * q[3] % _P)
+        cases = [
+            (_sched_dbl(p), ref_ed.point_double(p)),
+            (_sched_add(p, niels), ref_ed.point_add(p, q)),
+            # A negative digit: swap ym and yp, negate 2d t.
+            (_sched_add(p, (niels[1], niels[0], niels[2], -niels[3] % _P)),
+             ref_ed.point_add(p, ((-q[0]) % _P, q[1], q[2], (-q[3]) % _P))),
+            # An affine entry (z = 1): thread 2 multiplies Z by 2.
+            (_sched_add(p, ((qy - qx) % _P, (qy + qx) % _P, 2, _K2D * qx * qy % _P)),
+             ref_ed.point_add(p, q)),
+        ]
+        for got, want in cases:
+            assert _affine(got) == _affine(want)
+            assert got[3] * got[2] % _P == got[0] * got[1] % _P  # T = XY/Z
+
+
 def test_wrapper_checks_inputs_and_refuses_rlc():
     z20 = torch.zeros((8, 20), dtype=torch.int32)
     z64 = torch.zeros((8, 64), dtype=torch.int32)

@@ -153,3 +153,27 @@ def test_cuda_constant_block_matches_the_pallas_kernels_constants():
     assert block.shape == (33 * n,)
     for got, want in zip(ed25519_cuda._b_niels_np(16), ref_b_niels(16)):
         np.testing.assert_array_equal(got, want)
+
+
+def _value32(words) -> int:
+    return sum(int(v) << (32 * i) for i, v in enumerate(words))
+
+
+def test_cuda_w32_constant_block_matches_by_value():
+    """The wire kernels' 8 x 32-bit block, slot by slot by integer value,
+    against the TPU kernels' const block and the 20 x 13-bit block: p, 2d,
+    d, sqrt(-1), then the 9 [0..8]B entries of each niels plane."""
+    w = ed25519_cuda.W32_LIMBS
+    block = ed25519_cuda.consts_block_w32()
+    assert block.dtype == np.uint32 and block.shape == (ed25519_cuda.CONSTS_W32_LEN,)
+    slots = [_value32(block[i:i + w]) for i in range(0, block.size, w)]
+    _, k2d, pdig, _, d, sqrtm1, byp, bym, bt2 = (np.asarray(c) for c in ref_pallas_consts())
+    want = [_value(c[:, 0]) for c in (pdig, k2d, d, sqrtm1)]
+    want += [_value(plane[:, e]) for plane in (byp, bym, bt2) for e in range(9)]
+    assert slots == want
+    n = fe.N_LIMBS
+    old = ed25519_cuda.consts_block()
+    old_slots = [_value(old[i:i + n]) for i in (2 * n, n, 31 * n, 32 * n)]
+    old_slots += [_value(old[4 * n + i * n:4 * n + (i + 1) * n]) for i in range(27)]
+    assert slots == old_slots
+    assert slots[0] == P and all(0 <= s < P for s in slots[1:])
