@@ -5,9 +5,9 @@
 Phases, each printing its lines:
 
 1. card: the card's name and power limit as nvidia-smi prints them, then
-   the nvcc build of the kernel library (all three verify kernels) from
-   the sources in this checkout, with each kernel's registers, stack and
-   spills as ptxas reports them;
+   the nvcc build of the kernel library (the three verify kernels and the
+   challenge kernel) from the sources in this checkout, with each kernel's
+   registers, stack and spills as ptxas reports them;
 2. kernels against their plain PyTorch versions on the card, mask for mask
    on every lane, on mixed lanes made from a fixed seed:
    - ``ed25519_verify`` (packed limbs) at the verifier's bucket sizes (64,
@@ -23,19 +23,23 @@ Phases, each printing its lines:
    multiply instructions of the 8 x 32-bit field for the same work) and
    its share; then the 256-lane time of each wire kernel over
    ``ed25519_verify``'s in the same run;
-3. the challenge leg (SHA-512 and mod-L reduction as PyTorch ops) on the
-   card: k rows equal the host's challenge scalars; its time at 256 and
-   4,096 lanes;
+3. ``ed25519_challenge`` (SHA-512 and the reduction mod L in one kernel):
+   k rows of a 256-lane sample equal the host's challenge scalars on both
+   forms (per-lane and grouped digests); kernel against its plain version
+   (the PyTorch-ops leg) byte for byte at 256 and 4,096 lanes on both
+   forms, with edge digests (all-zero and all-0xff M) and R = 0xff...;
+   kernel and plain times, the integer-instruction bound and its share;
 4. main path: the signed 256-validator burst network
    (``Simulation(n=256, sign=True, burst=True, dedup_verify=True,
    small_window_host=False)``) to height 5, three times, every settle
    verified on the card: through the packed verifier (``ed25519_verify``),
    through ``TorchWireVerifier`` with a ``ValidatorTable`` of the 256
-   validator keys (grouped challenge route, ``ed25519_semiwire``), and
-   through ``TorchWireVerifier`` with no table (full wire route,
-   ``ed25519_wire``). Each run is checked for safety, against one run with
-   the host verifier (digest, steps, heights), and for having launched
-   its own kernel and no other.
+   validator keys (grouped challenge route, ``ed25519_challenge`` then
+   ``ed25519_semiwire``), and through ``TorchWireVerifier`` with no table
+   (full wire route, ``ed25519_wire``). Each run is checked for safety,
+   against one run with the host verifier (digest, steps, heights), and
+   for having launched its own kernels, each at least once per
+   vote-bearing settle, and no other.
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``. Any failed check raises, so the script
@@ -67,8 +71,9 @@ IMAD_PER_SM_CLOCK = 64
 #: Device memory rate of an H100 SXM (NVIDIA's data sheet), bytes/s.
 HBM_BYTES_PER_S = 3.35e12
 BOGUS = b"\xff" * 32  # y >= p: never decompresses
-#: Threads that verify one signature, per kernel.
-THREADS_PER_SIG = {"ed25519_verify": 1, "ed25519_wire": 4, "ed25519_semiwire": 4}
+#: Threads that work on one signature (lane), per kernel.
+THREADS_PER_SIG = {"ed25519_verify": 4, "ed25519_wire": 4, "ed25519_semiwire": 4,
+                   "ed25519_challenge": 1}
 KERNELS = {
     "ed25519_verify": ("hyperdrive_tpu_torch/csrc/ed25519_verify.cu",
                        "hyperdrive_tpu/ops/ed25519_pallas.py:373"),
@@ -76,6 +81,9 @@ KERNELS = {
                      "hyperdrive_tpu/ops/ed25519_pallas.py:486"),
     "ed25519_semiwire": ("hyperdrive_tpu_torch/csrc/ed25519_wire.cu",
                          "hyperdrive_tpu/ops/ed25519_pallas.py:522"),
+    "ed25519_challenge": ("hyperdrive_tpu_torch/csrc/ed25519_challenge.cu",
+                          "hyperdrive_tpu/ops/sha512_jax.py:146 (with :345, under "
+                          "hyperdrive_tpu/ops/ed25519_wire.py:328)"),
 }
 
 
@@ -101,9 +109,9 @@ def sm_clock_mhz() -> float:
 # a subtraction folds its borrow with a mask; a canonical reduction
 # multiplies bit 255 by 19; a table row of 20 x 13-bit limbs converts with
 # one addition and one x38. The bound counts the work of one signature once
-# (the reference's formulas, 2Z as an addition), in these costs, for all
-# three kernels: the copies that the four-thread layout runs on idle
-# threads are not counted, so it stays a lower bound.
+# (the reference's formulas, 2Z as an addition), in these costs, for the
+# three verify kernels: the copies that the four-thread layout runs on
+# idle threads are not counted, so it stays a lower bound.
 MUL, SQR, ADD, SUB, CANON, LIMBS13 = 146, 90, 2, 0, 1, 3
 
 
@@ -144,8 +152,8 @@ def imad_decompress() -> int:
 
 
 def imad_per_signature(kernel: str) -> int:
-    if kernel == "ed25519_verify":
-        return imad_ladder()
+    if kernel == "ed25519_verify":  # five limb rows converted
+        return imad_ladder() + 5 * LIMBS13
     if kernel == "ed25519_wire":  # two decompressions, -A and t = x' * y
         return imad_ladder() + 2 * imad_decompress() + SUB + MUL
     return imad_ladder() + imad_decompress() + 3 * LIMBS13
@@ -158,11 +166,53 @@ BYTES_PER_LANE = {"ed25519_verify": 913, "ed25519_wire": 129,
                   "ed25519_semiwire": 342}
 
 
-def bound_ms(kernel: str, lanes: int, clock_mhz: float, sms: int):
-    """(bound ms, bound_by): the larger of the operation time at the INT32
-    multiply rate and the byte time at the memory rate."""
-    ops = lanes * imad_per_signature(kernel) / (sms * IMAD_PER_SM_CLOCK * clock_mhz * 1e6)
-    byt = lanes * BYTES_PER_LANE[kernel] / HBM_BYTES_PER_S
+# Integer instructions of the challenge kernel (csrc/ed25519_challenge.cu),
+# one for each 32-bit operation of the code: a 64-bit addition is 2 (a
+# carry chain over the halves), a 64-bit rotation or shift 2 (funnel
+# shifts), a three-input logic function of 64-bit words 2 (one LOP3 a
+# half), a byte swap 1 (PRMT); in the reduction a 32 x 32 -> 64-bit
+# multiply-add with its carry 2, a carry step or a subtraction step 2, a
+# select 1. Counted at the same cc 9.0 rate as the multiply-adds (32-bit
+# add, logic, shift and multiply-add all run at 64 per SM per clock).
+ADD64, ROT64, LOGIC64, BSWAP, MACW, STEP = 2, 2, 2, 1, 2, 2
+#: (limbs of ~b, limbs of the result) of each fold: hd_sc_reduce.
+SC_FOLDS = ((9, 13), (5, 9), (1, 8))
+
+
+def ops_challenge() -> int:
+    """One lane: the 64 scheduled words (sigma0, sigma1: three rotations
+    or shifts and one three-input xor each; three additions), the 80
+    rounds (Sigma0, Sigma1, Ch, Maj; seven additions), the feed-forward,
+    24 byte-swapped words in and 16 limbs out, the three folds (the a + c
+    chain, ~b, the rows of 4 multiply-adds and their carry runs) and the
+    two conditional subtractions of L."""
+    sigma = 3 * ROT64 + LOGIC64
+    schedule = 64 * (2 * sigma + 3 * ADD64)
+    rounds = 80 * (2 * sigma + 2 * LOGIC64 + 7 * ADD64)
+    digest = 8 * ADD64 + (24 + 16) * BSWAP
+    folds = sum(nr * STEP + nb * (STEP + 4 * MACW)
+                + STEP * sum(nr - 4 - i for i in range(nb)) for nb, nr in SC_FOLDS)
+    return schedule + rounds + digest + folds + 2 * 8 * (STEP + 1)
+
+
+def challenge_bytes(lanes: int, uniq: int) -> int:
+    """Bytes the challenge kernel must move: per lane the index 4, the R
+    row and the A row 64 and the k row out 32; then the digest index 1 a
+    lane and the digest table once (grouped, ``uniq`` rows), or a digest
+    row a lane (per-lane, ``uniq`` 0)."""
+    return lanes * 100 + (lanes + 32 * uniq if uniq else lanes * 32)
+
+
+def bound_ms(kernel: str, lanes: int, clock_mhz: float, sms: int, uniq: int = 16):
+    """(bound ms, bound_by): the larger of the operation time at the cc 9.0
+    INT32 rate and the byte time at the memory rate. ``uniq``: the
+    challenge kernel's digest-table rows (0: per-lane digests)."""
+    if kernel == "ed25519_challenge":
+        n_ops, n_bytes = lanes * ops_challenge(), challenge_bytes(lanes, uniq)
+    else:
+        n_ops, n_bytes = lanes * imad_per_signature(kernel), lanes * BYTES_PER_LANE[kernel]
+    ops = n_ops / (sms * IMAD_PER_SM_CLOCK * clock_mhz * 1e6)
+    byt = n_bytes / HBM_BYTES_PER_S
     return (ops * 1e3, "operations") if ops >= byt else (byt * 1e3, "bytes")
 
 
@@ -259,9 +309,10 @@ def phase_card():
     build_s = time.perf_counter() - t0
     log = (lib.parent / "nvcc.log").read_text()
     report = ptxas_report(log)
-    if len(report) != 3:
-        raise AssertionError(f"expected 3 kernels in the ptxas log, got {report}")
-    print(f"build: nvcc {build_s:.2f} s for {lib.name} (3 kernels, one unit)", flush=True)
+    if len(report) != len(KERNELS):
+        raise AssertionError(f"expected {len(KERNELS)} kernels in the ptxas log, got {report}")
+    print(f"build: nvcc {build_s:.2f} s for {lib.name} ({len(KERNELS)} kernels, one unit)",
+          flush=True)
     for name, regs, stack, st, ld in report:
         print(f"ptxas: {name} registers={regs} stack_bytes={stack} "
               f"spill_stores={st} spill_loads={ld}", flush=True)
@@ -414,18 +465,39 @@ def phase_wire_kernels(clock_mhz: float, sms: int):
     return wire_rows, semi_rows, (items, table, pool, eff)
 
 
-def phase_challenge(state) -> dict:
+def _challenge_inputs(lanes: int, table, pool, rng):
+    """A lanes-wide batch for the challenge kernel: table indices over
+    every slot (the bogus one included), R rows from the wire pool (its
+    raw edge lanes included) with lane 2 set to 0xff..., random digest
+    rows with lane 0 all zero and lane 1 all 0xff, and a 16-row digest
+    table with the same two edge rows at random digest indices."""
+    dev = torch.device("cuda")
+    idx = torch.from_numpy(rng.integers(0, table.n, lanes).astype(np.int32)).to(dev)
+    pick = torch.from_numpy(rng.integers(0, POOL, lanes)).to(dev)
+    r_rows = pool[1][pick].contiguous()
+    r_rows[2] = 0xFF
+    m_rows = torch.from_numpy(rng.integers(0, 256, (lanes, 32), dtype=np.uint8)).to(dev)
+    m_rows[0], m_rows[1] = 0, 0xFF
+    m_uniq = m_rows[:16].clone()
+    m_idx = torch.from_numpy(rng.integers(0, 16, lanes).astype(np.uint8)).to(dev)
+    m_idx[0], m_idx[1] = 0, 1
+    return idx, r_rows, m_rows, m_idx, m_uniq
+
+
+def phase_challenge(state, clock_mhz: float, sms: int) -> dict:
     from hyperdrive_tpu_torch.crypto import ed25519 as host_ed
+    from hyperdrive_tpu_torch.ops import ed25519_cuda
     from hyperdrive_tpu_torch.ops import ed25519_wire as wire
 
     items, table, pool, eff = state
     idx, r_rows = pool[0][:256], pool[1][:256]
     m = np.frombuffer(b"".join(d for _, d, _ in items[:256]), dtype=np.uint8).reshape(256, 32)
     m_t = torch.from_numpy(m.copy()).to("cuda")
-    per_lane = wire.challenge(idx, r_rows, m_t, table.rows).cpu().numpy()
+    per_lane = ed25519_cuda.challenge(idx, r_rows, m_t, table.rows).cpu().numpy()
     m_uniq = m_t[:16].contiguous()
     m_idx = (torch.arange(256, device="cuda") % 16).to(torch.uint8)
-    grouped = wire.challenge_grouped(idx, r_rows, m_idx, m_uniq, table.rows).cpu().numpy()
+    grouped = ed25519_cuda.challenge_grouped(idx, r_rows, m_idx, m_uniq,
+                                             table.rows).cpu().numpy()
     r_host = r_rows.cpu().numpy()
     for i in range(256):
         pub, _, _ = eff[i]
@@ -435,14 +507,38 @@ def phase_challenge(state) -> dict:
         want = host_ed.challenge_scalar(bytes(r_host[i]), pub, bytes(m[i % 16]))
         if bytes(grouped[i]) != want.to_bytes(32, "little"):
             raise AssertionError(f"grouped challenge differs from the host on lane {i}")
-    out = {}
-    for lanes in (256, 4096):
-        rep = lanes // 256
-        args = (idx.repeat(rep), r_rows.repeat(rep, 1), m_idx.repeat(rep), m_uniq, table.rows)
-        out[lanes] = time_ms(lambda args=args: wire.challenge_grouped(*args), 5)
-    print(f"challenge: k rows of 256 lanes equal the host's (per-lane and grouped legs); "
-          f"grouped leg ms: 256 lanes {out[256]:.3f}, 4096 lanes {out[4096]:.3f}", flush=True)
-    return out
+    print("kernel ed25519_challenge: oracle sample 256 lanes agree (per-lane and grouped)",
+          flush=True)
+
+    rng = np.random.default_rng(SEED + 2)
+    rows = {}
+    for lanes in (PATH_LANES, SIZES[-1]):
+        idx, r_rows, m_rows, m_idx, m_uniq = _challenge_inputs(lanes, table, pool, rng)
+        forms = {
+            "per_lane": (ed25519_cuda.challenge, wire.challenge,
+                         (idx, r_rows, m_rows, table.rows), 0),
+            "grouped": (ed25519_cuda.challenge_grouped, wire.challenge_grouped,
+                        (idx, r_rows, m_idx, m_uniq, table.rows), len(m_uniq)),
+        }
+        for form, (kern, plain, args, uniq) in forms.items():
+            got = kern(*args).cpu().numpy().astype(np.int32)
+            want = plain(*args).cpu().numpy().astype(np.int32)
+            err = int(np.abs(got - want).max())
+            if err:
+                bad = int((got != want).any(axis=1).sum())
+                raise AssertionError(
+                    f"ed25519_challenge ({form}): kernel != plain on {bad} of {lanes} lanes")
+            k_ms = time_ms(lambda kern=kern, args=args: kern(*args), 7)
+            p_ms = time_ms(lambda plain=plain, args=args: plain(*args), 5)
+            b_ms, b_by = bound_ms("ed25519_challenge", lanes, clock_mhz, sms, uniq)
+            print(f"kernel ed25519_challenge: form={form} lanes={lanes} threads_per_lane=1 "
+                  f"launches=1 kernel_ms={k_ms:.4f} plain_ms={p_ms:.3f} "
+                  f"lanes_per_s={lanes / k_ms * 1e3:.0f} bound_ms={b_ms:.6f} "
+                  f"bound_by={b_by} bound_share={b_ms / k_ms:.4f} mismatches=0", flush=True)
+            if form == "grouped":
+                rows[lanes] = {"ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
+                               "bound_by": b_by, "err": err}
+    return rows
 
 
 def _timed(spent, depth, key, fn):
@@ -459,10 +555,12 @@ def _timed(spent, depth, key, fn):
     return run
 
 
-def run_path(label: str, own: str, verifier, ref) -> int:
+def run_path(label: str, own: tuple, verifier, ref) -> dict:
     """One n=256 network run with ``verifier`` on every settle; checks it
-    against the host-verifier result ``ref`` and the kernel counts, prints
-    the line. Returns ``own``'s launches."""
+    against the host-verifier result ``ref`` and the kernel counts (each
+    kernel of ``own`` at least once per vote-bearing settle, no other
+    kernel at all), prints the line. Returns each own kernel's
+    launches."""
     from hyperdrive_tpu_torch.crypto.keys import KeyPair
     from hyperdrive_tpu_torch.harness import Simulation
     from hyperdrive_tpu_torch.ops import ed25519_cuda
@@ -504,11 +602,12 @@ def run_path(label: str, own: str, verifier, ref) -> int:
         raise AssertionError(f"{label}: commit digest differs from the host-verifier run")
     if (res.steps, res.heights) != (ref.steps, ref.heights):
         raise AssertionError(f"{label}: steps or heights differ from the host-verifier run")
-    launches = counts[own][0]
-    if launches < sim.vote_settles or launches == 0:
-        raise AssertionError(
-            f"{label}: {launches} {own} launches for {sim.vote_settles} vote-bearing settles")
-    moved = {k: c for k, c in counts.items() if k != own and c[0]}
+    launches = {k: counts[k][0] for k in own}
+    for k, n in launches.items():
+        if n < sim.vote_settles or n == 0:
+            raise AssertionError(
+                f"{label}: {n} {k} launches for {sim.vote_settles} vote-bearing settles")
+    moved = {k: c for k, c in counts.items() if k not in own and c[0]}
     if moved:
         raise AssertionError(f"{label}: other kernels launched: {moved}")
     extra = ""
@@ -525,8 +624,8 @@ def run_path(label: str, own: str, verifier, ref) -> int:
           f"verified_sigs={sim.verified_sigs} "
           f"verified_sigs_per_s={sim.verified_sigs / wall:.0f} "
           f"settle_passes={sim.settle_passes} vote_settles={sim.vote_settles} "
-          f"{own}_launches={launches} {own}_lanes={counts[own][1]} "
-          f"launches_per_height={launches / HEIGHT:.1f}{extra} {shares} "
+          + "".join(f"{k}_launches={counts[k][0]} {k}_lanes={counts[k][1]} " for k in own)
+          + f"launches_per_height={sum(launches.values()) / HEIGHT:.1f}{extra} {shares} "
           f"digest={res.commit_digest(up_to=HEIGHT)[:16]} matches_host=True", flush=True)
     return launches
 
@@ -547,12 +646,10 @@ def phase_main_path() -> dict:
     ring = KeyRing.deterministic(N_VALIDATORS, namespace=b"sim-1")
     table = ValidatorTable(ring.signatories, device="cuda")
     return {
-        "ed25519_verify": run_path("packed", "ed25519_verify",
-                                   TorchBatchVerifier(device="cuda"), ref),
-        "ed25519_semiwire": run_path("chal", "ed25519_semiwire",
-                                     TorchWireVerifier(device="cuda", table=table), ref),
-        "ed25519_wire": run_path("wire", "ed25519_wire",
-                                 TorchWireVerifier(device="cuda"), ref),
+        **run_path("packed", ("ed25519_verify",), TorchBatchVerifier(device="cuda"), ref),
+        **run_path("chal", ("ed25519_challenge", "ed25519_semiwire"),
+                   TorchWireVerifier(device="cuda", table=table), ref),
+        **run_path("wire", ("ed25519_wire",), TorchWireVerifier(device="cuda"), ref),
     }
 
 
@@ -568,10 +665,10 @@ def main() -> int:
     rows = {"ed25519_verify": phase_verify_kernel(clock, sms)}
     rows["ed25519_wire"], rows["ed25519_semiwire"], state = phase_wire_kernels(clock, sms)
     base = rows["ed25519_verify"][PATH_LANES]["ms"]
-    print(f"redesign: {PATH_LANES}-lane kernel time over ed25519_verify's in this run: "
+    print(f"ratio: {PATH_LANES}-lane kernel time over ed25519_verify's in this run: "
           + " ".join(f"{k}={rows[k][PATH_LANES]['ms'] / base:.4f}"
                      for k in ("ed25519_wire", "ed25519_semiwire")), flush=True)
-    phase_challenge(state)
+    rows["ed25519_challenge"] = phase_challenge(state, clock, sms)
     launches = phase_main_path()
     table = []
     for name, (source, replaces) in KERNELS.items():

@@ -1,35 +1,35 @@
 // Batched Ed25519 verification on Hopper: the port of the TPU kernel
 // _verify_kernel_body / _verify_kernel_inner (hyperdrive_tpu/ops/
-// ed25519_pallas.py:373/380, ladder _ladder_ok :402).
+// ed25519_pallas.py:373/380, ladder _ladder_ok :402), on the field of
+// fe25519_w32.cuh and the four-thread ladder of ladder4.cuh, as the
+// semiwire kernel of ed25519_wire.cu runs them.
 //
-// Layout: the packer's batch-major rows (ax, ay, at, rx, ry int32 [B, 20];
-// s_nib, k_nib int32 [B, 64]) go in as they are; one thread verifies one
-// signature, HD_THREADS (32) threads a block, ceil(B / HD_THREADS) blocks
-// with a masked tail. The signed-digit recode runs here. The TPU layout
-// (limb-major [20, block] tiles, the VMEM table scratch, concatenation
-// splicing) is not carried over: it was shaped by the Mosaic compiler.
+// Layout: the packer's batch-major rows go in as they are: ax, ay, at, rx,
+// ry int32 [B, 20] (affine -A and R in 20 x 13-bit limbs, each limb at
+// most SLACK_MAX) and s_nib, k_nib int32 [B, 64] (base-16 digits, each in
+// [0, 15]). Four consecutive threads verify one signature; a block is one
+// warp, 8 signatures, and there are ceil(B / 8) blocks. The four threads
+// of a group read the group's five limb rows together (912 B a lane with
+// the nibble rows) and convert them to the 8 x 32-bit field by value;
+// threads 0 and 1 recode s and k into the group's signed digits in shared
+// memory, beside the B planes and the [0..8]A' table. `at` is taken as
+// given, never recomputed as x y, so a raw lane whose `at` is not x y
+// gets the verdict the plain version gives it. The TPU layout (limb-major
+// [20, block] tiles, the VMEM table scratch) is not carried over.
 //
-// What bounds it: integer multiplies. Each signature costs about 2,800
-// field multiplications or squarings (about 1.0M 32-bit multiply-adds with
-// the carry folds) against about 912 bytes in and 1 byte out, so the
-// operation bound is the card's INT32 multiply rate. At the main path's
-// shapes (a 256-lane vote window is 8 warps) the card is nowhere near that
-// bound: each thread's dependent chain of field operations and its
-// per-thread table in local memory set the time. The design answers what
-// it can without changing the one-thread-per-signature shape: the field
-// loops are unrolled so product columns live in registers, blocks are one
-// warp so a small batch spreads over as many SMs (and L1 caches) as it has
-// warps, and the constant B table is staged into shared memory so
-// divergent digit lookups do not serialize on the constant cache.
-// Splitting a signature across threads, or fewer and wider limbs, is
-// later work.
+// What bounds it: 32-bit multiply instructions, about 357,000 a
+// signature's ladder against 913 bytes a lane, so about 1e-3 of the time
+// is bytes. At the main path's shape (a 256-lane window, 32 one-warp
+// blocks) the time is one group's dependent chain of carry-chain
+// products, adds and shuffles, far above the bound.
+//
+// No thread returns before the last shuffle: a lane past the batch works
+// on lane 0's rows and only its store is dropped.
 #include <cuda_runtime.h>
 
-#include "ladder.cuh"
+#include "ladder4.cuh"
 
-constexpr int HD_THREADS = 32;
-
-__global__ void __launch_bounds__(HD_THREADS)
+__global__ void __launch_bounds__(L4_THREADS)
 hd_ed25519_verify_kernel(const int32_t* __restrict__ ax,
                          const int32_t* __restrict__ ay,
                          const int32_t* __restrict__ at,
@@ -38,27 +38,25 @@ hd_ed25519_verify_kernel(const int32_t* __restrict__ ax,
                          const int32_t* __restrict__ s_nib,
                          const int32_t* __restrict__ k_nib,
                          uint8_t* __restrict__ ok, int n) {
-    __shared__ int32_t btab[HD_C_BTAB_LEN];
-    for (int i = threadIdx.x; i < HD_C_BTAB_LEN; i += blockDim.x)
-        btab[i] = hd_consts[HD_C_BTAB + i];
+    __shared__ l4_shared sm;
+    l4_stage_btab(sm);
+    const int j = threadIdx.x & (L4_GROUP - 1);
+    const int g = threadIdx.x / L4_GROUP;
+    const int sig = blockIdx.x * L4_SIGS + g;
+    const bool live = sig < n;
+    const size_t row = (size_t)(live ? sig : 0);
+    if (j < 2) l4_recode_nibbles(sm.dig[g][j], (j == 0 ? s_nib : k_nib) + row * 64);
     __syncthreads();
 
-    int lane = blockIdx.x * blockDim.x + threadIdx.x;
-    if (lane >= n) return;
-    size_t r20 = (size_t)lane * FE_N;
-    size_t r64 = (size_t)lane * 64;
-    int32_t lax_[FE_N], lay[FE_N], lat[FE_N], lrx[FE_N], lry[FE_N];
-    for (int i = 0; i < FE_N; ++i) {
-        lax_[i] = ax[r20 + i];
-        lay[i] = ay[r20 + i];
-        lat[i] = at[r20 + i];
-        lrx[i] = rx[r20 + i];
-        lry[i] = ry[r20 + i];
-    }
-    int8_t sd[64], kd[64];
-    hd_recode_signed(sd, s_nib + r64);
-    hd_recode_signed(kd, k_nib + r64);
-    ok[lane] = hd_ladder_ok(lax_, lay, lat, lrx, lry, sd, kd, btab) ? 1 : 0;
+    const size_t r20 = row * 20;
+    const fe8 fax = fe8_from_limbs13(ax + r20);
+    const fe8 fay = fe8_from_limbs13(ay + r20);
+    const fe8 fat = fe8_from_limbs13(at + r20);
+    const fe8 frx = fe8_from_limbs13(rx + r20);
+    const fe8 fry = fe8_from_limbs13(ry + r20);
+    bool ok_l = l4_ladder_ok(fax, fay, fat, frx, fry, sm.dig[g][0], sm.dig[g][1],
+                             sm.atab, sm.btab);
+    if (j == 0 && live) ok[sig] = ok_l ? 1 : 0;
 }
 
 // Enqueue one verification of n lanes on `stream` of `device`; never
@@ -72,8 +70,7 @@ extern "C" int hd_ed25519_verify(int device, const int32_t* ax, const int32_t* a
     if (n <= 0) return 0;
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return (int)err;
-    int blocks = (n + HD_THREADS - 1) / HD_THREADS;
-    hd_ed25519_verify_kernel<<<blocks, HD_THREADS, 0, (cudaStream_t)stream>>>(
+    hd_ed25519_verify_kernel<<<l4_blocks(n), L4_THREADS, 0, (cudaStream_t)stream>>>(
         ax, ay, at, rx, ry, s_nib, k_nib, ok, n);
     return (int)cudaGetLastError();
 }

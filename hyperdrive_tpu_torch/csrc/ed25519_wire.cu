@@ -37,41 +37,25 @@
 #include "decompress.cuh"
 #include "ladder4.cuh"
 
-constexpr int HD_WIRE_THREADS = 32;
-constexpr int HD_WIRE_SIGS = HD_WIRE_THREADS / L4_GROUP;
-
-// The block's shared tables: the B planes, each thread's component of
-// [0..8]A', and each group's signed digits of s and k.
-struct hd_wire_shared {
-    uint32_t btab[HD_W_BTAB_LEN];
-    uint32_t atab[L4_ENTRIES * 8 * HD_WIRE_THREADS];
-    int8_t dig[HD_WIRE_SIGS][2][64];
-};
-
-HD_INL void hd_stage_btab(hd_wire_shared& sm) {
-    for (int i = threadIdx.x; i < HD_W_BTAB_LEN; i += blockDim.x)
-        sm.btab[i] = hd_consts_w32[HD_W_BTAB + i];
-}
-
 // Threads 0 and 1 of the group recode s and k into the group's digits.
-HD_INL void hd_stage_digits(hd_wire_shared& sm, int g, int j,
+HD_INL void hd_stage_digits(l4_shared& sm, int g, int j,
                             const uint8_t* s_row, const uint8_t* k_row) {
     if (j < 2) l4_recode(sm.dig[g][j], j == 0 ? s_row : k_row);
 }
 
 // ok = ladder && ok_A && ok_R, with A and R decompressed here and A negated
 // (x -> -x, t = x' y), as the packed path's host packer does.
-__global__ void __launch_bounds__(HD_WIRE_THREADS)
+__global__ void __launch_bounds__(L4_THREADS)
 hd_ed25519_wire_kernel(const uint8_t* __restrict__ a_rows,
                        const uint8_t* __restrict__ r_rows,
                        const uint8_t* __restrict__ s_rows,
                        const uint8_t* __restrict__ k_rows,
                        uint8_t* __restrict__ ok, int n) {
-    __shared__ hd_wire_shared sm;
-    hd_stage_btab(sm);
+    __shared__ l4_shared sm;
+    l4_stage_btab(sm);
     const int j = threadIdx.x & (L4_GROUP - 1);
     const int g = threadIdx.x / L4_GROUP;
-    const int sig = blockIdx.x * HD_WIRE_SIGS + g;
+    const int sig = blockIdx.x * L4_SIGS + g;
     const bool live = sig < n;
     const size_t r32 = (size_t)(live ? sig : 0) * 32;
     hd_stage_digits(sm, g, j, s_rows + r32, k_rows + r32);
@@ -95,7 +79,7 @@ hd_ed25519_wire_kernel(const uint8_t* __restrict__ a_rows,
 // ok = ladder && ok_R && tvalid[idx], with -A read from the validator table
 // row idx (converted to the 8 x 32-bit field by value) and R decompressed
 // here on all four threads of the group.
-__global__ void __launch_bounds__(HD_WIRE_THREADS)
+__global__ void __launch_bounds__(L4_THREADS)
 hd_ed25519_semiwire_kernel(const int32_t* __restrict__ idx,
                            const uint8_t* __restrict__ r_rows,
                            const uint8_t* __restrict__ s_rows,
@@ -105,11 +89,11 @@ hd_ed25519_semiwire_kernel(const int32_t* __restrict__ idx,
                            const int32_t* __restrict__ tnat,
                            const uint8_t* __restrict__ tvalid, int n_table,
                            uint8_t* __restrict__ ok, int n) {
-    __shared__ hd_wire_shared sm;
-    hd_stage_btab(sm);
+    __shared__ l4_shared sm;
+    l4_stage_btab(sm);
     const int j = threadIdx.x & (L4_GROUP - 1);
     const int g = threadIdx.x / L4_GROUP;
-    const int sig = blockIdx.x * HD_WIRE_SIGS + g;
+    const int sig = blockIdx.x * L4_SIGS + g;
     const bool live = sig < n;
     const size_t r32 = (size_t)(live ? sig : 0) * 32;
     hd_stage_digits(sm, g, j, s_rows + r32, k_rows + r32);
@@ -134,8 +118,6 @@ hd_ed25519_semiwire_kernel(const int32_t* __restrict__ idx,
     if (j == 0 && live) ok[sig] = (ok_l && ok_r && valid) ? 1 : 0;
 }
 
-static int hd_wire_blocks(int n) { return (n + HD_WIRE_SIGS - 1) / HD_WIRE_SIGS; }
-
 // Enqueue one wire verification of n lanes on `stream` of `device`; never
 // synchronizes. Returns cudaGetLastError() after the launch (0 = launched).
 extern "C" int hd_ed25519_wire_verify(int device, const uint8_t* a_rows,
@@ -145,7 +127,7 @@ extern "C" int hd_ed25519_wire_verify(int device, const uint8_t* a_rows,
     if (n <= 0) return 0;
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return (int)err;
-    hd_ed25519_wire_kernel<<<hd_wire_blocks(n), HD_WIRE_THREADS, 0, (cudaStream_t)stream>>>(
+    hd_ed25519_wire_kernel<<<l4_blocks(n), L4_THREADS, 0, (cudaStream_t)stream>>>(
         a_rows, r_rows, s_rows, k_rows, ok, n);
     return (int)cudaGetLastError();
 }
@@ -161,7 +143,7 @@ extern "C" int hd_ed25519_semiwire_verify(int device, const int32_t* idx,
     if (n <= 0) return 0;
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return (int)err;
-    hd_ed25519_semiwire_kernel<<<hd_wire_blocks(n), HD_WIRE_THREADS, 0,
+    hd_ed25519_semiwire_kernel<<<l4_blocks(n), L4_THREADS, 0,
                                  (cudaStream_t)stream>>>(
         idx, r_rows, s_rows, k_rows, tnax, tay, tnat, tvalid, n_table, ok, n);
     return (int)cudaGetLastError();

@@ -1,9 +1,9 @@
-// GF(2^255 - 19) on 8 limbs of 32 bits in full radix, for the wire and
-// semiwire kernels (ed25519_wire.cu). The TPU field of fe25519.cuh (20 x
-// 13-bit limbs) exists because the TPU's vector unit has no 32 x 32 -> 64
-// multiply; Hopper has one, in PTX carry chains (mad.lo.cc / madc.hi.cc /
-// addc), so a product is 64 low and 64 high halves instead of 400 limb
-// products.
+// GF(2^255 - 19) on 8 limbs of 32 bits in full radix, for the three
+// verify kernels (ed25519_verify.cu, ed25519_wire.cu). The TPU's field (20
+// x 13-bit limbs, ops/fe25519.py) exists because the TPU's vector unit has
+// no 32 x 32 -> 64 multiply; Hopper has one, in PTX carry chains
+// (mad.lo.cc / madc.hi.cc / addc), so a product is 64 low and 64 high
+// halves instead of 400 limb products.
 //
 // Representation: a value v in [0, 2^256), congruent to the field element;
 // nothing is reduced below 2^256 except where an exact value is needed
@@ -26,17 +26,25 @@ struct fe8 {
     uint32_t v[8];
 };
 
-// The second constant block, uploaded once from Python together with the
-// first (ops/ed25519_cuda.py, consts_block_w32) in exactly this layout: p,
-// 2d, d, sqrt(-1), then the 9-entry affine niels table of [0..8]B as three
-// [9][8] planes (y+x, y-x, 2d*x*y). Every entry is the canonical value.
+// The kernel library's one constant block, uploaded once a device from
+// Python (ops/ed25519_cuda.py, consts_block_w32) in exactly this layout:
+// p, 2d, d, sqrt(-1), then the 9-entry affine niels table of [0..8]B as
+// three [9][8] planes (y+x, y-x, 2d*x*y), then the challenge kernel's
+// scalar constants (ed25519_challenge.cu): the group order L, delta = L -
+// 2^252 and the three fold constants -delta (2^w - 1) mod L for w = 260,
+// 133 and 6. Every entry is a canonical value in 8 little-endian limbs.
 #define HD_W_P 0
 #define HD_W_K2D 8
 #define HD_W_D 16
 #define HD_W_SQRTM1 24
 #define HD_W_BTAB 32
 #define HD_W_BTAB_LEN (3 * 9 * 8)
-#define HD_W_TOTAL (HD_W_BTAB + HD_W_BTAB_LEN)
+#define HD_W_SC_L (HD_W_BTAB + HD_W_BTAB_LEN)
+#define HD_W_SC_DELTA (HD_W_SC_L + 8)
+#define HD_W_SC_FOLD1 (HD_W_SC_DELTA + 8)
+#define HD_W_SC_FOLD2 (HD_W_SC_FOLD1 + 8)
+#define HD_W_SC_FOLD3 (HD_W_SC_FOLD2 + 8)
+#define HD_W_TOTAL (HD_W_SC_FOLD3 + 8)
 
 static __constant__ uint32_t hd_consts_w32[HD_W_TOTAL];
 

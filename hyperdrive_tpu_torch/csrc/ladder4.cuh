@@ -1,6 +1,6 @@
-// The Ed25519 verification ladder of the wire kernels, four threads per
-// signature: per signature, [s]B + [k]A' == R (A' = -A), the joint Horner
-// walk of the TPU kernel's _ladder_ok (hyperdrive_tpu/ops/
+// The Ed25519 verification ladder of all three verify kernels, four
+// threads per signature: per signature, [s]B + [k]A' == R (A' = -A), the
+// joint Horner walk of the TPU kernel's _ladder_ok (hyperdrive_tpu/ops/
 // ed25519_pallas.py:402-483) in the point formulas of the reference
 // (_dbl, _padd, _madd; port: ops/ed25519.py:78-111), on the field of
 // fe25519_w32.cuh.
@@ -31,6 +31,25 @@
 // Thread count of a group and entries of a window table.
 #define L4_GROUP 4
 #define L4_ENTRIES 9
+// A block is one warp: L4_SIGS signatures.
+#define L4_THREADS 32
+#define L4_SIGS (L4_THREADS / L4_GROUP)
+
+// The block's shared tables: the B planes, each thread's component of
+// [0..8]A', and each group's signed digits of s and k.
+struct l4_shared {
+    uint32_t btab[HD_W_BTAB_LEN];
+    uint32_t atab[L4_ENTRIES * 8 * L4_THREADS];
+    int8_t dig[L4_SIGS][2][64];
+};
+
+// Blocks of a launch over n signatures.
+static inline int l4_blocks(int n) { return (n + L4_SIGS - 1) / L4_SIGS; }
+
+HD_INL void l4_stage_btab(l4_shared& sm) {
+    for (int i = threadIdx.x; i < HD_W_BTAB_LEN; i += blockDim.x)
+        sm.btab[i] = hd_consts_w32[HD_W_BTAB + i];
+}
 
 HD_INL fe8 l4_shfl(const fe8& a, int src) {
     fe8 r;
@@ -91,18 +110,29 @@ HD_INL fe8 l4_add(const fe8& own, const fe8& q, int j) {
     return l4_round2(fe8_sub(b, a), fe8_sub(d, c), fe8_add(d, c), fe8_add(b, a), j);
 }
 
-// Signed-window recode of a 32-byte little-endian scalar into 64 digits
-// in [-8, 7] (the reference's _recode_signed): digits >= 8 borrow 16 and
-// carry 1; the final carry is dropped, as there, so a scalar >= 2^253
-// verifies as (scalar - 2^256) exactly as it does in the reference.
+// Signed-window recode of a scalar's 64 little-endian base-16 digits
+// into digits in [-8, 7] (the reference's _recode_signed): digits >= 8
+// borrow 16 and carry 1; the final carry is dropped, as there, so a scalar
+// >= 2^253 verifies as (scalar - 2^256) exactly as it does in the
+// reference. l4_recode reads a 32-byte row, l4_recode_nibbles the packed
+// path's int32 nibble row (each nibble in [0, 15]).
+HD_INL int8_t l4_signed_digit(int nibble, int& carry) {
+    int d = nibble + carry;
+    carry = d >= 8 ? 1 : 0;
+    return (int8_t)(d - 16 * carry);
+}
+
 HD_INL void l4_recode(int8_t* out, const uint8_t* __restrict__ row) {
     int carry = 0;
     #pragma unroll 4
-    for (int i = 0; i < 64; ++i) {
-        int d = ((row[i >> 1] >> (4 * (i & 1))) & 0xF) + carry;
-        carry = d >= 8 ? 1 : 0;
-        out[i] = (int8_t)(d - 16 * carry);
-    }
+    for (int i = 0; i < 64; ++i)
+        out[i] = l4_signed_digit((row[i >> 1] >> (4 * (i & 1))) & 0xF, carry);
+}
+
+HD_INL void l4_recode_nibbles(int8_t* out, const int32_t* __restrict__ nib) {
+    int carry = 0;
+    #pragma unroll 4
+    for (int i = 0; i < 64; ++i) out[i] = l4_signed_digit(nib[i], carry);
 }
 
 // The ladder and the projective R check for the signature of this

@@ -1,15 +1,14 @@
-"""The hand-written Hopper Ed25519 verify kernels: build, binding, wrappers.
+"""The hand-written Hopper Ed25519 kernels: build, binding, wrappers.
 
-Three kernels, one per TPU kernel of the JAX package
-(``hyperdrive_tpu/ops/ed25519_pallas.py``):
+Four kernels. Three are the TPU kernels of the JAX package
+(``hyperdrive_tpu/ops/ed25519_pallas.py``); the fourth is the JAX
+package's challenge leg, a device program it wrote in jnp:
 
 - ``ed25519_verify`` (``csrc/ed25519_verify.cu``) replaces
   ``_verify_kernel_body`` / ``_verify_kernel_inner`` (``:373/:380``):
-  packed, host-decompressed limbs. Plain version
-  :func:`~hyperdrive_tpu_torch.ops.ed25519.verify_plain`. One thread a
-  signature, on the ladder of ``csrc/ladder.cuh`` and the TPU's field of
-  ``csrc/fe25519.cuh`` (20 x 13-bit limbs), its [0..8]A' table a
-  per-thread array in local memory.
+  packed, host-decompressed limbs, converted to the kernel's field by
+  value. Plain version
+  :func:`~hyperdrive_tpu_torch.ops.ed25519.verify_plain`.
 - ``ed25519_wire`` (``csrc/ed25519_wire.cu``) replaces
   ``_wire_kernel_body`` / ``_wire_kernel_inner`` (``:486/:493``): raw
   [B, 32] uint8 A, R, s, k rows, both points decompressed in the kernel
@@ -21,33 +20,39 @@ Three kernels, one per TPU kernel of the JAX package
   -A read from the resident validator table by index (its 13-bit limbs
   converted by value), R decompressed in the kernel. Plain version
   :func:`~hyperdrive_tpu_torch.ops.ed25519_wire.semiwire_verify_plain`.
+- ``ed25519_challenge`` (``csrc/ed25519_challenge.cu``) replaces
+  ``sha512_cat`` + ``sc_reduce_limbs`` (``hyperdrive_tpu/ops/
+  sha512_jax.py:146/:345``) under the challenge legs of
+  ``hyperdrive_tpu/ops/ed25519_wire.py`` (``:281/:328``): k =
+  SHA-512(R || A || M) mod L, one thread a lane, the preimage gathered in
+  the kernel. Plain versions
+  :func:`~hyperdrive_tpu_torch.ops.ed25519_wire.challenge` and
+  :func:`~hyperdrive_tpu_torch.ops.ed25519_wire.challenge_grouped`.
 
-The two wire kernels run on the field of ``csrc/fe25519_w32.cuh`` (8 x
-32-bit limbs in full radix on PTX carry chains: 146 multiply instructions
-a product against 423 for 20 x 13-bit limbs) and the ladder of
-``csrc/ladder4.cuh``: four threads a signature, thread j owning coordinate
-j of (X, Y, Z, T), each point formula two rounds of four products
-exchanged by warp shuffles; the [0..8]A' table, the B table and the
-signed digits in shared memory, field elements in registers. A block is
-one warp, 8 signatures.
+The three verify kernels run on the field of ``csrc/fe25519_w32.cuh`` (8
+x 32-bit limbs in full radix on PTX carry chains: 146 multiply
+instructions a product against 423 for 20 x 13-bit limbs) and the ladder
+of ``csrc/ladder4.cuh``: four threads a signature, thread j owning
+coordinate j of (X, Y, Z, T), each point formula two rounds of four
+products exchanged by warp shuffles; the [0..8]A' table, the B table and
+the signed digits in shared memory, field elements in registers. A block
+is one warp, 8 signatures.
 
-What bounds them on the card: 32-bit multiply instructions; bytes in are
-at most ~912 a lane, negligible. At the main path's shape (one 256-lane
-vote window) every kernel is latency-bound, far above that bound: the
-time is the dependent chain of one signature. Times, bounds and launches
-on the card are in ``PERF.md`` (``chip_smoke.py``, NVIDIA H100 80GB HBM3,
-700.00 W).
+What bounds them on the card: 32-bit multiply instructions for the verify
+kernels, integer instructions for the challenge; bytes are at most ~913 a
+lane, negligible. At the main path's shape (one 256-lane vote window)
+every kernel is latency-bound, far above its bound: the time is the
+dependent chain of one signature or lane. Times, bounds and launches on
+the card are in ``PERF.md`` (``chip_smoke.py``).
 
 Build: at first use, ``nvcc`` compiles ``csrc/ed25519_kernels.cu`` (the
-one translation unit that includes every kernel, so each constant block
+one translation unit that includes every kernel, so the constant block
 has one copy per device and one upload) into a shared library with a
 plain C interface under ``hyperdrive_tpu_torch/_build/``, keyed on a hash
-of all the sources, and ``ctypes`` binds it. The constant blocks are
-:func:`consts_block` (20 x 13-bit limbs) and :func:`consts_block_w32` (8 x
-32-bit limbs), built from the same integers. A CUDA tensor launches the
-kernel or raises, with the launch's ``cudaGetLastError`` checked; a CPU
-tensor takes the plain version. There is no fallback from one to the
-other.
+of all the sources, and ``ctypes`` binds it. The constant block is
+:func:`consts_block_w32`. A CUDA tensor launches the kernel or raises,
+with the launch's ``cudaGetLastError`` checked; a CPU tensor takes the
+plain version. There is no fallback from one to the other.
 """
 
 from __future__ import annotations
@@ -63,6 +68,7 @@ import threading
 import numpy as np
 import torch
 
+from hyperdrive_tpu_torch.crypto import ed25519 as host_ed
 from hyperdrive_tpu_torch.ops import ed25519_wire as wire
 from hyperdrive_tpu_torch.ops import fe25519 as fe
 from hyperdrive_tpu_torch.ops.ed25519 import K2D_LIMBS, _b_niels_np, verify_plain
@@ -74,15 +80,16 @@ __all__ = [
     "verify",
     "wire_verify",
     "semiwire_verify",
+    "challenge",
+    "challenge_grouped",
     "KernelStats",
 ]
 
 _PKG = pathlib.Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 SOURCES = (
-    "fe25519.cuh", "ladder.cuh", "fe25519_w32.cuh", "ladder4.cuh",
-    "decompress.cuh", "ed25519_verify.cu", "ed25519_wire.cu",
-    "ed25519_kernels.cu",
+    "fe25519_w32.cuh", "ladder4.cuh", "decompress.cuh", "ed25519_verify.cu",
+    "ed25519_wire.cu", "ed25519_challenge.cu", "ed25519_kernels.cu",
 )
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = (
@@ -90,14 +97,18 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
-#: Entries of the constant block, in the layout ``csrc/fe25519.cuh``
-#: declares (HD_C_*).
-CONSTS_LEN = 80 + 3 * 9 * fe.N_LIMBS + 2 * fe.N_LIMBS
 #: Limbs of the 8 x 32-bit field (``csrc/fe25519_w32.cuh``).
 W32_LIMBS = 8
-#: Entries of the second constant block, in the layout
-#: ``csrc/fe25519_w32.cuh`` declares (HD_W_*).
-CONSTS_W32_LEN = 4 * W32_LIMBS + 3 * 9 * W32_LIMBS
+#: delta = L - 2^252, so 2^252 = -delta (mod L): the challenge kernel's
+#: fold constant.
+SC_DELTA = host_ed.L - (1 << 252)
+#: Widths of the part above bit 252 that each of the challenge kernel's
+#: three folds takes (``csrc/ed25519_challenge.cu``, ``hd_sc_reduce``).
+SC_FOLD_WIDTHS = (260, 133, 6)
+#: Entries of the constant block, in the layout ``csrc/fe25519_w32.cuh``
+#: declares (HD_W_*): 4 field values, the 27 B-table entries, then L,
+#: delta and the three fold constants.
+CONSTS_W32_LEN = (4 + 3 * 9 + 2 + len(SC_FOLD_WIDTHS)) * W32_LIMBS
 
 
 class KernelStats:
@@ -118,27 +129,13 @@ stats = {
     "ed25519_verify": KernelStats(),
     "ed25519_wire": KernelStats(),
     "ed25519_semiwire": KernelStats(),
+    "ed25519_challenge": KernelStats(),
 }
 
 
 def reset_stats() -> None:
     for st in stats.values():
         st.reset()
-
-
-def consts_block() -> np.ndarray:
-    """The kernel's constant block, from the same values the plain version
-    uses: subtraction bias, 2d, digits of p and 2p, the [0..8]B niels
-    planes (y+x, y-x, 2d*x*y), each [9, 20], then d and sqrt(-1)."""
-    byp, bym, bt2 = _b_niels_np(9)
-    block = np.concatenate(
-        [fe._SUB_BIAS, K2D_LIMBS, fe.P_LIMBS, fe.P2_LIMBS,
-         byp.ravel(), bym.ravel(), bt2.ravel(),
-         wire.D_LIMBS, wire.SQRTM1_LIMBS]
-    ).astype(np.int32)
-    if block.shape != (CONSTS_LEN,):
-        raise AssertionError("constant block layout drifted from fe25519.cuh")
-    return block
 
 
 def _words32(values) -> np.ndarray:
@@ -153,16 +150,25 @@ def _words32(values) -> np.ndarray:
     return out
 
 
+def _sc_fold_const(width: int) -> int:
+    """-delta (2^width - 1) mod L: the constant of the challenge kernel's
+    fold of a part ``b < 2^width`` above bit 252, which adds
+    ``delta * (2^width - 1 - b)`` in place of subtracting ``delta * b``."""
+    return -SC_DELTA * ((1 << width) - 1) % host_ed.L
+
+
 def consts_block_w32() -> np.ndarray:
-    """The wire kernels' constant block, from the same integers as
-    :func:`consts_block`: p, 2d, d, sqrt(-1), then the [0..8]B niels
-    planes (y+x, y-x, 2d*x*y), each [9, 8], all as canonical values in
-    uint32 limbs."""
+    """The kernels' constant block, from the same integers as the plain
+    versions: p, 2d, d, sqrt(-1), then the [0..8]B niels planes (y+x,
+    y-x, 2d*x*y), each [9, 8], then L, delta and the challenge kernel's
+    fold constants, all as canonical values in uint32 limbs."""
     ints = [fe.P_INT, fe.from_limbs(K2D_LIMBS), fe.from_limbs(wire.D_LIMBS),
             fe.from_limbs(wire.SQRTM1_LIMBS)]
     planes = [[fe.from_limbs(row) for row in plane] for plane in _b_niels_np(9)]
+    scalars = [host_ed.L, SC_DELTA, *(_sc_fold_const(w) for w in SC_FOLD_WIDTHS)]
     block = np.concatenate(
-        [_words32(ints).ravel(), _words32(planes).ravel()]
+        [_words32(ints).ravel(), _words32(planes).ravel(),
+         _words32(scalars).ravel()]
     ).astype(np.uint32)
     if block.shape != (CONSTS_W32_LEN,):
         raise AssertionError("constant block layout drifted from fe25519_w32.cuh")
@@ -189,7 +195,7 @@ def _nvcc() -> str:
 
 
 def build(force: bool = False) -> pathlib.Path:
-    """Compile the kernel library (all three kernels) from the sources in
+    """Compile the kernel library (all four kernels) from the sources in
     the package (once per source hash, or anew with ``force``) and return
     its path. The compiler's register and spill report is kept beside it
     as ``nvcc.log``."""
@@ -218,7 +224,7 @@ class _Library:
         self.lib = ctypes.CDLL(str(path))
         vp = ctypes.c_void_p
         ci = ctypes.c_int
-        self.lib.hd_ed25519_set_consts.argtypes = [ci, vp, vp]
+        self.lib.hd_ed25519_set_consts.argtypes = [ci, vp]
         self.lib.hd_ed25519_set_consts.restype = ci
         self.lib.hd_ed25519_verify.argtypes = [ci] + [vp] * 8 + [ci, vp]
         self.lib.hd_ed25519_verify.restype = ci
@@ -228,16 +234,18 @@ class _Library:
             [ci] + [vp] * 8 + [ci, vp, ci, vp]
         )
         self.lib.hd_ed25519_semiwire_verify.restype = ci
+        self.lib.hd_ed25519_challenge.argtypes = (
+            [ci] + [vp] * 4 + [ci, vp, ci, vp, ci, vp]
+        )
+        self.lib.hd_ed25519_challenge.restype = ci
         self.ready: set = set()
-        self._consts = consts_block()
-        self._consts_w32 = consts_block_w32()
+        self._consts = consts_block_w32()
 
     def upload_consts(self, index: int) -> None:
         if index in self.ready:
             return
         rc = self.lib.hd_ed25519_set_consts(
-            index, self._consts.ctypes.data_as(ctypes.c_void_p),
-            self._consts_w32.ctypes.data_as(ctypes.c_void_p),
+            index, self._consts.ctypes.data_as(ctypes.c_void_p)
         )
         if rc != 0:
             raise RuntimeError(f"constant upload failed: cudaError {rc}")
@@ -291,13 +299,15 @@ def _rows_device(rows) -> torch.device:
     return r0.device
 
 
-def _launch(name: str, device: torch.device, bsz: int, fn, args) -> torch.Tensor:
-    """Run one kernel on ``device``'s current stream into a fresh bool [B]
-    (the kernel writes 0/1 bytes, torch.bool's representation), raise on
-    a failed launch, count it."""
+def _launch(name: str, device: torch.device, bsz: int, fn, args,
+            out_shape=(), out_dtype=torch.bool) -> torch.Tensor:
+    """Run one kernel on ``device``'s current stream into a fresh
+    ``[B, *out_shape]`` output (by default bool [B]: the verify kernels
+    write 0/1 bytes, torch.bool's representation), raise on a failed
+    launch, count it."""
     if device.type != "cuda":
         raise ValueError(f"unsupported device {device}")
-    out = torch.empty(bsz, dtype=torch.bool, device=device)
+    out = torch.empty((bsz, *out_shape), dtype=out_dtype, device=device)
     if bsz == 0:
         return out
     index = device.index if device.index is not None else torch.cuda.current_device()
@@ -359,3 +369,57 @@ def semiwire_verify(idx, r_rows, s_rows, k_rows,
     ptrs = [t.data_ptr() for t in (idx, *rows, tnax, tay, tnat, tvalid)]
     return _launch("ed25519_semiwire", device, bsz,
                    "hd_ed25519_semiwire_verify", [*ptrs, v])
+
+
+def _check_challenge(idx, r_rows, m_rows, trows) -> torch.device:
+    """Checks the challenge inputs (int32 [B] idx, uint8 [B, 32] R rows,
+    uint8 [*, 32] digest rows, uint8 [V, 32] table rows) on one device;
+    the kernel reads rows as 16-byte vectors, so on the card each row
+    tensor must start 16-byte aligned. Returns the device."""
+    device = _rows_device((r_rows,))
+    _check_like("idx", idx, (r_rows.shape[0],), torch.int32, device)
+    for name, t in (("m_rows", m_rows), ("trows", trows)):
+        n = t.shape[0] if t.dim() == 2 else -1  # -1 fails the check
+        _check_like(name, t, (n, 32), torch.uint8, device)
+    if device.type == "cuda":
+        for name, t in (("r_rows", r_rows), ("m_rows", m_rows), ("trows", trows)):
+            if t.data_ptr() % 16:
+                raise ValueError(f"{name} is not 16-byte aligned")
+    return device
+
+
+def challenge(idx, r_rows, m_rows, trows) -> torch.Tensor:
+    """uint8 [B, 32]: the per-lane challenge leg, k = SHA-512(R || A || M)
+    mod L (canonical, little-endian) from R rows, the table's compressed A
+    rows ``trows`` ([V, 32]) at ``idx`` and per-lane digest rows
+    ``m_rows`` ([B, 32]), byte for byte
+    :func:`~hyperdrive_tpu_torch.ops.ed25519_wire.challenge`, which CPU
+    tensors run. Indices are range-checked by the caller on the host
+    (``ValidatorTable.upload_index``); the kernel reads zeros for an index
+    outside the table."""
+    device = _check_challenge(idx, r_rows, m_rows, trows)
+    if m_rows.shape[0] != r_rows.shape[0]:
+        raise ValueError(f"m_rows: {m_rows.shape[0]} rows for {r_rows.shape[0]} lanes")
+    if device.type == "cpu":
+        return wire.challenge(idx, r_rows, m_rows, trows)
+    ptrs = [idx.data_ptr(), r_rows.data_ptr(), m_rows.data_ptr(), None, 0,
+            trows.data_ptr(), trows.shape[0]]
+    return _launch("ed25519_challenge", device, r_rows.shape[0],
+                   "hd_ed25519_challenge", ptrs, (32,), torch.uint8)
+
+
+def challenge_grouped(idx, r_rows, m_idx, m_uniq, trows) -> torch.Tensor:
+    """uint8 [B, 32]: the grouped challenge leg, as :func:`challenge` with
+    the digests taken from the deduplicated table ``m_uniq`` ([U, 32]
+    uint8) at ``m_idx`` ([B] uint8), byte for byte
+    :func:`~hyperdrive_tpu_torch.ops.ed25519_wire.challenge_grouped`,
+    which CPU tensors run. ``m_idx`` must lie in ``[0, U)``; the kernel
+    reads zeros for an index outside it."""
+    device = _check_challenge(idx, r_rows, m_uniq, trows)
+    _check_like("m_idx", m_idx, (r_rows.shape[0],), torch.uint8, device)
+    if device.type == "cpu":
+        return wire.challenge_grouped(idx, r_rows, m_idx, m_uniq, trows)
+    ptrs = [idx.data_ptr(), r_rows.data_ptr(), m_uniq.data_ptr(),
+            m_idx.data_ptr(), m_uniq.shape[0], trows.data_ptr(), trows.shape[0]]
+    return _launch("ed25519_challenge", device, r_rows.shape[0],
+                   "hd_ed25519_challenge", ptrs, (32,), torch.uint8)

@@ -10,17 +10,19 @@ run on the device, inside the wire kernel.
 With a resident :class:`ValidatorTable` of the validator keys, A is
 gathered by index from the table instead (decompressed and negated once on
 the host), and the challenge k = SHA-512(R || A || M) mod L is computed on
-the device (:mod:`hyperdrive_tpu_torch.ops.sha512`) from a deduped digest
-table or per-lane digest rows: the host does no hashing at all.
+the device (the ``ed25519_challenge`` kernel; plain version on
+:mod:`hyperdrive_tpu_torch.ops.sha512`) from a deduped digest table or
+per-lane digest rows: the host does no hashing at all.
 
 Contents:
 
 - the device half as plain PyTorch: :func:`limbs_from_rows`,
   :func:`nibbles_from_rows`, :func:`decompress_device`, and the plain
-  versions of the two hand-written CUDA kernels
-  (:func:`wire_verify_plain`, :func:`semiwire_verify_plain`; kernels and
-  wrappers in :mod:`hyperdrive_tpu_torch.ops.ed25519_cuda`), plus the
-  challenge legs and :func:`chalwire_verify_plain`;
+  versions of three hand-written CUDA kernels (:func:`wire_verify_plain`,
+  :func:`semiwire_verify_plain`, and the challenge legs
+  :func:`challenge` and :func:`challenge_grouped`; kernels and wrappers
+  in :mod:`hyperdrive_tpu_torch.ops.ed25519_cuda`), plus
+  :func:`chalwire_verify_plain`;
 - :class:`ValidatorTable`, :class:`Ed25519WireHost` (the reference's
   pure-Python packing path; its native ``hd_pack_wire`` is not ported),
   :class:`PendingVerify` and :class:`TorchWireVerifier`, the drop-in batch
@@ -156,14 +158,18 @@ def semiwire_verify_plain(idx, r_rows, s_rows, k_rows,
 
 def challenge(idx, r_rows, m_rows, trows) -> torch.Tensor:
     """The per-lane challenge leg: k rows ([B, 32] uint8) from R, the
-    table's compressed A gathered by ``idx``, and per-lane digests."""
+    table's compressed A gathered by ``idx``, and per-lane digests. The
+    plain version of the ``ed25519_challenge`` kernel
+    (:func:`~hyperdrive_tpu_torch.ops.ed25519_cuda.challenge`)."""
     return challenge_scalar_device(r_rows, trows[idx.long()], m_rows)
 
 
 def challenge_grouped(idx, r_rows, m_idx, m_uniq, trows) -> torch.Tensor:
     """The grouped challenge leg: digests arrive as a deduped table
     ``m_uniq`` ([U, 32] uint8) and a per-lane index ``m_idx`` ([B]
-    uint8), gathered on the device."""
+    uint8), gathered on the device. The plain version of the
+    ``ed25519_challenge`` kernel's grouped form
+    (:func:`~hyperdrive_tpu_torch.ops.ed25519_cuda.challenge_grouped`)."""
     return challenge_scalar_device(
         r_rows, trows[idx.long()], m_uniq[m_idx.long()]
     )
@@ -553,8 +559,8 @@ class TorchWireVerifier:
         self.host = Ed25519WireHost(buckets=buckets)
         self._fn = ed25519_cuda.wire_verify
         self._semi_fn = ed25519_cuda.semiwire_verify
-        self._chal = challenge
-        self._chal_grouped = challenge_grouped
+        self._chal = ed25519_cuda.challenge
+        self._chal_grouped = ed25519_cuda.challenge_grouped
         self._check_table(table)
         self.table = table
         #: Epoch table generations: the current and the previous

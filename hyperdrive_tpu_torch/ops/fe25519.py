@@ -15,10 +15,11 @@ sum(l_i * 2^(13 i)), on tensors shaped ``[..., 20]`` (any batch prefix).
 
 torch's int32 multiply wraps just as XLA's does; right shift on int32 is
 arithmetic, so ``c >> 13`` is a floor division and ``c & 0x1FFF`` the
-non-negative residue. The CUDA kernels' field (``csrc/fe25519.cuh``,
-``csrc/decompress.cuh``) is the same arithmetic in C; the constants they
-use come from this module. ``inv`` is not ported: the wire path
-decompresses through :func:`pow22523`, and the validator table
+non-negative residue. This is the field of the CUDA kernels' plain
+versions; the kernels themselves run on 8 x 32-bit limbs
+(``csrc/fe25519_w32.cuh``), convert these 13-bit limb rows by value, and
+take their constants from the same integers. ``inv`` is not ported: the
+wire path decompresses through :func:`pow22523`, and the validator table
 decompresses on the host.
 """
 
@@ -118,7 +119,6 @@ _SUB_BIAS = make_sub_bias(P_INT, N_LIMBS, SLACK_MAX)
 ZERO = to_limbs(0)
 ONE = to_limbs(1)
 P_LIMBS = to_limbs(P_INT)
-P2_LIMBS = to_limbs(2 * P_INT)
 
 
 _CONSTS: dict = {}

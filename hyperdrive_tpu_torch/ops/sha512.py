@@ -1,10 +1,12 @@
 """Device-side Ed25519 challenge scalars: SHA-512 + mod-L reduction (PyTorch).
 
-Port of the JAX package's ``ops/sha512_jax.py``. The reference is plain
-jnp, not Pallas, so this is PyTorch ops on tensors, not a kernel: the
-challenge leg k = SHA-512(R || A || M) mod L of the wire verifier's
-challenge routes (:mod:`hyperdrive_tpu_torch.ops.ed25519_wire`), run on
-whatever device its inputs lie on.
+Port of the JAX package's ``ops/sha512_jax.py``, and the plain version of
+the ``ed25519_challenge`` kernel (``csrc/ed25519_challenge.cu``, wrappers
+in :mod:`hyperdrive_tpu_torch.ops.ed25519_cuda`): the challenge leg k =
+SHA-512(R || A || M) mod L of the wire verifier's challenge routes
+(:mod:`hyperdrive_tpu_torch.ops.ed25519_wire`). The CPU tests run it, and
+``chip_smoke.py`` holds the kernel against it on the card; the card's path
+does not use it.
 
 - A batched single-block SHA-512 (messages <= 111 bytes; the challenge
   preimage R||A||M is exactly 96) over int64 words, one word per lane. int64

@@ -3,7 +3,8 @@
 - the packer: array for array and prevalid for prevalid with the
   reference's pure-Python packer, dedup fan-out included;
 - ``verify_plain`` (the CUDA kernel's plain version): the same masks as the
-  Pallas kernel in interpret mode and as the host oracle;
+  Pallas kernel in interpret mode and as the host oracle; the kernel's
+  in-kernel nibble recode, modelled in Python, against the plain one;
 - ``TorchBatchVerifier`` on the CPU: the same verdicts as the reference's
   ``HostVerifier`` across multi-chunk, dedup and wrong-length batches;
 - ``from_reference`` carries the reference packer's output over unchanged.
@@ -194,6 +195,39 @@ def test_four_thread_schedule_matches_host_point_arithmetic():
         for got, want in cases:
             assert _affine(got) == _affine(want)
             assert got[3] * got[2] % _P == got[0] * got[1] % _P  # T = XY/Z
+
+
+def _model_recode_nibbles(row):
+    """l4_recode_nibbles (csrc/ladder4.cuh) on one int32 nibble row: digits
+    >= 8 borrow 16 and carry 1, the final carry dropped."""
+    out, carry = [], 0
+    for nib in row:
+        d = int(nib) + carry
+        carry = 1 if d >= 8 else 0
+        out.append(d - 16 * carry)
+    return out
+
+
+def test_nibble_recode_model_matches_recode_signed():
+    """The packed kernel's in-kernel recode against the plain version's, on
+    the nibbles of valid scalars, of s + L (>= 2^253, outside the packer's
+    precondition), of 2^256 - 1 (all 15) and of seeded random rows."""
+    rng = np.random.default_rng(41)
+    scalars = [int(v) for v in rng.integers(0, 2**62, 4)]
+    scalars += [ref_ed.L - 1, 2 * ref_ed.L - 1, (1 << 253) + 5, (1 << 256) - 1]
+    rows = [[(v >> (4 * i)) & 0xF for i in range(64)] for v in scalars]
+    rows += rng.integers(0, 16, (8, 64)).tolist()
+    nib = torch.tensor(rows, dtype=torch.int32)
+    want = ted._recode_signed(nib).T.numpy()
+    for row, w in zip(rows, want):
+        digits = _model_recode_nibbles(row)
+        assert digits == w.tolist()
+        assert all(-8 <= d <= 7 for d in digits)
+    # Dropping the final carry: the digits give scalar - 2^256 when the
+    # top digit carries, the scalar itself below 2^255 - 2^251.
+    for v, row in zip(scalars, rows):
+        got = sum(d << (4 * i) for i, d in enumerate(_model_recode_nibbles(row)))
+        assert got in (v, v - (1 << 256))
 
 
 def test_wrapper_checks_inputs_and_refuses_rlc():

@@ -3,8 +3,9 @@
 Same seeded numpy inputs through ``hyperdrive_tpu.ops.fe25519`` (jnp) and
 ``hyperdrive_tpu_torch.ops.fe25519`` (torch): every operation must give
 the same int32 limbs, not just the same field element, because the CUDA
-kernel's field is the same arithmetic again and its constants come from
-the port. Exact comparisons throughout.
+kernels' plain versions run on it. The kernels' one constant block (8 x
+32-bit limbs) is held by value to the TPU kernels' constants and to the
+host oracle's integers. Exact comparisons throughout.
 """
 
 import numpy as np
@@ -13,6 +14,7 @@ import torch
 
 import jax.numpy as jnp
 
+from hyperdrive_tpu.crypto import ed25519 as ref_ed
 from hyperdrive_tpu.ops import fe25519 as ref
 from hyperdrive_tpu.ops.ed25519_jax import _b_niels_np as ref_b_niels
 from hyperdrive_tpu.ops.ed25519_pallas import _consts as ref_pallas_consts
@@ -131,49 +133,55 @@ def test_packing_and_constants_match_reference():
         fe.mul_small(torch.from_numpy(fe.ONE), 1 << 17)
 
 
-def test_cuda_constant_block_matches_the_pallas_kernels_constants():
-    """Every constant the CUDA kernels read, slot by slot, against the TPU
-    kernels' own const block (bias, 2d, digits of p and 2p, [0..8]B, then
-    d and sqrt(-1), which the wire kernels' decompression reads)."""
-    block = ed25519_cuda.consts_block()
-    assert block.shape == (ed25519_cuda.CONSTS_LEN,)
-    bias, k2d, pdig, p2dig, d, sqrtm1, byp, bym, bt2 = (
-        np.asarray(c) for c in ref_pallas_consts()
-    )
-    n = fe.N_LIMBS
-    np.testing.assert_array_equal(block[0:n], bias[:, 0])
-    np.testing.assert_array_equal(block[n:2 * n], k2d[:, 0])
-    np.testing.assert_array_equal(block[2 * n:3 * n], pdig[:, 0])
-    np.testing.assert_array_equal(block[3 * n:4 * n], p2dig[:, 0])
-    tab = block[4 * n:4 * n + 27 * n].reshape(3, 9, n)
-    for plane, want in zip(tab, (byp, bym, bt2)):
-        np.testing.assert_array_equal(plane, want.T)
-    np.testing.assert_array_equal(block[31 * n:32 * n], d[:, 0])
-    np.testing.assert_array_equal(block[32 * n:33 * n], sqrtm1[:, 0])
-    assert block.shape == (33 * n,)
-    for got, want in zip(ed25519_cuda._b_niels_np(16), ref_b_niels(16)):
-        np.testing.assert_array_equal(got, want)
-
-
 def _value32(words) -> int:
     return sum(int(v) << (32 * i) for i, v in enumerate(words))
 
 
-def test_cuda_w32_constant_block_matches_by_value():
-    """The wire kernels' 8 x 32-bit block, slot by slot by integer value,
-    against the TPU kernels' const block and the 20 x 13-bit block: p, 2d,
-    d, sqrt(-1), then the 9 [0..8]B entries of each niels plane."""
+def _w32_slots():
     w = ed25519_cuda.W32_LIMBS
     block = ed25519_cuda.consts_block_w32()
     assert block.dtype == np.uint32 and block.shape == (ed25519_cuda.CONSTS_W32_LEN,)
-    slots = [_value32(block[i:i + w]) for i in range(0, block.size, w)]
+    return [_value32(block[i:i + w]) for i in range(0, block.size, w)]
+
+
+def test_cuda_constant_block_matches_the_pallas_kernels_constants():
+    """Every field constant the CUDA kernels read, slot by slot by value,
+    against the TPU kernels' own const block (p, 2d, d and sqrt(-1), which
+    the decompression reads, then the [0..8]B niels planes); and the port's
+    B table against the reference's."""
+    slots = _w32_slots()
     _, k2d, pdig, _, d, sqrtm1, byp, bym, bt2 = (np.asarray(c) for c in ref_pallas_consts())
     want = [_value(c[:, 0]) for c in (pdig, k2d, d, sqrtm1)]
     want += [_value(plane[:, e]) for plane in (byp, bym, bt2) for e in range(9)]
-    assert slots == want
-    n = fe.N_LIMBS
-    old = ed25519_cuda.consts_block()
-    old_slots = [_value(old[i:i + n]) for i in (2 * n, n, 31 * n, 32 * n)]
-    old_slots += [_value(old[4 * n + i * n:4 * n + (i + 1) * n]) for i in range(27)]
-    assert slots == old_slots
+    assert slots[:len(want)] == want
+    for got, want in zip(ed25519_cuda._b_niels_np(16), ref_b_niels(16)):
+        np.testing.assert_array_equal(got, want)
+
+
+def test_cuda_w32_constant_block_matches_by_value():
+    """The 8 x 32-bit block slot by slot against the host oracle's
+    integers: p, 2d, d, sqrt(-1), the 9 [0..8]B entries of each niels
+    plane (y+x, y-x, 2d x y from the oracle's point arithmetic), then the
+    challenge kernel's L, delta and its three fold constants, each of which
+    cancels delta (2^w - 1) mod L."""
+    slots = _w32_slots()
+    d = ref_ed.D
+    want = [P, 2 * d % P, d, ref_ed.SQRT_M1]
+    planes = ([], [], [])
+    pt = ref_ed.IDENTITY
+    for _ in range(9):
+        zi = pow(pt[2], P - 2, P)
+        x, y = pt[0] * zi % P, pt[1] * zi % P
+        for plane, v in zip(planes, (y + x, y - x, 2 * d * x * y)):
+            plane.append(v % P)
+        pt = ref_ed.point_add(pt, ref_ed.BASE)
+    want += [v for plane in planes for v in plane]
+    L = ref_ed.L
+    delta = L - (1 << 252)
+    want += [L, delta]
+    assert slots[:len(want)] == want
+    folds = slots[len(want):]
+    assert len(folds) == len(ed25519_cuda.SC_FOLD_WIDTHS) == 3
+    for c, w in zip(folds, ed25519_cuda.SC_FOLD_WIDTHS):
+        assert 0 <= c < L and (c + delta * ((1 << w) - 1)) % L == 0
     assert slots[0] == P and all(0 <= s < P for s in slots[1:])

@@ -10,6 +10,8 @@
 - the plain versions of the wire and semiwire kernels (what the CUDA
   kernels are held to on the card) against the host oracle on the
   reference's adversarial decompression lanes;
+- the challenge kernel's wrappers on CPU tensors (the plain legs) and
+  their input checks;
 - ``TorchWireVerifier`` on the CPU on each of its three routes, with the
   reference's stats formulas, and the n=4 network through it.
 
@@ -299,12 +301,44 @@ def test_challenge_legs_give_the_host_challenge(ring):
     grouped = wire.challenge_grouped(t[0], t[1], t[3], t[4], table.rows).numpy()
     np.testing.assert_array_equal(per_lane[prevalid], k[prevalid])
     np.testing.assert_array_equal(grouped[prevalid], k[prevalid])
+    # The kernel's wrappers on CPU tensors run these plain legs.
+    np.testing.assert_array_equal(
+        ed25519_cuda.challenge(t[0], t[1], t[2], table.rows).numpy(), per_lane)
+    np.testing.assert_array_equal(
+        ed25519_cuda.challenge_grouped(t[0], t[1], t[3], t[4], table.rows).numpy(), grouped)
     # Challenge leg then semiwire ladder, as the per-lane route runs them.
     (_, _, s, _), chal_valid, n = host.pack_wire_challenge(items, table)
     ok = wire.chalwire_verify_plain(t[0], t[1], torch.from_numpy(s), t[2],
                                     *table.arrays_chal()).numpy()
     want = [ref_ed.verify(*it) for it in items]
     assert (ok & chal_valid)[:n].tolist() == want and any(want)
+
+
+def test_challenge_wrappers_check_their_inputs():
+    ed25519_cuda.reset_stats()
+    i4 = torch.zeros(4, dtype=torch.int32)
+    z = torch.zeros((4, 32), dtype=torch.uint8)
+    trows = torch.zeros((3, 32), dtype=torch.uint8)
+    m_idx = torch.zeros(4, dtype=torch.uint8)
+    k = ed25519_cuda.challenge(i4, z, z, trows)
+    assert k.dtype == torch.uint8 and k.shape == (4, 32)
+    want = ref_ed.challenge_scalar(bytes(32), bytes(32), bytes(32))
+    assert bytes(k[0].numpy()) == want.to_bytes(32, "little")
+    np.testing.assert_array_equal(
+        ed25519_cuda.challenge_grouped(i4, z, m_idx, z[:1], trows).numpy(), k.numpy())
+    with pytest.raises(TypeError):
+        ed25519_cuda.challenge(i4.long(), z, z, trows)
+    with pytest.raises(ValueError):
+        ed25519_cuda.challenge(i4, z, z[:2], trows)
+    with pytest.raises(ValueError):
+        ed25519_cuda.challenge(i4, z, z, trows[:, :16])
+    with pytest.raises(TypeError):
+        ed25519_cuda.challenge_grouped(i4, z, m_idx.int(), z, trows)
+    with pytest.raises(ValueError):
+        ed25519_cuda.challenge_grouped(i4, z, m_idx, z.to("meta"), trows)
+    with pytest.raises(ValueError):
+        ed25519_cuda.challenge(i4, z, z, trows.to("meta"))
+    assert ed25519_cuda.stats["ed25519_challenge"].launches == 0
 
 
 def test_network_through_the_wire_verifier_matches_reference():
