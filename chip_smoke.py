@@ -29,17 +29,35 @@ Phases, each printing its lines:
    (the PyTorch-ops leg) byte for byte at 256 and 4,096 lanes on both
    forms, with edge digests (all-zero and all-0xff M) and R = 0xff...;
    kernel and plain times, the integer-instruction bound and its share;
-4. main path: the signed 256-validator burst network
+4. the vote grid (``ops/votegrid.py``, PyTorch ops, no hand-written
+   kernel) at the main path's shape (n = V = 256, R = 4): one seeded
+   sequence of settles (scatters with resets and L28 lanes, an empty
+   launch, fused merges with lanes written twice and replicas that do not
+   participate) replayed on the card and on the CPU, grids and counts
+   equal bit for bit after every step; one fused call whose verify is
+   ``ed25519_verify`` on a 256-lane mixed window, its mask equal to
+   ``verify_plain``'s and its counts to the CPU grid's fed that mask; then
+   the device time (CUDA events) of ``update_and_tally`` at 65,536 rows,
+   of the fused call with and without the verify kernel, and of the
+   verify alone, the CUDA kernels one call launches (``torch.profiler``)
+   and the bound (the grid's bytes read once at the memory rate), on
+   lines that begin ``programs:``;
+5. main path: the signed 256-validator burst network
    (``Simulation(n=256, sign=True, burst=True, dedup_verify=True,
-   small_window_host=False)``) to height 5, three times, every settle
+   small_window_host=False)``) to height 5, five times, every settle
    verified on the card: through the packed verifier (``ed25519_verify``),
    through ``TorchWireVerifier`` with a ``ValidatorTable`` of the 256
    validator keys (grouped challenge route, ``ed25519_challenge`` then
-   ``ed25519_semiwire``), and through ``TorchWireVerifier`` with no table
-   (full wire route, ``ed25519_wire``). Each run is checked for safety,
-   against one run with the host verifier (digest, steps, heights), and
-   for having launched its own kernels, each at least once per
-   vote-bearing settle, and no other.
+   ``ed25519_semiwire``), through ``TorchWireVerifier`` with no table
+   (full wire route, ``ed25519_wire``), and with ``device_tally=True,
+   tally_check=CheckedTallyView`` through the packed verifier (every
+   vote-bearing settle verified, merged and tallied in one fused call)
+   and through the table's challenge route (verify, then a separate tally
+   launch on every settle). Each run is checked for safety, against one
+   run with the host verifier (digest, steps, heights), and for having
+   launched its own kernels, each at least once per vote-bearing settle,
+   and no other; the device-tally runs also for device counts consulted
+   (and equal to the host's) and for their settle routes.
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``. Any failed check raises, so the script
@@ -541,6 +559,172 @@ def phase_challenge(state, clock_mhz: float, sms: int) -> dict:
     return rows
 
 
+#: The grid at the main path's shape: n replicas x V validators x R slots.
+GRID_N, GRID_R = N_VALIDATORS, 4
+#: Bytes of the grid read once: values [n, 2, R, V, 8] int32 + present
+#: [n, 2, R, V] bool.
+GRID_BYTES = GRID_N * 2 * GRID_R * N_VALIDATORS * (8 * 4 + 1)
+#: Rows one two-launch tally scatters at the main path's shape: every
+#: replica accepts one vote from every validator.
+GRID_ROWS = GRID_N * N_VALIDATORS
+VALUES = [b"\xaa" * 32, b"\x11" * 32, bytes(32), bytes(range(0x80, 0xA0))]
+
+
+def _words(value: bytes) -> np.ndarray:
+    return np.frombuffer(value, dtype="<i4").astype(np.int32)
+
+
+def _grid_meta(rng, n, R):
+    """Seeded per-replica metadata: targets from VALUES on most rounds,
+    an L28 lane on about half the replicas, f = 85."""
+    palette = np.stack([_words(v) for v in VALUES])
+    targets = palette[rng.integers(0, 2, (n, R))]
+    tvalid = rng.random((n, R)) < 0.7
+    l28_slot = np.where(rng.random(n) < 0.5, rng.integers(0, R, n), -1).astype(np.int32)
+    l28_target = palette[rng.integers(0, 4, n)]
+    return targets, tvalid, l28_slot, l28_target, np.full(n, n // 3, dtype=np.int32)
+
+
+def _scatter_args(rng, n, V, R, k):
+    lanes = rng.choice(n * 2 * R * V, size=k, replace=False)
+    idx = np.stack(np.unravel_index(lanes, (n, 2, R, V)), axis=1).astype(np.int32)
+    words = np.stack([_words(v) for v in VALUES])[rng.integers(0, 4, k)]
+    reset = rng.random(n) < 0.1
+    return (idx, words, reset, *_grid_meta(rng, n, R))
+
+
+def _fused_args(rng, n, V, R, lanes, present):
+    """One fused launch's inputs: about ``lanes`` claimed grid lanes
+    gated by verify lanes 0..255, some of them already present in the grid
+    (the presence guard keeps the first vote)."""
+    upd_lane = np.full((2, R, V), -1, dtype=np.int32)
+    pick = rng.choice(2 * R * V, size=lanes, replace=False)
+    upd_lane.reshape(-1)[pick] = rng.integers(0, PATH_LANES, lanes)
+    again = np.argwhere(present.any(axis=0))[:64]
+    upd_lane[tuple(again.T)] = rng.integers(0, PATH_LANES, len(again))
+    upd_vals = np.stack([_words(v) for v in VALUES])[rng.integers(0, 4, (2, R, V))]
+    reset = rng.random(n) < 0.1
+    participate = rng.random(n) < 0.8
+    targets, tvalid, l28_slot, l28_target, fs = _grid_meta(rng, n, R)
+    return (upd_lane, upd_vals, reset, participate, targets, tvalid, l28_slot,
+            l28_target, fs)
+
+
+def _same_grids(step, cuda, cpu, got, want):
+    for key in want:
+        if not np.array_equal(np.asarray(got[key]), np.asarray(want[key])):
+            raise AssertionError(f"votegrid step {step}: counts[{key}] differ cuda vs cpu")
+    if not (torch.equal(cuda._values.cpu(), cpu._values)
+            and torch.equal(cuda._present.cpu(), cpu._present)):
+        raise AssertionError(f"votegrid step {step}: grids differ cuda vs cpu")
+
+
+def _kernels_per_call(fn) -> str:
+    """The CUDA kernels one call of ``fn`` launches, from torch.profiler
+    (memory copies and sets not counted), as "N (name, ...)"."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and not e.name.startswith(("Memcpy", "Memset"))]
+    if not names:
+        return "not_measured (the profiler recorded no device events)"
+    short = sorted({re.sub(r"<.*", "", n)[:48] for n in names})
+    return f"{len(names)} ({'; '.join(short)})"
+
+
+def phase_votegrid() -> None:
+    from hyperdrive_tpu_torch.ops import ed25519 as ted
+    from hyperdrive_tpu_torch.ops import ed25519_cuda
+    from hyperdrive_tpu_torch.ops.votegrid import VoteGrid
+
+    n, V, R = GRID_N, N_VALIDATORS, GRID_R
+    rng = np.random.default_rng(SEED + 3)
+    cuda = VoteGrid(n, V, r_slots=R, device="cuda")
+    cpu = VoteGrid(n, V, r_slots=R, device="cpu")
+    zeros = ([np.zeros((PATH_LANES, 20), dtype=np.int32)] * 5
+             + [np.zeros((PATH_LANES, 64), dtype=np.int32)] * 2)
+    steps = [("scatter", 4096), ("scatter", 0), ("fused", 1500), ("scatter", GRID_ROWS),
+             ("fused", 2 * R * V), ("scatter", 900), ("fused", 600)]
+    for step, (kind, k) in enumerate(steps):
+        if kind == "scatter":
+            args = _scatter_args(rng, n, V, R, k)
+            _same_grids(step, cuda, cpu, cuda.update_and_tally(*args),
+                        cpu.update_and_tally(*args))
+            continue
+        mask = rng.random(PATH_LANES) < 0.8
+        mask_cuda, mask_cpu = torch.from_numpy(mask).to("cuda"), torch.from_numpy(mask)
+        cuda.attach_fused(lambda b: lambda *a: mask_cuda)
+        cpu.attach_fused(lambda b: lambda *a: mask_cpu)
+        args = _fused_args(rng, n, V, R, k, cpu._present.numpy())
+        got = cuda.fused_update_and_tally(zeros, *args)
+        want = cpu.fused_update_and_tally(zeros, *args)
+        if not np.array_equal(got.mask(), want.mask()):
+            raise AssertionError(f"votegrid step {step}: fused masks differ")
+        _same_grids(step, cuda, cpu, got.counts(), want.counts())
+    print(f"programs: votegrid n={n} V={V} R={R} grid_bytes={GRID_BYTES} "
+          f"steps={len(steps)} (scatters of 4096/0/{GRID_ROWS}/900 rows with resets and "
+          f"L28 lanes; fused merges with rewritten lanes and non-participants) "
+          f"cuda_equals_cpu=True present_lanes={int(cuda._present.sum())}", flush=True)
+
+    # The fused call with the row 1 kernel as its verify, on a mixed window.
+    bv = ted.TorchBatchVerifier(device="cuda")
+    cuda.attach_fused(bv.fused_inner)
+    items = mixed_pool(PATH_LANES, np.random.default_rng(SEED + 4))
+    arrays, prevalid, _ = bv.host.pack(items)
+    upd_lane = np.full((2, R, V), -1, dtype=np.int32)
+    upd_vals = np.zeros((2, R, V, 8), dtype=np.int32)
+    for j in range(PATH_LANES):
+        upd_lane[j % 2, j % R, j] = j
+        upd_vals[j % 2, j % R, j] = _words(VALUES[j % 4])
+    args = (upd_lane, upd_vals, np.zeros(n, bool), np.ones(n, bool),
+            *_grid_meta(rng, n, R))
+    ed25519_cuda.reset_stats()
+    got = cuda.fused_update_and_tally(arrays, *args)
+    mask = got.mask()
+    if ed25519_cuda.stats["ed25519_verify"].launches != 1:
+        raise AssertionError("the fused call did not launch ed25519_verify once")
+    plain = ted.verify_plain(*(torch.from_numpy(a).to("cuda") for a in arrays)).cpu()
+    if not np.array_equal(mask, plain.numpy()):
+        raise AssertionError("fused mask != verify_plain's mask")
+    cpu.attach_fused(lambda b: lambda *a: plain)
+    _same_grids("fused+verify", cuda, cpu, got.counts(),
+                cpu.fused_update_and_tally(arrays, *args).counts())
+    print(f"programs: votegrid fused verify=ed25519_verify lanes={PATH_LANES} "
+          f"mask_equals_verify_plain=True valid_lanes={int((mask & prevalid).sum())} "
+          f"counts_equal_cpu_grid=True", flush=True)
+
+    # Device times at the main path's shapes.
+    dev_arrays = [torch.from_numpy(a).to("cuda") for a in arrays]
+    stub = torch.ones(PATH_LANES, dtype=torch.bool, device="cuda")
+    scatter = _scatter_args(rng, n, V, R, GRID_ROWS)
+    b_ms = GRID_BYTES / HBM_BYTES_PER_S * 1e3
+    stub_grid = VoteGrid(n, V, r_slots=R, device="cuda")
+    stub_grid.attach_fused(lambda b: lambda *a: stub)
+    calls = [
+        ("update_and_tally", f"rows={GRID_ROWS} (one vote window, every replica)",
+         lambda: cuda.update_and_tally(*scatter)["total"]),
+        ("fused_update_and_tally", f"lanes={PATH_LANES} (verify + merge + tally)",
+         lambda: cuda.fused_update_and_tally(arrays, *args).mask()),
+        ("merge_tally", f"lanes={PATH_LANES} (fused call, verify a constant mask)",
+         lambda: stub_grid.fused_update_and_tally(arrays, *args).mask()),
+        ("verify", f"lanes={PATH_LANES} (ed25519_verify alone)",
+         lambda: ed25519_cuda.verify(*dev_arrays)),
+    ]
+    for name, what, fn in calls:
+        ms = time_ms(fn, 7)
+        kern = _kernels_per_call(fn)
+        bound = (f" bound_ms={b_ms:.6f} bound_by=bytes bound_share={b_ms / ms:.4f}"
+                 if name != "verify" else "")
+        print(f"programs: votegrid {name} {what} ms={ms:.4f}{bound} "
+              f"cuda_kernels_per_call={kern}", flush=True)
+
+
 def _timed(spent, depth, key, fn):
     # Outermost calls only: the packer calls itself on a dedup fan-out.
     def run(*args, **kwargs):
@@ -555,19 +739,31 @@ def _timed(spent, depth, key, fn):
     return run
 
 
-def run_path(label: str, own: tuple, verifier, ref) -> dict:
+def run_path(label: str, own: tuple, verifier, ref, tally: bool = False) -> dict:
     """One n=256 network run with ``verifier`` on every settle; checks it
     against the host-verifier result ``ref`` and the kernel counts (each
     kernel of ``own`` at least once per vote-bearing settle, no other
-    kernel at all), prints the line. Returns each own kernel's
-    launches."""
+    kernel at all), prints the line. With ``tally`` the run keeps its
+    counts in the device vote grid, every count checked against the host
+    counters (``CheckedTallyView``), and its settle routes are checked: a
+    verifier with ``fused_inner`` fuses every vote-bearing settle, any
+    other verifies and then tallies in a launch of its own on every
+    settle. Returns each own kernel's launches."""
     from hyperdrive_tpu_torch.crypto.keys import KeyPair
     from hyperdrive_tpu_torch.harness import Simulation
     from hyperdrive_tpu_torch.ops import ed25519_cuda
+    from hyperdrive_tpu_torch.ops import votegrid
+
+    views = []
+
+    def check(view, proc):
+        views.append(votegrid.CheckedTallyView(view, proc))
+        return views[-1]
 
     sim = Simulation(n=N_VALIDATORS, target_height=HEIGHT, seed=1, sign=True,
                      burst=True, dedup_verify=True, small_window_host=False,
-                     batch_verifier=verifier)
+                     batch_verifier=verifier,
+                     **(dict(device_tally=True, tally_check=check) if tally else {}))
     bv = sim.batch_verifier
     bv.warmup()
     torch.cuda.synchronize()
@@ -580,9 +776,17 @@ def run_path(label: str, own: tuple, verifier, ref) -> dict:
         if hasattr(bv, name):
             setattr(bv, name, _timed(spent, depth, "chal", getattr(bv, name)))
     bv.verify_signatures = _timed(spent, depth, "verify", bv.verify_signatures)
-
-    sign = KeyPair.sign_digest
-    KeyPair.sign_digest = _timed(spent, depth, "sign", sign)
+    # The tally share: the grid calls and the waits for their results.
+    patched = [(KeyPair, "sign_digest", "sign")]
+    if tally:
+        for name in ("update_and_tally", "fused_update_and_tally"):
+            setattr(sim.vote_grid, name,
+                    _timed(spent, depth, "tally", getattr(sim.vote_grid, name)))
+        patched += [(votegrid._FusedOut, "mask", "tally"),
+                    (votegrid.LazyCounts, "_materialize", "tally")]
+    saved = [(cls, name, getattr(cls, name)) for cls, name, _ in patched]
+    for cls, name, key in patched:
+        setattr(cls, name, _timed(spent, depth, key, getattr(cls, name)))
     try:
         ed25519_cuda.reset_stats()
         if hasattr(bv, "reset_stats"):
@@ -593,7 +797,8 @@ def run_path(label: str, own: tuple, verifier, ref) -> dict:
         wall = time.perf_counter() - t0
         counts = {k: (v.launches, v.lanes) for k, v in ed25519_cuda.stats.items()}
     finally:
-        KeyPair.sign_digest = sign
+        for cls, name, fn in saved:
+            setattr(cls, name, fn)
 
     if not res.completed or min(res.heights) <= HEIGHT:
         raise AssertionError(f"{label}: network did not reach height {HEIGHT}: {res.heights}")
@@ -617,8 +822,22 @@ def run_path(label: str, own: tuple, verifier, ref) -> dict:
             raise AssertionError(
                 f"{label}: {key}={bv.stats[key]} for {sim.verified_sigs} verified signatures")
         extra = (f" {key}={bv.stats[key]} bytes_per_lane={bv.bytes_per_lane():.2f}")
+    if tally:
+        hits = sum(v.hits for v in views)
+        if not hits:
+            raise AssertionError(f"{label}: the device counts were never consulted")
+        routes = (sim.fused_settles, sim.tally_launches, sim.host_routed_settles)
+        want = ((sim.vote_settles, 0, 0) if sim._fused_ok
+                else (0, sim.settle_passes, 0))
+        if routes != want or not sim.vote_settles:
+            raise AssertionError(
+                f"{label}: (fused settles, tally launches, host-routed settles) = "
+                f"{routes}, want {want}")
+        extra += (f" fused_settles={sim.fused_settles} tally_launches={sim.tally_launches}"
+                  f" host_routed_settles={sim.host_routed_settles} tally_views={len(views)}"
+                  f" tally_hits={hits}")
     shares = " ".join(f"{k}_share={spent.get(k, 0.0) / wall:.3f}"
-                      for k in ("sign", "pack", "chal", "verify"))
+                      for k in ("sign", "pack", "chal", "verify", "tally"))
     print(f"main {label}: n={N_VALIDATORS} height={HEIGHT} completed={res.completed} "
           f"steps={res.steps} wall_s={wall:.2f} heights_per_s={HEIGHT / wall:.3f} "
           f"verified_sigs={sim.verified_sigs} "
@@ -645,12 +864,19 @@ def phase_main_path() -> dict:
           f"digest={ref.commit_digest(up_to=HEIGHT)[:16]}", flush=True)
     ring = KeyRing.deterministic(N_VALIDATORS, namespace=b"sim-1")
     table = ValidatorTable(ring.signatories, device="cuda")
-    return {
+    launches = {
         **run_path("packed", ("ed25519_verify",), TorchBatchVerifier(device="cuda"), ref),
         **run_path("chal", ("ed25519_challenge", "ed25519_semiwire"),
                    TorchWireVerifier(device="cuda", table=table), ref),
         **run_path("wire", ("ed25519_wire",), TorchWireVerifier(device="cuda"), ref),
     }
+    # The device-tally path: fused on the packed verifier, two launches on
+    # the challenge route. The kernel table keeps the runs above.
+    run_path("packed+tally", ("ed25519_verify",), TorchBatchVerifier(device="cuda"), ref,
+             tally=True)
+    run_path("chal+tally", ("ed25519_challenge", "ed25519_semiwire"),
+             TorchWireVerifier(device="cuda", table=table), ref, tally=True)
+    return launches
 
 
 def main() -> int:
@@ -669,6 +895,7 @@ def main() -> int:
           + " ".join(f"{k}={rows[k][PATH_LANES]['ms'] / base:.4f}"
                      for k in ("ed25519_wire", "ed25519_semiwire")), flush=True)
     rows["ed25519_challenge"] = phase_challenge(state, clock, sms)
+    phase_votegrid()
     launches = phase_main_path()
     table = []
     for name, (source, replaces) in KERNELS.items():
@@ -690,7 +917,7 @@ def main() -> int:
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),
-        "count": 1,
+        "count": torch.cuda.device_count(),
     }}))
     return 0
 

@@ -1,4 +1,5 @@
-"""Deterministic in-process network simulation (burst mode)."""
+"""Deterministic in-process network simulation (burst mode, with or
+without device tallies)."""
 
 from hyperdrive_tpu_torch.harness.sim import (
     Simulation,

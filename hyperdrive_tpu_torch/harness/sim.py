@@ -19,14 +19,27 @@ batch-verify offload" deployment):
 Delivery order, the small-window routing rule and the commit bookkeeping
 are the reference's, so the two commit the same chain step for step.
 
+With ``device_tally=True`` the quorum counts come from the device vote
+grid (:class:`~hyperdrive_tpu_torch.ops.votegrid.VoteGrid`, one grid
+for the network on ``device``): a lockstep settle whose verifier exposes
+``fused_inner`` verifies, merges and tallies behind one upload and one
+download (:meth:`Simulation._dispatch_fused`); any other settle verifies,
+inserts, then scatters and tallies in a second launch
+(:meth:`Simulation._dispatch_tallied`). ``fused_min_window`` routes
+sub-crossover settles fully to the host and poisons the grid slots they
+bypass; ``route_hysteresis`` drops the grid upkeep over a host-shaped
+stretch and rebuilds it on re-engagement. The reference's tracer spans
+for these paths become three plain counters (``fused_settles``,
+``tally_launches``, ``host_routed_settles``).
+
 Not ported (a later slice of the port), and refused: lock-step delivery
-(``burst=False``), per-delivery adversaries, kills, the device vote grid,
-pipelining, payloads, certificates, epochs, chaos, load, overlay,
-execution and the record/replay log (``SimulationResult.record`` is
-always None). The tracer, flight recorder, metrics registry and device
+(``burst=False``), per-delivery adversaries, kills, the sharded grid
+(``tally_mesh``), pipelining, payloads, certificates, epochs, chaos, load,
+overlay, execution and the record/replay log (``SimulationResult.record``
+is always None). The tracer, flight recorder, metrics registry and device
 telemetry are dropped (tracing returns in a later slice); the columnar
-window path is replaced by the object path with batched ingestion, which
-the reference tests as equivalent row for row.
+window path (``columnar_ingest``) is replaced by the object path with
+batched ingestion, which the reference tests as equivalent row for row.
 """
 
 from __future__ import annotations
@@ -35,6 +48,8 @@ import hashlib
 import heapq
 from dataclasses import dataclass, field
 from typing import Optional
+
+import numpy as np
 
 from hyperdrive_tpu_torch.messages import Precommit, Prevote, Propose, Timeout
 from hyperdrive_tpu_torch.replica import Replica, ReplicaOptions, merge_drain
@@ -153,6 +168,16 @@ class Simulation:
     default, ``device="cuda"`` still verifies each height's propose settle
     (one signature) on the host, as the reference does; pass False to send
     every settle through the kernel.
+
+    ``device_tally=True`` keeps the quorum counts in a
+    :class:`~hyperdrive_tpu_torch.ops.votegrid.VoteGrid` on ``device``;
+    ``tally_check`` (a callable ``(view, proc) -> view``, e.g.
+    ``CheckedTallyView``) wraps every tally view. ``fused_min_window``: a
+    lockstep settle of fewer messages (or a straggler settle of fewer
+    distinct messages) runs fully on the host with the grid poisoned for
+    the slots it bypasses; 0 = never. ``route_hysteresis`` N: when 95% of
+    the last N routed settles went to the host, grid upkeep stops until a
+    device-routed settle rebuilds it (0 = off).
     """
 
     def __init__(
@@ -168,6 +193,10 @@ class Simulation:
         dedup_verify: bool = False,
         batch_verifier=None,
         small_window_host: Optional[bool] = None,
+        device_tally: bool = False,
+        tally_check=None,
+        fused_min_window: int = 0,
+        route_hysteresis: int = 32,
         device="cuda",
         **unported,
     ):
@@ -175,6 +204,10 @@ class Simulation:
             raise NotImplementedError(
                 f"Simulation options {sorted(unported)} are not ported to "
                 "the PyTorch package yet (a later slice of the port)"
+            )
+        if device_tally and not burst:
+            raise ValueError(
+                "device_tally requires burst=True with batched ingestion"
             )
         if not burst:
             raise NotImplementedError(
@@ -233,10 +266,70 @@ class Simulation:
         self.settle_passes = 0
         self.vote_settles = 0
         self.verified_sigs = 0
+        #: Device-tally accounting: settles verified, merged and tallied in
+        #: one fused call; separate tally launches (update_and_tally, one
+        #: per two-launch settle, propose settles included); settles the
+        #: crossover router kept on the host.
+        self.fused_settles = 0
+        self.tally_launches = 0
+        self.host_routed_settles = 0
         self.replicas: list[Replica] = [
             self._build_replica(i, timeout, timeout_scaling, max_capacity)
             for i in range(n)
         ]
+        #: Device-resident quorum tallies: behavior-neutral by construction
+        #: (counts equal the host counters wherever a TallyView answers).
+        self.device_tally = device_tally
+        self._tally_check = tally_check
+        #: Crossover routing: a settle below this many messages is handled
+        #: entirely on the host (host verification + host-counter cascade)
+        #: and the grid is poisoned for the slots it bypassed. 0 = never.
+        self._fused_min_window = int(fused_min_window)
+        #: Router hysteresis window N (0 = off): when >= 95% of the last N
+        #: routed settles went to the host, grid upkeep stops until a
+        #: device-routed settle rebuilds the grid (claimed fully dirty).
+        self._route_hyst_n = int(route_hysteresis)
+        if device_tally:
+            from hyperdrive_tpu_torch.ops.votegrid import VoteGrid
+
+            # 4 round slots: the happy path plus three retry rounds on
+            # device; deeper rounds fall back to the host counters.
+            self.vote_grid = VoteGrid(
+                n, len(self.signatories), r_slots=4, device=device
+            )
+            self._grid_height = [-1] * n
+            self._grid_dirty: list[set] = [set() for _ in range(n)]
+            #: Engaged = the grid receives its per-settle upkeep (scatter
+            #: bookkeeping, poison marks); _reengage_grid rebuilds it.
+            self._grid_engaged = True
+            self._route_hist: list = []
+            self._route_hyst_thresh = -(-95 * self._route_hyst_n // 100)
+            self._sender_pos = {s: v for v, s in enumerate(self.signatories)}
+            #: Fused verify + merge + tally: available when the verifier
+            #: exposes its batch kernel and its packer, and the run dedups
+            #: verification (shared verdicts = shared merge).
+            self._fused_ok = (
+                dedup_verify
+                and hasattr(bv, "fused_inner")
+                and hasattr(getattr(bv, "host", None), "pack")
+            )
+            if self._fused_ok:
+                bv_device = getattr(bv, "device", self.vote_grid.device)
+                if bv_device != self.vote_grid.device:
+                    raise ValueError(
+                        f"the fused settle verifies on the grid's device "
+                        f"({self.vote_grid.device}); the batch verifier is "
+                        f"on {bv_device}: pass the same device"
+                    )
+                self.vote_grid.attach_fused(bv.fused_inner)
+            # The grid answers the hot quorum queries; the host keeps the
+            # logs but skips the derived per-value tally dicts (declined
+            # queries fall back to State.count_*'s log scan).
+            for r in self.replicas:
+                r.proc.host_counts = False
+            # Whitelist identity snapshot: a replica whose procs_allowed
+            # was replaced can no longer ride the shared merge.
+            self._allowed_objs = [r.procs_allowed for r in self.replicas]
 
     # ------------------------------------------------------------- wiring
 
@@ -374,8 +467,122 @@ class Simulation:
             distinct = {id(w): w for _, w in windows}.values()
             if any(type(m) is not Propose for w in distinct for m in w):
                 self.vote_settles += 1
+            if self.device_tally:
+                self._settle_tallied(windows, shared_window)
+                continue
             keeps = self._verify_windows(windows, shared_window)
             self._dispatch_windows(windows, keeps)
+
+    def _settle_tallied(self, windows, shared_window) -> None:
+        """One device-tally settle pass, routed: a lockstep pass (every
+        window IS the shared list) on a fused-capable verifier takes the
+        fused launch unless it is below the crossover floor; a straggler
+        pass below the floor (in distinct messages) stays on the host;
+        everything else verifies, then tallies in a second launch."""
+        if (
+            shared_window is not None
+            and self._fused_ok
+            and len(shared_window) <= self.batch_verifier.host.buckets[-1]
+            and all(w is shared_window for _, w in windows)
+            and all(
+                self.replicas[i].procs_allowed is self._allowed_objs[i]
+                for i, _ in windows
+            )
+        ):
+            if len(shared_window) < self._fused_min_window:
+                self._route_settle_to_host(windows, shared_window)
+                return
+            self._reengage_grid()
+            if self._dispatch_fused(shared_window, windows):
+                self._note_route(False)
+                return
+            # Vote-free window (the propose settle): verification is still
+            # needed, but there is nothing to merge or tally — skip the
+            # grid (reset defers to the height's first vote-bearing
+            # settle) and cascade on the host fallback.
+            keeps = self._verify_windows(windows, shared_window)
+            self._dispatch_windows(windows, keeps)
+            return
+        if self._fused_min_window and not (
+            # A single window never holds the same object twice, so any
+            # window at/above the floor proves uniq >= floor.
+            max(len(w) for _, w in windows) >= self._fused_min_window
+        ):
+            # UNIQUE broadcasts, not per-receiver deliveries: the floor is
+            # in distinct signatures, as on the shared-lane branch.
+            uniq = len({id(m) for _, w in windows for m in w})
+            if uniq < self._fused_min_window:
+                # Sub-crossover straggler settle: verify on the host too,
+                # and poison the grid slots these windows' votes would
+                # have filled (skipped while hysteresis has the grid
+                # disengaged: the rebuild claims every slot dirty).
+                if self._grid_engaged:
+                    for i, w in windows:
+                        touched = self._touched_slots(w)
+                        if touched:
+                            self._poison_grid(i, touched)
+                self._note_route(True)
+                self.host_routed_settles += 1
+                keeps = self._verify_windows(
+                    windows, shared_window, force_host=True
+                )
+                self._dispatch_windows(windows, keeps)
+                return
+        keeps = self._verify_windows(windows, shared_window)
+        self._reengage_grid()
+        self._dispatch_tallied(windows, keeps, shared_window)
+        self._note_route(False)
+
+    def _route_settle_to_host(self, windows, shared_window) -> None:
+        """Handle one sub-crossover lockstep settle fully on the host:
+        host verification, plain window dispatch (host-counter cascade),
+        and grid poisoning — exactly the (plane, round) slots this
+        window's votes would have occupied are marked dirty until the
+        height advances. A vote-free window poisons nothing. While
+        hysteresis has the grid disengaged the poison upkeep is skipped:
+        the rebuild on re-engagement claims every slot dirty anyway."""
+        if self._grid_engaged:
+            touched = self._touched_slots(shared_window)
+            if touched:
+                for i, _ in windows:
+                    self._poison_grid(i, touched)
+        self._note_route(True)
+        self.host_routed_settles += 1
+        keeps = self._verify_windows(windows, shared_window, force_host=True)
+        self._dispatch_windows(windows, keeps)
+
+    def _note_route(self, host_routed: bool) -> None:
+        """Feed the router hysteresis: one observation per routed settle.
+        A full window of >= 95% host routes disengages grid upkeep; the
+        history only governs disengagement (re-engagement is size-driven,
+        see :meth:`_reengage_grid`), so a disengaged router records
+        nothing."""
+        n = self._route_hyst_n
+        if not n or not self._fused_min_window or not self._grid_engaged:
+            return
+        hist = self._route_hist
+        hist.append(host_routed)
+        if len(hist) > n:
+            del hist[0]
+        elif len(hist) < n:
+            return
+        if sum(hist) >= self._route_hyst_thresh:
+            self._grid_engaged = False
+            hist.clear()
+
+    def _reengage_grid(self) -> None:
+        """Rebuild the grid bookkeeping before a device-routed settle
+        touches a disengaged grid: each replica's CURRENT height is claimed
+        with every slot dirty (votes host-routed while disengaged never
+        reached the grid); the next height's reset starts it clean."""
+        if self._grid_engaged:
+            return
+        all_slots = self.vote_grid.all_slots()
+        for i, r in enumerate(self.replicas):
+            self._grid_height[i] = r.proc.current_height
+            self._grid_dirty[i] = set(all_slots)
+        self._grid_engaged = True
+        self._route_hist.clear()
 
     def _order_key(self, sender) -> int:
         """Sender tie-break index: whitelist order for signatories, then
@@ -461,7 +668,8 @@ class Simulation:
         for (i, w), keep in zip(windows, keeps):
             self.replicas[i].dispatch_window(w, keep)
 
-    def _verify_windows(self, windows, shared_window=None) -> list:
+    def _verify_windows(self, windows, shared_window=None,
+                        force_host: bool = False) -> list:
         """One aggregated verification for a settle pass's windows; returns
         the per-window keep masks (None entries = no verifier)."""
         keeps: list = [None] * len(windows)
@@ -494,7 +702,7 @@ class Simulation:
                         items.append((m.sender, m.digest(), m.signature))
                     row.append(j)
                 slots.append(row)
-            mask = self._verify_items(items)
+            mask = self._verify_items(items, force_host)
             shared_keep = (
                 mask if shared_len == len(mask) else mask[:shared_len]
             )
@@ -507,17 +715,313 @@ class Simulation:
                 start = len(items)
                 items.extend((m.sender, m.digest(), m.signature) for m in w)
                 bounds.append((start, len(items)))
-            mask = self._verify_items(items)
+            mask = self._verify_items(items, force_host)
             keeps = [mask[a:b] for a, b in bounds]
         return keeps
 
-    def _verify_items(self, items) -> list:
+    def _verify_items(self, items, force_host: bool = False) -> list:
         """One aggregated signature verification, routed: sub-64-item
         windows go to the host verifier when small-window routing is on,
-        everything else to the batch verifier."""
+        everything else to the batch verifier. ``force_host``: a settle
+        the crossover router kept on the host verifies there too, unless
+        small-window routing is off (then the batch verifier answers)."""
         self.verified_sigs += len(items)
-        if self._small_win_host is not None and len(items) < 64:
+        if self._small_win_host is not None and (
+            force_host or len(items) < 64
+        ):
             mask = self._small_win_host.verify_signatures(items)
         else:
             mask = self.batch_verifier.verify_signatures(items)
         return mask.tolist() if hasattr(mask, "tolist") else list(mask)
+
+    # ----------------------------------------------------------- device tally
+
+    def _touched_slots(self, msgs) -> set:
+        """The (plane, round) grid slots a window's votes would fill —
+        what a host-routed settle must poison. Out-of-window rounds never
+        reach the grid and TallyView never serves them."""
+        grid_r = self.vote_grid.R
+        touched = set()
+        for m in msgs:
+            t = type(m)
+            if t is Prevote or t is Precommit:
+                rnd = m.round
+                if 0 <= rnd < grid_r:
+                    touched.add((1 if t is Precommit else 0, rnd))
+        return touched
+
+    def _poison_grid(self, i, touched) -> None:
+        """Mark replica ``i``'s grid slots missing after a host-routed
+        settle (``touched``: non-empty set of (plane, round) pairs its
+        window's votes would have filled)."""
+        h = self.replicas[i].current_height()
+        if self._grid_height[i] != h:
+            # The grid was never reset for this height: its rows are stale
+            # for EVERY round, and claiming the height here (so the next
+            # device settle does not reset and clear the poison) means no
+            # zeroing will happen — poison the whole height.
+            self._grid_height[i] = h
+            self._grid_dirty[i] = set(self.vote_grid.all_slots())
+        else:
+            self._grid_dirty[i].update(touched)
+
+    def _targets(self, i, win_props, h, dirty):
+        """Replica ``i``'s launch targets: (targets [R, 8], valid [R],
+        round -> value, l28 slot, l28 words [8], l28 value or None). The
+        per-round targets are its logged proposes plus this window's
+        schedule-checked ones (``win_props``: round -> the window's only
+        propose there, None for conflicting ones, whose rounds are
+        poisoned in ``dirty``)."""
+        from hyperdrive_tpu_torch.ops.tally import pack_value
+
+        R = self.vote_grid.R
+        proc = self.replicas[i].proc
+        st = proc.state
+        targets = np.zeros((R, 8), dtype=np.int32)
+        tvalid = np.zeros(R, dtype=bool)
+        tmap: dict = {}
+        for rnd, p in st.propose_logs.items():
+            if 0 <= rnd < R:
+                targets[rnd] = pack_value(p.value)
+                tvalid[rnd] = True
+                tmap[rnd] = p.value
+        for rnd, wp in win_props.items():
+            if rnd in tmap:
+                continue  # logged propose wins; the window dup is rejected
+            if wp is None:
+                # Conflicting window proposes: the accepted one depends on
+                # per-row verdicts; don't predict.
+                dirty.add((0, rnd))
+                dirty.add((1, rnd))
+                continue
+            if proc.scheduler is not None and proc.scheduler.schedule(
+                h, rnd
+            ) != wp.sender:
+                continue  # out-of-turn: the host rejects it
+            targets[rnd] = pack_value(wp.value)
+            tvalid[rnd] = True
+            tmap[rnd] = wp.value
+        l28_slot = -1
+        l28_words = np.zeros(8, dtype=np.int32)
+        l28_value = None
+        cur = st.propose_logs.get(st.current_round)
+        if cur is not None and 0 <= cur.valid_round < R:
+            l28_slot = cur.valid_round
+            l28_words = pack_value(cur.value)
+            l28_value = cur.value
+        return targets, tvalid, tmap, l28_slot, l28_words, l28_value
+
+    def _cascade(self, plans, counts, heights, tmaps, l28_slot, l28_vals):
+        """Run every planned replica's rule cascade against its
+        :class:`TallyView` slice of ``counts``."""
+        from hyperdrive_tpu_torch.ops.votegrid import TallyView
+
+        R = self.vote_grid.R
+        for i, plan in plans:
+            view = TallyView(
+                i, heights[i], counts, R, tmaps[i], int(l28_slot[i]),
+                l28_vals.get(i) or b"", dirty=self._grid_dirty[i],
+            )
+            if self._tally_check is not None:
+                view = self._tally_check(view, self.replicas[i].proc)
+            self.replicas[i].ingest_cascade_window(plan, view)
+
+    def _launch_meta(self, windows, win_props, h=None):
+        """Per-replica launch metadata for the windows' replicas: (reset,
+        participate, targets, tvalid, l28_slot, l28_target, f, tmaps,
+        l28_vals). A replica whose grid rows belong to an older height is
+        reset (and its dirty set cleared) at ``h``, or at its current
+        height when ``h`` is None."""
+        n, R = self.n, self.vote_grid.R
+        reset = np.zeros(n, dtype=bool)
+        participate = np.zeros(n, dtype=bool)
+        targets = np.zeros((n, R, 8), dtype=np.int32)
+        tvalid = np.zeros((n, R), dtype=bool)
+        l28_slot = np.full(n, -1, dtype=np.int32)
+        l28_target = np.zeros((n, 8), dtype=np.int32)
+        fs = np.zeros(n, dtype=np.int32)
+        tmaps: dict[int, dict] = {}
+        l28_vals: dict[int, bytes] = {}
+        for i, _ in windows:
+            participate[i] = True
+            hi = self.replicas[i].current_height() if h is None else h
+            if self._grid_height[i] != hi:
+                reset[i] = True
+                self._grid_height[i] = hi
+                self._grid_dirty[i] = set()
+        return (reset, participate, targets, tvalid, l28_slot, l28_target,
+                fs, tmaps, l28_vals)
+
+    def _dispatch_tallied(self, windows, keeps, shared_window=None) -> None:
+        """Device-tally dispatch in two launches: insert every window,
+        scatter the accepted votes into the persistent vote grid, run ONE
+        tally launch for the whole network, then run each replica's rule
+        cascade against its :class:`TallyView` slice. The counts are
+        exactly equal to the host counters wherever the view answers, so
+        runs are bit-identical to host-tally mode."""
+        from hyperdrive_tpu_torch.ops.tally import pack_value
+
+        R = self.vote_grid.R
+        # Resets before the insert phase: inserts never change heights,
+        # and the insert hooks' dirty marks for the NEW height must
+        # survive.
+        (reset, _, targets, tvalid, l28_slot, l28_target, fs, tmaps,
+         l28_vals) = self._launch_meta(windows, {})
+
+        accepted: list = []  # (replica, plane, msg) in scatter order
+        sender_pos = self._sender_pos
+
+        def make_hook(i, dirty):
+            def on_accepted(msg, is_precommit):
+                rnd = msg.round
+                plane = 1 if is_precommit else 0
+                if rnd < 0 or rnd >= R:
+                    # Outside the slot window: TallyView declines these
+                    # rounds. The lower bound matters — vote inserts accept
+                    # negative rounds, and a slot of -1 would alias into a
+                    # neighboring lane's slot R-1 as a phantom vote.
+                    return
+                if msg.sender not in sender_pos:
+                    # Whitelisted sender outside the grid's validator axis:
+                    # this round's device count would undercount.
+                    dirty.add((plane, rnd))
+                    return
+                accepted.append((i, plane, msg))
+            return on_accepted
+
+        plans = [
+            (i, self.replicas[i].ingest_insert_window(
+                w, keep, make_hook(i, self._grid_dirty[i])))
+            for (i, w), keep in zip(windows, keeps)
+        ]
+        # Matching targets are each replica's post-insert proposal value
+        # per round slot; the L28 lane carries the cross-round
+        # (valid_round, current proposal value) query.
+        for i, _ in windows:
+            fs[i] = self.replicas[i].proc.f
+            (targets[i], tvalid[i], tmaps[i], l28_slot[i], l28_target[i],
+             v) = self._targets(i, {}, None, self._grid_dirty[i])
+            if v is not None:
+                l28_vals[i] = v
+
+        words = np.zeros((len(accepted), 8), dtype=np.int32)
+        idx = np.zeros((len(accepted), 4), dtype=np.int32)
+        for j, (i, plane, m) in enumerate(accepted):
+            words[j] = pack_value(m.value)
+            idx[j] = (i, plane, m.round, sender_pos[m.sender])
+        counts = self.vote_grid.update_and_tally(
+            idx, words, reset, targets, tvalid, l28_slot, l28_target, fs
+        )
+        self.tally_launches += 1
+        self._cascade(plans, counts, self._grid_height, tmaps, l28_slot,
+                      l28_vals)
+
+    def _dispatch_fused(self, shared, windows) -> bool:
+        """Device-tally settle behind one upload and one download:
+        verify the shared window, merge the verified votes into every
+        lockstep replica's grid (presence-guarded, shared rows), tally —
+        then the host inserts with the mask and cascades against the
+        counts. The settle pays a single blocking sync (the mask), as the
+        verify-only path does; the counts ride the same copy. Returns
+        False, launching nothing, for a vote-free window.
+
+        Eligibility (checked by the caller): every window IS the shared
+        list, dedup verification, un-rotated whitelists, window within
+        one verify bucket."""
+        R = self.vote_grid.R
+        h = shared[0].height
+        if not any(
+            type(m) is Prevote or type(m) is Precommit for m in shared
+        ):
+            # Nothing can be merged and no count can have changed. Grid
+            # heights stay stale on purpose; the next vote-bearing
+            # settle's reset brings them forward.
+            return False
+
+        items = [(m.sender, m.digest(), m.signature) for m in shared]
+        self.verified_sigs += len(items)
+        arrays, prevalid, nitems = self.batch_verifier.host.pack(items)
+
+        # The dense one-superstep update image: one lane per (plane,
+        # round, validator), first parseable claimant wins (the host's
+        # first-wins insert rule); conflicting claims poison the round
+        # for this height. Proposes feed the target prediction instead.
+        upd_lane = np.full((2, R, self.vote_grid.V), -1, dtype=np.int32)
+        upd_vals = np.zeros((2, R, self.vote_grid.V, 8), dtype=np.int32)
+        hazard: set = set()
+        win_props: dict = {}
+        sender_pos = self._sender_pos
+        for j, m in enumerate(shared):
+            t = type(m)
+            if t is Prevote:
+                plane = 0
+            elif t is Precommit:
+                plane = 1
+            else:
+                rnd = m.round
+                if 0 <= rnd < R:
+                    win_props[rnd] = None if rnd in win_props else m
+                continue
+            rnd = m.round
+            if rnd < 0 or rnd >= R:
+                continue
+            v = sender_pos.get(m.sender)
+            if v is None:
+                # Whitelisted sender outside the grid's validator axis.
+                hazard.add((plane, rnd))
+                continue
+            if upd_lane[plane, rnd, v] >= 0:
+                hazard.add((plane, rnd))
+                continue
+            if not prevalid[j]:
+                # Unparseable signature: the host rejects it; the lane
+                # stays unclaimed for a later well-formed row.
+                continue
+            upd_lane[plane, rnd, v] = j
+            upd_vals[plane, rnd, v] = np.frombuffer(m.value, dtype="<i4")
+
+        # Targets come from PRE-insert propose logs plus this window's
+        # schedule-checked proposes — identical to the post-insert logs
+        # except where a window propose fails verification, and then the
+        # host log stays empty at that round and the cascade never asks.
+        # Lockstep replicas almost always share their propose logs (the
+        # very same broadcast objects), so the row is computed once and
+        # fanned out while no window propose is in flight.
+        (reset, participate, targets, tvalid, l28_slot, l28_target, fs,
+         tmaps, l28_vals) = self._launch_meta(windows, win_props, h)
+        ref = None
+        for i, _ in windows:
+            dirty = self._grid_dirty[i]
+            dirty.update(hazard)
+            st = self.replicas[i].proc.state
+            fs[i] = self.replicas[i].proc.f
+            if (
+                ref is not None
+                and not win_props
+                and st.propose_logs == ref[0]
+                and st.current_round == ref[1]
+            ):
+                row = ref[2]
+            else:
+                row = self._targets(i, win_props, h, dirty)
+                if ref is None and not win_props:
+                    ref = (st.propose_logs, st.current_round, row)
+            (targets[i], tvalid[i], tmaps[i], l28_slot[i], l28_target[i],
+             v) = row
+            if v is not None:
+                l28_vals[i] = v
+
+        fused_out = self.vote_grid.fused_update_and_tally(
+            arrays, upd_lane, upd_vals, reset, participate,
+            targets, tvalid, l28_slot, l28_target, fs,
+        )
+        self.fused_settles += 1
+        keep = (fused_out.mask() & prevalid)[:nitems].tolist()
+        counts = fused_out.counts()
+        plans = [
+            (i, self.replicas[i].ingest_insert_window(w, keep))
+            for i, w in windows
+        ]
+        self._cascade(plans, counts, {i: h for i, _ in windows}, tmaps,
+                      l28_slot, l28_vals)
+        return True

@@ -2,4 +2,5 @@
 verification on packed limbs (packer, plain ladder, batch verifier) and on
 wire bytes (wire packer, validator table, decompression, plain versions,
 wire verifier), the device challenge leg (SHA-512 and mod-L reduction),
-and the CUDA kernels' build and wrappers."""
+the CUDA kernels' build and wrappers, the quorum count reductions
+(``tally``) and the device-resident vote grid (``votegrid``)."""

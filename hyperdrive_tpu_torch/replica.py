@@ -8,8 +8,9 @@ senders, and supports ``ResetHeight`` resync.
 
 Port copy of the burst-mode part of ``hyperdrive_tpu/replica.py``: the
 constructor, ``handle``/``handle_burst`` and the two-phase external flush
-(``drain_pending``/``dispatch_window``) the simulator's settle layer drives,
-plus :func:`merge_drain`. Removed: the tracer, logger, flight-recorder and
+(``drain_pending``/``dispatch_window``, and ``ingest_insert_window``/
+``ingest_cascade_window`` for device tallies) the simulator's settle
+layer drives, plus :func:`merge_drain`. Removed: the tracer, logger, flight-recorder and
 sanitizer hooks (``utils.trace``, ``utils.log``, ``obs.recorder``,
 ``analysis.sanitizer``, ``@hot_path``) and the committer/catcher wrappers
 that only fed them; the epoch stale-key filter and the admission gate
@@ -373,6 +374,11 @@ class Replica:
             if (not verified or keep[j]) and msg.sender in allowed
         ]
         return self.proc.ingest_insert(batch, on_accepted)
+
+    def ingest_cascade_window(self, plan, tallies=None) -> None:
+        """Phase 2b (device-tally mode): run the rule cascade with the
+        device tally counts installed."""
+        self.proc.ingest_cascade(plan, tallies)
 
     def dispatch_window_cols(self, cols, keep=None) -> None:
         raise NotImplementedError(f"the columnar settle path is {_LATER}")
