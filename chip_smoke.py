@@ -7,7 +7,12 @@ Phases, each printing its lines:
 1. card: the card's name and power limit as nvidia-smi prints them, then
    the nvcc build of the kernel library (the three verify kernels and the
    challenge kernel) from the sources in this checkout, with each kernel's
-   registers, stack and spills as ptxas reports them;
+   registers, stack and spills as ptxas reports them; then the g++ build
+   of the native host runtime (``hyperdrive_tpu_torch/native``: signer,
+   packers, host verifier) and its host times a signature, a packed item
+   and a host verification beside the pure-Python oracle's, on a line
+   that begins ``native: loaded`` (``HD_NO_NATIVE`` set, or a failed
+   build, is an error here, not a fallback);
 2. kernels against their plain PyTorch versions on the card, mask for mask
    on every lane, on mixed lanes made from a fixed seed:
    - ``ed25519_verify`` (packed limbs) at the verifier's bucket sizes (64,
@@ -57,7 +62,22 @@ Phases, each printing its lines:
    run with the host verifier (digest, steps, heights), and for having
    launched its own kernels, each at least once per vote-bearing settle,
    and no other; the device-tally runs also for device counts consulted
-   (and equal to the host's) and for their settle routes.
+   (and equal to the host's) and for their settle routes. Every run signs,
+   packs and host-verifies natively; ``packed`` runs once more in a child
+   process with ``HD_NO_NATIVE=1`` (``packed (python host)``) for the
+   shares of the pure-Python host in the same call;
+6. pipelined heights: the same network with ``pipeline_heights=True``
+   (``packed+pipe``, ``chal+pipe``, and ``packed+tally+pipe``, the
+   README's config-4 call with ``device_tally=True,
+   tally_check=CheckedTallyView``), each verifier on the buckets of the
+   JAX package's config-4 pipelined benchmark (1,024 lanes up), so that
+   the device-work queue coalesces settles into fewer launches than it
+   was handed commands. Each run commits the host run's digest; each own
+   kernel launched once for every chunk of every queue launch and no
+   other kernel ran; the device-tally run dispatched on the host counters
+   (no fused settle, no tally launch, no host-routed settle). Then the
+   sequential and the pipelined packed run in turns, three pairs each
+   way, on lines that begin ``pairs:`` (walls, median, spread).
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``. Any failed check raises, so the script
@@ -67,6 +87,8 @@ exits non-zero; without CUDA it exits non-zero before printing a result.
 from __future__ import annotations
 
 import json
+import math
+import os
 import re
 import statistics
 import subprocess
@@ -82,6 +104,17 @@ BIG = 65_536
 POOL = 512
 HEIGHT = 5
 N_VALIDATORS = 256
+#: Verify buckets of the pipelined runs: the JAX package's config-4
+#: pipelined benchmark verifier (``benches/run_all.py``,
+#: ``TpuBatchVerifier(buckets=(1024, 4096, 16384))``). With the default
+#: ladder a 256-lane vote window fills its bucket alone, and the queue's
+#: spill rule closes every pipeline slot after one settle.
+PIPE_BUCKETS = (1024, 4096, 16384)
+#: The largest coalesced settle batch of the pipelined runs (three vote
+#: settles and a proposal) and the most distinct digests in one of them;
+#: ``run_path`` checks both against the ``chal+pipe`` run, and
+#: ``phase_challenge`` holds the kernel against its plain version there.
+PIPE_BATCH, PIPE_DIGESTS = 770, 5
 PATH_LANES = 256  # a vote window at n=256: one lane per validator
 #: INT32 multiply-adds per SM per clock on compute capability 9.0 (the
 #: CUDA C++ Programming Guide's arithmetic-instruction throughput table).
@@ -271,7 +304,7 @@ def mixed_pool(size: int, rng):
     for i in range(size):
         kp = ring[i % 32]
         digest = bytes(rng.integers(0, 256, 32, dtype=np.uint8))
-        sig = host_ed.sign(kp.seed, digest)
+        sig = kp.sign_digest(digest)
         kind = i % 5
         if kind == 1:
             sig = sig[:40] + bytes([sig[40] ^ 1]) + sig[41:]
@@ -334,6 +367,69 @@ def phase_card():
     for name, regs, stack, st, ld in report:
         print(f"ptxas: {name} registers={regs} stack_bytes={stack} "
               f"spill_stores={st} spill_loads={ld}", flush=True)
+
+
+def _host_us(fn, count: int, reps: int = 5) -> float:
+    """Median host time of ``fn()`` over ``reps`` calls, in µs per item
+    (``count`` items a call)."""
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append(time.perf_counter() - t0)
+    return statistics.median(times) / count * 1e6
+
+
+def phase_native() -> None:
+    """Build the native host runtime and time it on this machine's host
+    beside the pure-Python oracle, on 256 signed items of one ring."""
+    from hyperdrive_tpu_torch import native
+    from hyperdrive_tpu_torch.crypto import ed25519 as host_ed
+    from hyperdrive_tpu_torch.ops import ed25519 as ted
+    from hyperdrive_tpu_torch.verifier import HostVerifier
+
+    if os.environ.get("HD_NO_NATIVE"):
+        raise AssertionError("HD_NO_NATIVE is set: this script measures the native host")
+    prebuilt = any(os.path.exists(path) for _, path in native._build_plans())
+    t0 = time.perf_counter()
+    packer = native.instance()
+    build_s = time.perf_counter() - t0
+    if packer is None:
+        raise AssertionError(f"native runtime did not load: {native.last_error()}")
+    ring = _ring()
+    rng = np.random.default_rng(SEED + 5)
+    digests = [bytes(rng.integers(0, 256, 32, dtype=np.uint8)) for _ in range(PATH_LANES)]
+    items = [(ring[i % 32].public, d, ring[i % 32].sign_digest(d))
+             for i, d in enumerate(digests)]
+    for i in range(8):  # the signer's bytes are the oracle's
+        if items[i][2] != host_ed.sign(ring[i % 32].seed, digests[i]):
+            raise AssertionError("native signature differs from the oracle's")
+
+    def sign_all():
+        for i, d in enumerate(digests):
+            ring[i % 32].sign_digest(d)
+
+    fast = ted.Ed25519BatchHost(buckets=(PATH_LANES,))
+    slow = ted.Ed25519BatchHost(buckets=(PATH_LANES,), use_native=False)
+    got, want = fast.pack(items), slow.pack(items)
+    if not (all(np.array_equal(a, b) for a, b in zip(got[0], want[0]))
+            and np.array_equal(got[1], want[1])):
+        raise AssertionError("native packer differs from the Python packer")
+    host = HostVerifier()
+    if not host.verify_signatures(items).all():
+        raise AssertionError("native host verifier rejected a valid signature")
+    sign_us = _host_us(sign_all, PATH_LANES)
+    pack_us = _host_us(lambda: fast.pack(items), PATH_LANES)
+    verify_us = _host_us(lambda: host.verify_signatures(items), PATH_LANES)
+    py_sign_us = _host_us(lambda: [host_ed.sign(ring[i].seed, digests[i]) for i in range(16)],
+                          16, reps=3)
+    py_pack_us = _host_us(lambda: slow.pack(items[:16]), 16, reps=3)
+    py_verify_us = _host_us(lambda: [host_ed.verify(*it) for it in items[:16]], 16, reps=3)
+    print(f"native: loaded build_s={build_s:.2f} prebuilt={prebuilt} sign_us={sign_us:.1f} "
+          f"pack_us_per_item={pack_us:.1f} verify_us={verify_us:.1f} "
+          f"python_sign_us={py_sign_us:.1f} python_pack_us_per_item={py_pack_us:.1f} "
+          f"python_verify_us={py_verify_us:.1f} (host CPU, {PATH_LANES} items of one "
+          f"32-key ring; Python times over 16)", flush=True)
 
 
 def compare_sizes(kernel: str, pool, run_kernel, run_plain, sizes, rng,
@@ -483,12 +579,14 @@ def phase_wire_kernels(clock_mhz: float, sms: int):
     return wire_rows, semi_rows, (items, table, pool, eff)
 
 
-def _challenge_inputs(lanes: int, table, pool, rng):
+def _challenge_inputs(lanes: int, table, pool, rng, digests: int = 16):
     """A lanes-wide batch for the challenge kernel: table indices over
     every slot (the bogus one included), R rows from the wire pool (its
     raw edge lanes included) with lane 2 set to 0xff..., random digest
     rows with lane 0 all zero and lane 1 all 0xff, and a 16-row digest
-    table with the same two edge rows at random digest indices."""
+    table whose first ``digests`` rows are live (the same two edge rows
+    among them, the rest zero as ``group_digests`` pads them), at random
+    digest indices."""
     dev = torch.device("cuda")
     idx = torch.from_numpy(rng.integers(0, table.n, lanes).astype(np.int32)).to(dev)
     pick = torch.from_numpy(rng.integers(0, POOL, lanes)).to(dev)
@@ -497,14 +595,15 @@ def _challenge_inputs(lanes: int, table, pool, rng):
     m_rows = torch.from_numpy(rng.integers(0, 256, (lanes, 32), dtype=np.uint8)).to(dev)
     m_rows[0], m_rows[1] = 0, 0xFF
     m_uniq = m_rows[:16].clone()
-    m_idx = torch.from_numpy(rng.integers(0, 16, lanes).astype(np.uint8)).to(dev)
+    m_uniq[digests:] = 0
+    m_idx = torch.from_numpy(rng.integers(0, digests, lanes).astype(np.uint8)).to(dev)
     m_idx[0], m_idx[1] = 0, 1
     return idx, r_rows, m_rows, m_idx, m_uniq
 
 
 def phase_challenge(state, clock_mhz: float, sms: int) -> dict:
     from hyperdrive_tpu_torch.crypto import ed25519 as host_ed
-    from hyperdrive_tpu_torch.ops import ed25519_cuda
+    from hyperdrive_tpu_torch.ops import bucketing, ed25519_cuda
     from hyperdrive_tpu_torch.ops import ed25519_wire as wire
 
     items, table, pool, eff = state
@@ -530,8 +629,12 @@ def phase_challenge(state, clock_mhz: float, sms: int) -> dict:
 
     rng = np.random.default_rng(SEED + 2)
     rows = {}
-    for lanes in (PATH_LANES, SIZES[-1]):
-        idx, r_rows, m_rows, m_idx, m_uniq = _challenge_inputs(lanes, table, pool, rng)
+    # A sequential vote window, a coalesced settle batch of the pipelined
+    # runs (its bucket and digest count), and the largest default bucket.
+    pipe_lanes = bucketing.bucket_for(PIPE_BATCH, PIPE_BUCKETS)
+    for lanes, digests in ((PATH_LANES, 16), (pipe_lanes, PIPE_DIGESTS), (SIZES[-1], 16)):
+        idx, r_rows, m_rows, m_idx, m_uniq = _challenge_inputs(lanes, table, pool, rng,
+                                                               digests)
         forms = {
             "per_lane": (ed25519_cuda.challenge, wire.challenge,
                          (idx, r_rows, m_rows, table.rows), 0),
@@ -549,7 +652,8 @@ def phase_challenge(state, clock_mhz: float, sms: int) -> dict:
             k_ms = time_ms(lambda kern=kern, args=args: kern(*args), 7)
             p_ms = time_ms(lambda plain=plain, args=args: plain(*args), 5)
             b_ms, b_by = bound_ms("ed25519_challenge", lanes, clock_mhz, sms, uniq)
-            print(f"kernel ed25519_challenge: form={form} lanes={lanes} threads_per_lane=1 "
+            print(f"kernel ed25519_challenge: form={form} lanes={lanes} "
+                  f"digests={digests if uniq else lanes} threads_per_lane=1 "
                   f"launches=1 kernel_ms={k_ms:.4f} plain_ms={p_ms:.3f} "
                   f"lanes_per_s={lanes / k_ms * 1e3:.0f} bound_ms={b_ms:.6f} "
                   f"bound_by={b_by} bound_share={b_ms / k_ms:.4f} mismatches=0", flush=True)
@@ -739,19 +843,29 @@ def _timed(spent, depth, key, fn):
     return run
 
 
-def run_path(label: str, own: tuple, verifier, ref, tally: bool = False) -> dict:
+def run_path(label: str, own: tuple, verifier, ref: dict, tally: bool = False,
+             pipe: bool = False) -> dict:
     """One n=256 network run with ``verifier`` on every settle; checks it
-    against the host-verifier result ``ref`` and the kernel counts (each
-    kernel of ``own`` at least once per vote-bearing settle, no other
-    kernel at all), prints the line. With ``tally`` the run keeps its
-    counts in the device vote grid, every count checked against the host
-    counters (``CheckedTallyView``), and its settle routes are checked: a
-    verifier with ``fused_inner`` fuses every vote-bearing settle, any
-    other verifies and then tallies in a launch of its own on every
-    settle. Returns each own kernel's launches."""
+    against the host-verifier result ``ref`` (digest, steps, heights) and
+    the kernel counts (each kernel of ``own`` at least once per
+    vote-bearing settle, no other kernel at all), prints the line. With
+    ``tally`` the run keeps its counts in the device vote grid, every
+    count checked against the host counters (``CheckedTallyView``), and
+    its settle routes are checked: a verifier with ``fused_inner`` fuses
+    every vote-bearing settle, any other verifies and then tallies in a
+    launch of its own on every settle. With ``pipe`` the run pipelines
+    heights: its digest, steps and heights must equal the host run's (an
+    honest pipelined run is superstep-identical to the sequential one),
+    its queue must have coalesced (fewer launches than commands), no
+    batch may be larger, or hold more digests, than ``phase_challenge``
+    checked the challenge kernel at, each own kernel must have
+    launched once for every chunk of every queue launch, and a tallied
+    run dispatches on the host counters (no fused settle, no tally
+    launch, no host-routed settle; the grid is never read). Returns each
+    own kernel's launches."""
     from hyperdrive_tpu_torch.crypto.keys import KeyPair
     from hyperdrive_tpu_torch.harness import Simulation
-    from hyperdrive_tpu_torch.ops import ed25519_cuda
+    from hyperdrive_tpu_torch.ops import bucketing, ed25519_cuda
     from hyperdrive_tpu_torch.ops import votegrid
 
     views = []
@@ -762,13 +876,23 @@ def run_path(label: str, own: tuple, verifier, ref, tally: bool = False) -> dict
 
     sim = Simulation(n=N_VALIDATORS, target_height=HEIGHT, seed=1, sign=True,
                      burst=True, dedup_verify=True, small_window_host=False,
-                     batch_verifier=verifier,
+                     batch_verifier=verifier, pipeline_heights=pipe,
                      **(dict(device_tally=True, tally_check=check) if tally else {}))
     bv = sim.batch_verifier
     bv.warmup()
     torch.cuda.synchronize()
     spent: dict = {}
     depth: dict = {}
+    calls: list = []  # items per verify_signatures call
+    digests: list = []  # distinct digests per verify_signatures call
+    verify_signatures = bv.verify_signatures
+
+    def counted(items):
+        calls.append(len(items))
+        digests.append(len({d for _, d, _ in items}))
+        return verify_signatures(items)
+
+    bv.verify_signatures = counted
     for name in ("pack", "pack_wire", "pack_wire_challenge", "group_digests", "index_lanes"):
         if hasattr(bv.host, name):
             setattr(bv.host, name, _timed(spent, depth, "pack", getattr(bv.host, name)))
@@ -803,31 +927,51 @@ def run_path(label: str, own: tuple, verifier, ref, tally: bool = False) -> dict
     if not res.completed or min(res.heights) <= HEIGHT:
         raise AssertionError(f"{label}: network did not reach height {HEIGHT}: {res.heights}")
     res.assert_safety()
-    if res.commit_digest(up_to=HEIGHT) != ref.commit_digest(up_to=HEIGHT):
+    if res.commit_digest(up_to=HEIGHT) != ref["digest"]:
         raise AssertionError(f"{label}: commit digest differs from the host-verifier run")
-    if (res.steps, res.heights) != (ref.steps, ref.heights):
+    if (res.steps, res.heights) != (ref["steps"], ref["heights"]):
         raise AssertionError(f"{label}: steps or heights differ from the host-verifier run")
     launches = {k: counts[k][0] for k in own}
+    extra = ""
+    if pipe:
+        q = sim._sched
+        cap = bucketing.launch_target(bv.host.buckets)
+        chunks = sum(math.ceil(n / cap) for n in calls)
+        if not (q.launches < q.submitted and q.coalesced > 0 and q.depth == 0):
+            raise AssertionError(
+                f"{label}: queue submitted={q.submitted} launches={q.launches} "
+                f"coalesced={q.coalesced} depth={q.depth}: nothing coalesced")
+        if len(calls) != q.launches or any(n != chunks for n in launches.values()):
+            raise AssertionError(
+                f"{label}: {launches} kernel launches for {q.launches} queue launches "
+                f"({len(calls)} verify calls, {chunks} chunks)")
+        if max(calls) > PIPE_BATCH or max(digests) > PIPE_DIGESTS:
+            raise AssertionError(
+                f"{label}: batches {calls} with {digests} digests exceed the "
+                f"{PIPE_BATCH} items and {PIPE_DIGESTS} digests phase_challenge checked")
+        extra = (f" queue_submitted={q.submitted} queue_launches={q.launches} "
+                 f"queue_coalesced={q.coalesced} items_per_launch={calls} "
+                 f"digests_per_launch={digests}")
     for k, n in launches.items():
-        if n < sim.vote_settles or n == 0:
+        if not pipe and (n < sim.vote_settles or n == 0):
             raise AssertionError(
                 f"{label}: {n} {k} launches for {sim.vote_settles} vote-bearing settles")
     moved = {k: c for k, c in counts.items() if k not in own and c[0]}
     if moved:
         raise AssertionError(f"{label}: other kernels launched: {moved}")
-    extra = ""
     if hasattr(bv, "stats"):
         key = "lanes_grouped" if bv.table is not None else "lanes_wire"
         if bv.stats[key] != sim.verified_sigs:
             raise AssertionError(
                 f"{label}: {key}={bv.stats[key]} for {sim.verified_sigs} verified signatures")
-        extra = (f" {key}={bv.stats[key]} bytes_per_lane={bv.bytes_per_lane():.2f}")
+        extra += (f" {key}={bv.stats[key]} bytes_per_lane={bv.bytes_per_lane():.2f}")
     if tally:
         hits = sum(v.hits for v in views)
-        if not hits:
+        if not hits and not pipe:
             raise AssertionError(f"{label}: the device counts were never consulted")
         routes = (sim.fused_settles, sim.tally_launches, sim.host_routed_settles)
-        want = ((sim.vote_settles, 0, 0) if sim._fused_ok
+        want = ((0, 0, 0) if pipe
+                else (sim.vote_settles, 0, 0) if sim._fused_ok
                 else (0, sim.settle_passes, 0))
         if routes != want or not sim.vote_settles:
             raise AssertionError(
@@ -849,6 +993,33 @@ def run_path(label: str, own: tuple, verifier, ref, tally: bool = False) -> dict
     return launches
 
 
+def python_host_child(ref: dict) -> int:
+    """``packed`` with the pure-Python host (run in a child process whose
+    environment sets ``HD_NO_NATIVE=1``; the kernel library is the
+    parent's build)."""
+    from hyperdrive_tpu_torch import native
+    from hyperdrive_tpu_torch.ops.ed25519 import TorchBatchVerifier
+
+    if native.available():
+        raise AssertionError("the python-host run loaded the native runtime")
+    run_path("packed (python host)", ("ed25519_verify",),
+             TorchBatchVerifier(device="cuda"), ref)
+    return 0
+
+
+def run_python_host(ref: dict) -> None:
+    env = dict(os.environ, HD_NO_NATIVE="1")
+    proc = subprocess.run(
+        [sys.executable, os.path.abspath(__file__), "--python-host", json.dumps(ref)],
+        env=env, capture_output=True, text=True, timeout=600,
+    )
+    sys.stdout.write(proc.stdout)
+    sys.stdout.flush()
+    if proc.returncode != 0:
+        raise AssertionError(f"packed (python host) failed ({proc.returncode}):\n"
+                             f"{proc.stderr[-4000:]}")
+
+
 def phase_main_path() -> dict:
     from hyperdrive_tpu_torch.crypto.keys import KeyRing
     from hyperdrive_tpu_torch.harness import Simulation
@@ -857,11 +1028,13 @@ def phase_main_path() -> dict:
     from hyperdrive_tpu_torch.verifier import HostVerifier
 
     t0 = time.perf_counter()
-    ref = Simulation(n=N_VALIDATORS, target_height=HEIGHT, seed=1, sign=True,
-                     burst=True, dedup_verify=True, small_window_host=False,
-                     batch_verifier=HostVerifier()).run()
+    host = Simulation(n=N_VALIDATORS, target_height=HEIGHT, seed=1, sign=True,
+                      burst=True, dedup_verify=True, small_window_host=False,
+                      batch_verifier=HostVerifier()).run()
+    ref = {"digest": host.commit_digest(up_to=HEIGHT), "steps": host.steps,
+           "heights": host.heights}
     print(f"main host: host_verifier_wall_s={time.perf_counter() - t0:.2f} "
-          f"digest={ref.commit_digest(up_to=HEIGHT)[:16]}", flush=True)
+          f"steps={host.steps} digest={ref['digest'][:16]}", flush=True)
     ring = KeyRing.deterministic(N_VALIDATORS, namespace=b"sim-1")
     table = ValidatorTable(ring.signatories, device="cuda")
     launches = {
@@ -876,7 +1049,51 @@ def phase_main_path() -> dict:
              tally=True)
     run_path("chal+tally", ("ed25519_challenge", "ed25519_semiwire"),
              TorchWireVerifier(device="cuda", table=table), ref, tally=True)
+    run_python_host(ref)
+    # Pipelined heights: settles coalesce in the device-work queue.
+    run_path("packed+pipe", ("ed25519_verify",),
+             TorchBatchVerifier(buckets=PIPE_BUCKETS, device="cuda"), ref, pipe=True)
+    run_path("chal+pipe", ("ed25519_challenge", "ed25519_semiwire"),
+             TorchWireVerifier(buckets=PIPE_BUCKETS, device="cuda", table=table), ref,
+             pipe=True)
+    run_path("packed+tally+pipe", ("ed25519_verify",),
+             TorchBatchVerifier(buckets=PIPE_BUCKETS, device="cuda"), ref, tally=True,
+             pipe=True)
+    phase_pairs(ref)
     return launches
+
+
+def phase_pairs(ref: dict, pairs: int = 3) -> None:
+    """Wall of the sequential and the pipelined packed network in turns
+    (sequential, pipelined, pipelined, sequential; ``pairs`` times), each
+    run checked for the host digest: the two differ in launches and
+    syncs, so their walls are compared only within one call."""
+    from hyperdrive_tpu_torch.harness import Simulation
+    from hyperdrive_tpu_torch.ops.ed25519 import TorchBatchVerifier
+
+    walls: dict = {False: [], True: []}
+    verifiers = {False: TorchBatchVerifier(device="cuda"),
+                 True: TorchBatchVerifier(buckets=PIPE_BUCKETS, device="cuda")}
+    for bv in verifiers.values():
+        bv.warmup()
+    for _ in range(pairs):
+        for pipe in (False, True, True, False):
+            sim = Simulation(n=N_VALIDATORS, target_height=HEIGHT, seed=1, sign=True,
+                             burst=True, dedup_verify=True, small_window_host=False,
+                             batch_verifier=verifiers[pipe], pipeline_heights=pipe)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = sim.run()
+            torch.cuda.synchronize()
+            walls[pipe].append(time.perf_counter() - t0)
+            if res.commit_digest(up_to=HEIGHT) != ref["digest"]:
+                raise AssertionError(f"pairs: digest differs (pipelined={pipe})")
+    for pipe, label in ((False, "packed"), (True, "packed+pipe")):
+        w = sorted(walls[pipe])
+        q1, med, q3 = np.percentile(w, [25, 50, 75])
+        print(f"pairs: {label} runs={len(w)} wall_s={[round(x, 4) for x in walls[pipe]]} "
+              f"median_s={med:.4f} iqr_s={q3 - q1:.4f} heights_per_s={HEIGHT / med:.3f}",
+              flush=True)
 
 
 def main() -> int:
@@ -884,10 +1101,13 @@ def main() -> int:
         print("chip_smoke: CUDA is not available; this script needs one card",
               file=sys.stderr)
         return 2
+    if sys.argv[1:2] == ["--python-host"]:
+        return python_host_child(json.loads(sys.argv[2]))
     props = torch.cuda.get_device_properties(0)
     clock = sm_clock_mhz()
     sms = props.multi_processor_count
     phase_card()
+    phase_native()
     rows = {"ed25519_verify": phase_verify_kernel(clock, sms)}
     rows["ed25519_wire"], rows["ed25519_semiwire"], state = phase_wire_kernels(clock, sms)
     base = rows["ed25519_verify"][PATH_LANES]["ms"]

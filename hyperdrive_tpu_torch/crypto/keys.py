@@ -6,11 +6,12 @@ process/process.go:105, process/message_test.go:145-158), with a deliberate
 design change: a Signatory here *is* the 32-byte Ed25519 public key, which
 is exactly the array layout the batch verifier consumes.
 
-Port copy of ``hyperdrive_tpu/crypto/keys.py`` for the PyTorch package: the
-native C++ signer is not ported, so keys derive and sign through the
-pure-Python oracle (:mod:`hyperdrive_tpu_torch.crypto.ed25519`). Ed25519
-signing is deterministic (RFC 8032), so keys and signatures are
-byte-identical to the reference's either way.
+Port copy of ``hyperdrive_tpu/crypto/keys.py`` for the PyTorch package:
+keys derive and sign through the native C++ signer
+(:mod:`hyperdrive_tpu_torch.native`) when it builds, and through the
+pure-Python oracle (:mod:`hyperdrive_tpu_torch.crypto.ed25519`) otherwise
+or under ``HD_NO_NATIVE=1``. Ed25519 signing is deterministic (RFC 8032),
+so keys and signatures are byte-identical either way.
 """
 
 from __future__ import annotations
@@ -24,6 +25,14 @@ from hyperdrive_tpu_torch.types import Signatory
 __all__ = ["KeyPair", "KeyRing"]
 
 
+def _backend():
+    """The shared C++ signer when buildable, else None (Python oracle
+    path). Resolved lazily so importing crypto never forces a compile."""
+    from hyperdrive_tpu_torch import native
+
+    return native.instance()
+
+
 @dataclass(frozen=True)
 class KeyPair:
     """A replica's Ed25519 seed and derived public identity."""
@@ -33,6 +42,9 @@ class KeyPair:
 
     @classmethod
     def from_seed(cls, seed: bytes) -> "KeyPair":
+        n = _backend()
+        if n is not None:
+            return cls(seed=seed, public=n.public_from_seed(seed))
         return cls(seed=seed, public=ed25519.public_key_from_seed(seed))
 
     @classmethod
@@ -45,6 +57,9 @@ class KeyPair:
         return self.public
 
     def sign_digest(self, digest: bytes) -> bytes:
+        n = _backend()
+        if n is not None:
+            return n.sign(self.seed, digest, pub=self.public)
         return ed25519.sign(self.seed, digest)
 
     def sign_message(self, msg):

@@ -32,12 +32,23 @@ stretch and rebuilds it on re-engagement. The reference's tracer spans
 for these paths become three plain counters (``fused_settles``,
 ``tally_launches``, ``host_routed_settles``).
 
+With ``pipeline_heights=True`` each settle pass dispatches at once on a
+speculative verdict (every parseable, signed row accepted) and submits
+its verification to a :class:`~hyperdrive_tpu_torch.devsched.
+DeviceWorkQueue`, which coalesces up to ``pipeline_depth`` settles into
+one ``verify_signatures`` call (:meth:`Simulation._settle_speculative`).
+Commits raised meanwhile are gated until the covering drain confirms the
+speculation; a verdict that differs raises
+:class:`~hyperdrive_tpu_torch.devsched.SpeculationMismatch`. The queue is
+``Simulation._sched``.
+
 Not ported (a later slice of the port), and refused: lock-step delivery
 (``burst=False``), per-delivery adversaries, kills, the sharded grid
-(``tally_mesh``), pipelining, payloads, certificates, epochs, chaos, load,
-overlay, execution and the record/replay log (``SimulationResult.record``
-is always None). The tracer, flight recorder, metrics registry and device
-telemetry are dropped (tracing returns in a later slice); the columnar
+(``tally_mesh``), an injected queue (``devsched=``) and per-replica
+flushers, payloads, certificates, epochs, chaos, load, overlay, execution
+and the record/replay log (``SimulationResult.record`` is always None).
+The tracer, flight recorder, metrics registry and device telemetry are
+dropped (tracing returns in a later slice); the columnar
 window path (``columnar_ingest``) is replaced by the object path with
 batched ingestion, which the reference tests as equivalent row for row.
 """
@@ -169,6 +180,11 @@ class Simulation:
     (one signature) on the host, as the reference does; pass False to send
     every settle through the kernel.
 
+    ``pipeline_heights=True`` (needs ``burst`` and a batch verifier, or
+    ``sign=True``) settles on speculative verdicts and coalesces up to
+    ``pipeline_depth`` settles' verification into one launch through
+    ``self._sched``; commits are gated until the covering drain.
+
     ``device_tally=True`` keeps the quorum counts in a
     :class:`~hyperdrive_tpu_torch.ops.votegrid.VoteGrid` on ``device``;
     ``tally_check`` (a callable ``(view, proc) -> view``, e.g.
@@ -197,6 +213,8 @@ class Simulation:
         tally_check=None,
         fused_min_window: int = 0,
         route_hysteresis: int = 32,
+        pipeline_heights: Optional[bool] = None,
+        pipeline_depth: int = 6,
         device="cuda",
         **unported,
     ):
@@ -205,6 +223,23 @@ class Simulation:
                 f"Simulation options {sorted(unported)} are not ported to "
                 "the PyTorch package yet (a later slice of the port)"
             )
+        #: Chained height pipelining through the device-work queue: None or
+        #: False = off (the sequential trajectory, the differential
+        #: baseline).
+        self._pipeline_heights = bool(pipeline_heights or False)
+        self._pipeline_depth = int(pipeline_depth)
+        if self._pipeline_heights:
+            if not burst:
+                raise ValueError(
+                    "pipeline_heights requires burst mode (settles are the "
+                    "unit of pipelining)"
+                )
+            if batch_verifier is None and not sign:
+                raise ValueError(
+                    "pipeline_heights pipelines the batch_verifier's "
+                    "launches; pass one (or sign=True, which installs a "
+                    "default)"
+                )
         if device_tally and not burst:
             raise ValueError(
                 "device_tally requires burst=True with batched ingestion"
@@ -252,6 +287,26 @@ class Simulation:
             from hyperdrive_tpu_torch.verifier import HostVerifier
 
             self._small_win_host = HostVerifier()
+        #: The async device-work queue of a pipelined run (None otherwise);
+        #: its drains finalize the gated commits (_on_sched_drain).
+        self._sched = None
+        if self._pipeline_heights:
+            from hyperdrive_tpu_torch.devsched import DeviceWorkQueue
+
+            self._sched = DeviceWorkQueue(max_depth=self._pipeline_depth)
+            self._sched.on_drain = self._on_sched_drain
+        #: Commit finalizations gated on in-flight speculation: (replica,
+        #: height, value, covering future) in commit order, flushed by
+        #: _on_sched_drain once the covering futures resolve.
+        self._gated_commits: list = []
+        self._spec_inflight = 0
+        #: The most recent speculative-settle future: what a commit raised
+        #: while speculation is in flight is gated on.
+        self._spec_last_fut = None
+        #: Rows accumulated in the open pipeline slot: the row-aware drain
+        #: trigger (_settle_speculative) closes the slot just before a
+        #: submission would spill into a larger verify bucket.
+        self._spec_rows = 0
         self._max_capacity = max_capacity
         #: Sender -> tie-break index for the shared-lane sort; seeded with
         #: the whitelist so it matches every replica's mq order map.
@@ -379,10 +434,33 @@ class Simulation:
     # -------------------------------------------------------------- running
 
     def _on_commit(self, i: int, height: Height, value: Value):
+        if self._spec_inflight:
+            # Pipelined finalize ordering: the commit rests on windows whose
+            # verification is still in flight — buffer it (in commit order)
+            # until the covering drain confirms the speculation. The replica
+            # itself proceeds into the next height; only the external
+            # commit effects wait. A mismatch raises out of the drain before
+            # any gated commit is finalized.
+            self._gated_commits.append((i, height, value, self._spec_last_fut))
+            return (0, None)
         self.commits[i][height] = value
         if height >= self.target_height:
             self._pending_replicas.discard(i)
         return (0, None)
+
+    def _on_sched_drain(self, resolved: int) -> None:
+        """Queue drain hook: every in-flight speculative settle just
+        resolved (mismatches raise out of the drain itself), so gated
+        commits are confirmed — finalize them in commit order."""
+        self._spec_inflight = 0
+        self._spec_rows = 0
+        self._spec_last_fut = None
+        gated = self._gated_commits
+        self._gated_commits = []
+        for i, height, value, _ in gated:
+            self.commits[i][height] = value
+            if height >= self.target_height:
+                self._pending_replicas.discard(i)
 
     def _completed(self) -> bool:
         return not self._pending_replicas
@@ -400,10 +478,18 @@ class Simulation:
         steps = 0
         n = self.n
         replicas = self.replicas
+        sched = self._sched
         while steps < max_steps and not self._completed():
             if self.clock.pending() > 65536:
                 self._prune_clock()
             if self._qhead >= len(self.queue):
+                # Nothing left to deliver: resolve in-flight device work
+                # first — a drain can finalize gated commits (and so
+                # complete the run) without burning a timeout, and virtual
+                # time must never jump over a pipeline slot that still owes
+                # its verdict.
+                if sched is not None and sched.depth and sched.drain():
+                    continue
                 if self.clock.pending() == 0:
                     break  # genuine stall
                 event, owner = self.clock.fire_next()
@@ -425,6 +511,11 @@ class Simulation:
             self._shared = []
             self._settle(shared)
 
+        if sched is not None:
+            # No command may be dropped: the final drain resolves every
+            # outstanding speculation (raising on a mismatch) and finalizes
+            # the gated commits the result reports.
+            sched.drain()
         return SimulationResult(
             completed=self._completed(),
             steps=steps,
@@ -467,6 +558,9 @@ class Simulation:
             distinct = {id(w): w for _, w in windows}.values()
             if any(type(m) is not Propose for w in distinct for m in w):
                 self.vote_settles += 1
+            if self._pipeline_heights:
+                self._settle_speculative(windows, shared_window)
+                continue
             if self.device_tally:
                 self._settle_tallied(windows, shared_window)
                 continue
@@ -733,6 +827,127 @@ class Simulation:
         else:
             mask = self.batch_verifier.verify_signatures(items)
         return mask.tolist() if hasattr(mask, "tolist") else list(mask)
+
+    def _settle_speculative(self, windows, shared_window) -> None:
+        """Chained height pipelining: dispatch this settle pass now on a
+        speculative verdict and push the actual verification onto the
+        device-work queue — replicas enter the next height's
+        propose/prevote while this height's launch is still in flight, and
+        the queue coalesces up to ``pipeline_depth`` settles into ONE
+        launch.
+
+        The speculation accepts exactly the parseable-and-signed rows
+        (32-byte sender, 64-byte signature): for every honest signature
+        the device's verdict is identical, so honest trajectories equal
+        the sequential run's. A forged-but-well-formed row raises
+        :class:`~hyperdrive_tpu_torch.devsched.SpeculationMismatch` at
+        drain, before any commit gated on it finalizes.
+
+        Dispatch runs on the host counters, so under ``device_tally`` the
+        grid gets the poison upkeep of a host-routed settle; nothing is
+        fused and no tally is launched.
+        """
+        from hyperdrive_tpu_torch.devsched import SpeculationMismatch
+        from hyperdrive_tpu_torch.ops.bucketing import would_spill
+
+        if self.device_tally:
+            if self._grid_engaged:
+                shared_touched = None
+                for i, w in windows:
+                    if w is shared_window:
+                        if shared_touched is None:
+                            shared_touched = self._touched_slots(w)
+                        touched = shared_touched
+                    else:
+                        touched = self._touched_slots(w)
+                    if touched:
+                        self._poison_grid(i, touched)
+            self._note_route(True)
+
+        # Speculative verdicts for the unique-broadcast batch (identity
+        # dedup, the keying of _verify_windows' dedup path).
+        index: dict[int, int] = {}
+        items: list = []
+        expect: list = []
+
+        def spec(m) -> bool:
+            sig = m.signature
+            return sig is not None and len(sig) == 64 and len(m.sender) == 32
+
+        keeps: list = []
+        shared_keep = None
+        if shared_window is not None:
+            for m in shared_window:
+                index[id(m)] = len(items)
+                items.append((m.sender, m.digest(), m.signature))
+                expect.append(spec(m))
+            shared_keep = list(expect)
+        for _, w in windows:
+            if w is shared_window:
+                keeps.append(shared_keep)
+                continue
+            row = []
+            for m in w:
+                j = index.get(id(m))
+                if j is None:
+                    j = index[id(m)] = len(items)
+                    items.append((m.sender, m.digest(), m.signature))
+                    expect.append(spec(m))
+                row.append(expect[j])
+            keeps.append(row)
+
+        if items:
+            self.verified_sigs += len(items)
+            sched = self._sched
+            # Row-aware slot close: if adding this settle would push the
+            # coalesced batch into a larger verify bucket, drain first —
+            # padded launches cost by bucket, not by fill. Verifiers
+            # without a bucket ladder (HostVerifier) rely on the queue's
+            # command-count bound.
+            buckets = getattr(
+                getattr(self.batch_verifier, "host", None), "buckets", None
+            )
+            if would_spill(self._spec_rows, len(items), buckets):
+                sched.drain()
+            # Account BEFORE submit: submit may auto-drain at max_depth
+            # (resolving this very command and zeroing the counters via
+            # _on_sched_drain); incrementing afterwards would record a
+            # phantom in-flight settle that gates commits forever.
+            self._spec_rows += len(items)
+            self._spec_inflight += 1
+            fut = sched.submit(sched.verify_launcher(self.batch_verifier), items)
+            self._spec_last_fut = fut
+
+            def confirm(f, expected=expect, items=items):
+                actual = [bool(b) for b in f.result()]
+                if actual != expected:
+                    bad = next(
+                        j for j in range(len(actual)) if actual[j] != expected[j]
+                    )
+                    raise SpeculationMismatch(
+                        "pipelined settle diverged from the device verdict "
+                        f"at lane {bad}/{len(actual)} (sender "
+                        f"{items[bad][0].hex()[:16]}…, speculated "
+                        f"{expected[bad]}, actual {actual[bad]}): a "
+                        "forged-but-well-formed signature was speculatively "
+                        "dispatched; rerun with pipeline_heights=False"
+                    )
+
+            fut.add_done_callback(confirm)
+
+        # Dispatch immediately — THIS is the pipeline: the network
+        # progresses on the speculative verdicts while the launch is in
+        # flight. Commits raised by the cascade gate in _on_commit.
+        self._dispatch_windows(windows, keeps)
+
+        # A gated commit that would complete the run must not wait for the
+        # depth trigger: drain now so run() terminates promptly instead of
+        # speculating extra heights past the target.
+        if self._gated_commits and any(
+            h >= self.target_height and i in self._pending_replicas
+            for i, h, _, _ in self._gated_commits
+        ):
+            self._sched.drain()
 
     # ----------------------------------------------------------- device tally
 

@@ -7,9 +7,11 @@ Work split (host does the bit-twiddly, device does the wide math):
 
 - **Host** (:class:`Ed25519BatchHost`): parse signatures, SHA-512
   challenge scalars, decompress A and R, range-check s, negate A, pack
-  everything into int32 limb rows padded to a bucketed batch size. This is
-  the reference's pure-Python packing path with its dedup fan-out, array
-  for array; the native C++ packer is not ported yet.
+  everything into int32 limb rows padded to a bucketed batch size. The
+  reference's packer with its dedup fan-out, array for array: the native
+  C++ packer (:mod:`hyperdrive_tpu_torch.native`, ``hd_pack_batch``) when
+  it builds, the pure-Python loop otherwise (``use_native=False`` or
+  ``HD_NO_NATIVE=1``).
 - **Device**: the hand-written CUDA ladder
   (:mod:`hyperdrive_tpu_torch.ops.ed25519_cuda`, ``csrc/``), the port of
   the TPU kernel. :func:`verify_plain` is its plain PyTorch version — the
@@ -242,10 +244,20 @@ def _dedup_scan(items):
 
 class Ed25519BatchHost:
     """Parses/packs (pubkey, digest, signature) triples for the kernel,
-    padded up to the next size in ``buckets``."""
+    padded up to the next size in ``buckets``.
 
-    def __init__(self, buckets=(64, 256, 1024, 4096)):
+    Packing runs through the native runtime when it is available (point
+    decompression is one field exponentiation per point and dominates the
+    host cost), with the pure-Python loop as the always-available path;
+    both produce identical arrays and masks (differentially tested)."""
+
+    def __init__(self, buckets=(64, 256, 1024, 4096), use_native: bool = True):
         self.buckets = tuple(sorted(buckets))
+        self._native = None
+        if use_native:
+            from hyperdrive_tpu_torch import native
+
+            self._native = native.instance()
 
     def bucket_for(self, n: int) -> int:
         return bucketing.bucket_for(n, self.buckets)
@@ -282,6 +294,12 @@ class Ed25519BatchHost:
         s_nib = np.zeros((bsz, 64), dtype=np.int32)
         k_nib = np.zeros((bsz, 64), dtype=np.int32)
         prevalid = np.zeros(bsz, dtype=bool)
+
+        if self._native is not None:
+            prevalid[:n] = self._native.pack_into(
+                items, ax, ay, at, rx, ry, s_nib, k_nib
+            )
+            return (ax, ay, at, rx, ry, s_nib, k_nib), prevalid, n
 
         for i, (pub, digest, sig) in enumerate(items):
             if len(pub) != 32 or len(sig) != 64:

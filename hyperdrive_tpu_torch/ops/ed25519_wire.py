@@ -24,7 +24,8 @@ Contents:
   in :mod:`hyperdrive_tpu_torch.ops.ed25519_cuda`), plus
   :func:`chalwire_verify_plain`;
 - :class:`ValidatorTable`, :class:`Ed25519WireHost` (the reference's
-  pure-Python packing path; its native ``hd_pack_wire`` is not ported),
+  packer: the native ``hd_pack_wire`` when it builds, else its
+  pure-Python loop),
   :class:`PendingVerify` and :class:`TorchWireVerifier`, the drop-in batch
   verifier with the reference's three routes.
 
@@ -302,12 +303,20 @@ class Ed25519WireHost:
 
     Host work per item: length checks, canonical-y checks for A and R
     (y < p, the oracle's ``_recover_x`` rejection), the s < L malleability
-    check, and k = SHA-512(R||A||M) mod L. No field exponentiation. This is
-    the reference's pure-Python path; its native ``hd_pack_wire`` is not
-    ported."""
+    check, and k = SHA-512(R||A||M) mod L. No field exponentiation. The
+    native ``hd_pack_wire`` (:mod:`hyperdrive_tpu_torch.native`) and the
+    pure-Python loop produce identical rows and masks (differentially
+    tested); ``use_native=False`` or ``HD_NO_NATIVE=1`` selects Python.
+    :meth:`pack_wire_challenge` and :meth:`index_lanes` do no hashing and
+    stay in Python."""
 
-    def __init__(self, buckets=(64, 256, 1024, 4096)):
+    def __init__(self, buckets=(64, 256, 1024, 4096), use_native: bool = True):
         self.buckets = tuple(sorted(buckets))
+        self._native = None
+        if use_native:
+            from hyperdrive_tpu_torch import native
+
+            self._native = native.instance()
 
     def bucket_for(self, n: int) -> int:
         return bucketing.bucket_for(n, self.buckets)
@@ -324,6 +333,11 @@ class Ed25519WireHost:
         s_rows = np.zeros_like(a_rows)
         k_rows = np.zeros_like(a_rows)
         prevalid = np.zeros(bsz, dtype=bool)
+        if self._native is not None:
+            prevalid[:n] = self._native.pack_wire_into(
+                items, a_rows, r_rows, s_rows, k_rows
+            )
+            return (a_rows, r_rows, s_rows, k_rows), prevalid, n
         for i, (pub, digest, sig) in enumerate(items):
             if len(pub) != 32 or len(sig) != 64:
                 continue

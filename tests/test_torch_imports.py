@@ -3,6 +3,7 @@ and not ``chip_smoke.py``, imports JAX or anything of ``hyperdrive_tpu``;
 its entry points default to the card and refuse to run without one."""
 
 import ast
+import json
 import pathlib
 import subprocess
 import sys
@@ -21,20 +22,26 @@ names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")
 for name in names:
     importlib.import_module(name)
 import chip_smoke  # noqa: F401
+from hyperdrive_tpu_torch import native
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "jaxlib"
              or m == "hyperdrive_tpu" or m.startswith("hyperdrive_tpu."))
-print(len(names), bad)
+# Importing builds nothing: the native library is compiled at first use.
+built = native._lib is not None or native._lib_err is not None
+print(json.dumps({"names": names, "bad": bad, "built": built}))
 """
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():
-    out = subprocess.run(
-        [sys.executable, "-c", _PROBE], cwd=ROOT, capture_output=True,
-        text=True, timeout=120, check=True,
-    ).stdout.split()
-    assert int(out[0]) >= 15
-    assert out[1:] == ["[]"]
+    out = json.loads(subprocess.run(
+        [sys.executable, "-c", "import json\n" + _PROBE], cwd=ROOT,
+        capture_output=True, text=True, timeout=120, check=True,
+    ).stdout.splitlines()[-1])
+    assert len(out["names"]) >= 15
+    for name in ("native", "devsched", "devsched.queue", "devsched.policy"):
+        assert f"hyperdrive_tpu_torch.{name}" in out["names"]
+    assert out["bad"] == []
+    assert out["built"] is False
 
 
 def test_no_source_names_jax_or_the_jax_package():

@@ -17,6 +17,8 @@ from hyperdrive_tpu.harness import Simulation as RefSimulation
 from hyperdrive_tpu.messages import Prevote as RefPrevote
 from hyperdrive_tpu.ops.votegrid import CheckedTallyView as RefCheckedTallyView
 from hyperdrive_tpu.verifier import HostVerifier as RefHostVerifier
+from hyperdrive_tpu_torch import native
+from hyperdrive_tpu_torch.crypto import ed25519 as port_ed
 from hyperdrive_tpu_torch.harness import Simulation
 from hyperdrive_tpu_torch.messages import Prevote
 from hyperdrive_tpu_torch.ops.ed25519 import TorchBatchVerifier
@@ -57,7 +59,15 @@ def test_device_verified_network_matches_reference(seed):
 
 
 @pytest.mark.parametrize("seed", [1, 7])
-def test_host_baseline_and_default_routing_match_reference(seed):
+def test_host_baseline_and_default_routing_match_reference(seed, monkeypatch):
+    if native.available():
+        # The port signs and host-verifies natively: the oracle's signer
+        # and verifier are never called.
+        def refuse(*args):
+            raise AssertionError("pure-Python oracle called with native loaded")
+
+        monkeypatch.setattr(port_ed, "sign", refuse)
+        monkeypatch.setattr(port_ed, "verify", refuse)
     host = Simulation(seed=seed, batch_verifier=HostVerifier(), **ARGS).run()
     args = dict(ARGS, small_window_host=None)
     routed = Simulation(seed=seed, device="cpu", **args)
@@ -72,6 +82,8 @@ def test_host_baseline_and_default_routing_match_reference(seed):
 def test_unported_options_are_refused():
     with pytest.raises(NotImplementedError):
         Simulation(n=4, target_height=1, burst=True, tally_mesh=object())
+    with pytest.raises(NotImplementedError, match="devsched"):
+        Simulation(n=4, target_height=1, burst=True, devsched=object())
     with pytest.raises(NotImplementedError):
         Simulation(n=4, target_height=1, burst=False)
     with pytest.raises(ValueError):
