@@ -31,8 +31,9 @@ Phases, each printing its lines:
 3. ``ed25519_challenge`` (SHA-512 and the reduction mod L in one kernel):
    k rows of a 256-lane sample equal the host's challenge scalars on both
    forms (per-lane and grouped digests); kernel against its plain version
-   (the PyTorch-ops leg) byte for byte at 256 and 4,096 lanes on both
-   forms, with edge digests (all-zero and all-0xff M) and R = 0xff...;
+   (the PyTorch-ops leg) byte for byte on both forms at 64 lanes (the
+   deployment capstone's bucket), 256, 1,024 (the pipelined runs'
+   coalesced batch) and 4,096, with edge digests (all-zero and all-0xff M) and R = 0xff...;
    kernel and plain times, the integer-instruction bound and its share;
 4. the vote grid (``ops/votegrid.py``, PyTorch ops, no hand-written
    kernel) at the main path's shape (n = V = 256, R = 4): one seeded
@@ -77,7 +78,26 @@ Phases, each printing its lines:
    other kernel ran; the device-tally run dispatched on the host counters
    (no fused settle, no tally launch, no host-routed settle). Then the
    sequential and the pipelined packed run in turns, three pairs each
-   way, on lines that begin ``pairs:`` (walls, median, spread).
+   way, on lines that begin ``pairs:`` (walls, median, spread);
+7. the deployment path: threaded replicas on a loopback-TCP full mesh,
+   one worker process per port (``python -m
+   hyperdrive_tpu_torch.harness.deploy ... card``), each process with one
+   ``TorchWireVerifier`` (a ``ValidatorTable`` of the network's keys:
+   ``ed25519_challenge`` then ``ed25519_semiwire`` on every flush) and one
+   ``DeviceTallyFlusher`` (an n = 1 vote grid, every count checked by
+   ``CheckedTallyView``) per replica, replicas on their own threads with
+   wall-clock timeouts. Two runs: ``capstone`` (the JAX package's
+   two-process capstone: n = 4, two processes x two replicas, ten
+   heights, 64-lane buckets, every flush's card mask held against
+   ``HostVerifier``'s) and ``full`` (n = 256, four processes x 64
+   replicas, three heights, default buckets, 20 s timeouts, 300 s
+   deadline). Each checked for equal digests across the processes, the
+   device counts consulted, grouped lanes, and both kernels launched in
+   every worker; each worker's wall, heights/s, flushes, launches, lanes,
+   verify and tally shares, commit rounds and shed frames on lines that
+   begin ``deploy``. Before them, ``deploy contention:`` lines: a flush's
+   grid call (n = 1, V = 256) and verify call (100 grouped lanes), host
+   wall per call from one thread and from 64 threads of this process.
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``. Any failed check raises, so the script
@@ -629,10 +649,12 @@ def phase_challenge(state, clock_mhz: float, sms: int) -> dict:
 
     rng = np.random.default_rng(SEED + 2)
     rows = {}
-    # A sequential vote window, a coalesced settle batch of the pipelined
-    # runs (its bucket and digest count), and the largest default bucket.
+    # The deployment capstone's 64-lane bucket, a sequential vote window, a
+    # coalesced settle batch of the pipelined runs (its bucket and digest
+    # count), and the largest default bucket.
     pipe_lanes = bucketing.bucket_for(PIPE_BATCH, PIPE_BUCKETS)
-    for lanes, digests in ((PATH_LANES, 16), (pipe_lanes, PIPE_DIGESTS), (SIZES[-1], 16)):
+    for lanes, digests in ((SIZES[0], 16), (PATH_LANES, 16), (pipe_lanes, PIPE_DIGESTS),
+                           (SIZES[-1], 16)):
         idx, r_rows, m_rows, m_idx, m_uniq = _challenge_inputs(lanes, table, pool, rng,
                                                                digests)
         forms = {
@@ -1096,6 +1118,173 @@ def phase_pairs(ref: dict, pairs: int = 3) -> None:
               flush=True)
 
 
+#: The deployment runs: (label, processes, replicas per process, heights,
+#: seconds until an unfinished run fails, worker options).
+DEPLOY_RUNS = (
+    ("capstone", 2, 2, 10, 420, ("--buckets", "64", "--check-host")),
+    ("full", 4, 64, 3, 300, ()),
+)
+
+
+def _free_ports(n: int) -> list:
+    import socket
+
+    socks = [socket.socket() for _ in range(n)]
+    try:
+        for s in socks:
+            s.bind(("127.0.0.1", 0))
+        return [s.getsockname()[1] for s in socks]
+    finally:
+        for s in socks:
+            s.close()
+
+
+def run_deploy(label: str, procs: int, per: int, heights: int, deadline: float,
+               opts) -> None:
+    """Start ``procs`` deployment workers on the card, wait for all of
+    them, check them against each other, print their lines."""
+    ports = _free_ports(procs)
+    root = os.path.dirname(os.path.abspath(__file__))
+    opts = ("--deadline", str(deadline), *opts)
+    cmd = [sys.executable, "-m", "hyperdrive_tpu_torch.harness.deploy",
+           *map(str, ports)]
+    t0 = time.perf_counter()
+    workers = [
+        subprocess.Popen(cmd + [str(rank), str(per), str(heights), "card", *opts],
+                         cwd=root, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                         text=True)
+        for rank in range(procs)
+    ]
+    end = t0 + deadline + 120
+    outs = []
+    try:
+        for w in workers:
+            outs.append(w.communicate(timeout=max(1.0, end - time.perf_counter()))[0])
+    finally:
+        for w in workers:
+            if w.poll() is None:
+                w.kill()
+                w.wait()
+    wall = time.perf_counter() - t0
+    fields = []
+    for rank, (w, out) in enumerate(zip(workers, outs)):
+        lines = out.strip().splitlines()
+        if w.returncode != 0 or not lines or not lines[-1].startswith(
+                f"TRANSPORT_OK rank={rank} heights={heights} "):
+            raise AssertionError(f"deploy {label}: worker {rank} failed "
+                                 f"({w.returncode}):\n" + "\n".join(lines[-40:]))
+        for line in lines:
+            if line.startswith(("DEPLOY_", "TRANSPORT_OK")):
+                print(f"deploy {label}: {line}", flush=True)
+        got = {}
+        for line in lines:
+            if line.startswith(("DEPLOY_STATS", "TRANSPORT_OK")):
+                got.update(kv.split("=", 1) for kv in line.split()[1:])
+        fields.append(got)
+    digests = {f["digest"] for f in fields}
+    if len(digests) != 1:
+        raise AssertionError(f"deploy {label}: digests differ across processes: {digests}")
+    for rank, f in enumerate(fields):
+        if f["mode"] != "card" or int(f["consulted"]) <= 0 or int(f["grouped"]) <= 0:
+            raise AssertionError(f"deploy {label}: worker {rank}: {f}")
+        for k in ("ed25519_challenge", "ed25519_semiwire"):
+            if int(f[f"{k}_launches"]) <= 0:
+                raise AssertionError(f"deploy {label}: worker {rank} launched no {k}")
+        if "--check-host" in opts and not (
+                0 < int(f["flushes"]) == int(f["masks_checked"])):
+            raise AssertionError(f"deploy {label}: worker {rank}: {f['masks_checked']} "
+                                 f"masks held against the host for {f['flushes']} flushes")
+    print(f"deploy {label}: n={procs * per} processes={procs} replicas_per_process={per} "
+          f"heights={heights} phase_s={wall:.2f} digest={digests.pop()[:16]} "
+          f"equal_digests=True", flush=True)
+
+
+#: Rows of one flush's scatter and lanes of one flush's verify in the
+#: in-process contention probe: about what a replica's flush carries at
+#: n = 256 (the full run's grouped lanes over its flushes, ~100).
+FLUSH_ROWS = FLUSH_LANES = 100
+
+
+def _threaded_ms(threads: int, calls: int, make, call) -> list:
+    """Per-thread host wall per call (ms): ``threads`` threads, each with
+    its own state from ``make()`` and a CUDA stream of its own, start
+    together and run ``call(state)`` ``calls`` times."""
+    import threading
+
+    states = [make() for _ in range(threads)]
+    streams = [torch.cuda.Stream() for _ in range(threads)]
+    torch.cuda.synchronize()
+    start = threading.Barrier(threads)
+    per: list = []
+    errors: list = []
+
+    def work(i):
+        try:
+            with torch.cuda.stream(streams[i]):
+                call(states[i])
+                start.wait()
+                t0 = time.perf_counter()
+                for _ in range(calls):
+                    call(states[i])
+                per.append((time.perf_counter() - t0) / calls * 1e3)
+        except Exception as e:  # re-raised below
+            errors.append(e)
+            start.abort()
+
+    workers = [threading.Thread(target=work, args=(i,)) for i in range(threads)]
+    for w in workers:
+        w.start()
+    for w in workers:
+        w.join()
+    if errors:
+        raise errors[0]
+    return per
+
+
+def deploy_contention() -> None:
+    """What one replica thread pays for a flush's grid call and verify
+    call, alone and with 63 other threads of one process doing the same
+    (each on its own grid and stream), as host wall per call: the
+    deployment's in-process cost without sockets, consensus or other
+    processes on the card."""
+    from hyperdrive_tpu_torch.crypto.keys import KeyRing
+    from hyperdrive_tpu_torch.ops.ed25519_wire import TorchWireVerifier, ValidatorTable
+    from hyperdrive_tpu_torch.ops.votegrid import VoteGrid
+
+    V, R = N_VALIDATORS, 8
+    rng = np.random.default_rng(SEED + 7)
+    scatter = _scatter_args(rng, 1, V, R, FLUSH_ROWS)
+    ring = KeyRing.deterministic(V, namespace=b"deploy-probe")
+    table = ValidatorTable(ring.signatories, device="cuda")
+    digest = bytes(range(32))
+    items = [(ring[i].public, digest, ring[i].sign_digest(digest))
+             for i in range(FLUSH_LANES)]
+    wv = TorchWireVerifier(table=table, device="cuda")
+    wv.warmup()
+    if not wv.verify_signatures(items).all():
+        raise AssertionError("deploy contention: a valid signature was rejected")
+    probes = (
+        ("update_and_tally", f"n=1 V={V} R={R} rows={FLUSH_ROWS}",
+         lambda: VoteGrid(1, V, r_slots=R, buckets=(256, 1024, 4096), device="cuda"),
+         lambda g: g.update_and_tally(*scatter)["total"]),
+        ("verify_signatures", f"grouped lanes={FLUSH_LANES} (one shared verifier)",
+         lambda: wv, lambda v: v.verify_signatures(items)),
+    )
+    for name, shape, make, call in probes:
+        alone = statistics.median(_threaded_ms(1, 20, make, call))
+        crowd = _threaded_ms(64, 10, make, call)
+        print(f"deploy contention: {name} {shape} threads=1 ms_per_call={alone:.3f} "
+              f"threads=64 ms_per_call_median={statistics.median(crowd):.3f} "
+              f"max={max(crowd):.3f} calls_per_s={64 * 1e3 / statistics.median(crowd):.0f}",
+              flush=True)
+
+
+def phase_deploy() -> None:
+    deploy_contention()
+    for run in DEPLOY_RUNS:
+        run_deploy(*run)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs one card",
@@ -1117,6 +1306,7 @@ def main() -> int:
     rows["ed25519_challenge"] = phase_challenge(state, clock, sms)
     phase_votegrid()
     launches = phase_main_path()
+    phase_deploy()
     table = []
     for name, (source, replaces) in KERNELS.items():
         row = rows[name][PATH_LANES]

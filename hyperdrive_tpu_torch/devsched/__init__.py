@@ -10,10 +10,12 @@ once per call. On top of it the sim harness pipelines consensus
 propose/prevote while height h's verification is still in flight, with
 commit finalization gated on the future's resolution.
 
-Not ported yet: ``QueueFlusher`` (``devsched/flusher.py``, the lock-step
-replica flusher seam) and the ``__main__`` CLI.
+:class:`~hyperdrive_tpu_torch.devsched.flusher.QueueFlusher` puts the
+queue behind a replica's own flush seam. Not ported yet: the
+``__main__`` CLI.
 """
 
+from hyperdrive_tpu_torch.devsched.flusher import QueueFlusher
 from hyperdrive_tpu_torch.devsched.policy import DeficitRoundRobin, FifoDrainPolicy
 from hyperdrive_tpu_torch.devsched.queue import (
     DeviceFuture,
@@ -29,6 +31,7 @@ __all__ = [
     "DeviceWorkQueue",
     "FifoDrainPolicy",
     "NullVerifyLauncher",
+    "QueueFlusher",
     "SpeculationMismatch",
     "VerifyLauncher",
 ]

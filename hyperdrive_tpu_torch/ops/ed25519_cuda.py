@@ -113,15 +113,23 @@ CONSTS_W32_LEN = (4 + 3 * 9 + 2 + len(SC_FOLD_WIDTHS)) * W32_LIMBS
 
 class KernelStats:
     """Launch accounting: ``launches`` grows by one per kernel launch and
-    ``lanes`` by the lanes launched; the plain version counts nothing."""
+    ``lanes`` by the lanes launched; the plain version counts nothing.
+    Lock-guarded: replica threads of one process launch concurrently."""
 
     def __init__(self):
         self.launches = 0
         self.lanes = 0
+        self._lock = threading.Lock()
+
+    def add(self, lanes: int) -> None:
+        with self._lock:
+            self.launches += 1
+            self.lanes += lanes
 
     def reset(self) -> None:
-        self.launches = 0
-        self.lanes = 0
+        with self._lock:
+            self.launches = 0
+            self.lanes = 0
 
 
 #: One count per kernel, keyed by kernel name.
@@ -316,8 +324,7 @@ def _launch(name: str, device: torch.device, bsz: int, fn, args,
     rc = getattr(lib.lib, fn)(index, *args, out.data_ptr(), bsz, stream)
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: cudaError {rc}")
-    stats[name].launches += 1
-    stats[name].lanes += bsz
+    stats[name].add(bsz)
     return out
 
 

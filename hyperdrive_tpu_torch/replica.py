@@ -4,24 +4,40 @@ Capability parity with the reference's ``replica/replica.go``: a Replica
 owns a :class:`~hyperdrive_tpu_torch.process.Process` and a
 :class:`~hyperdrive_tpu_torch.mq.MessageQueue`, computes ``f = n // 3`` from
 the signatory set, filters messages below the current height, whitelists
-senders, and supports ``ResetHeight`` resync.
+senders, serializes all handling through a single inbox, and supports
+``ResetHeight`` resync.
 
-Port copy of the burst-mode part of ``hyperdrive_tpu/replica.py``: the
-constructor, ``handle``/``handle_burst`` and the two-phase external flush
-(``drain_pending``/``dispatch_window``, and ``ingest_insert_window``/
-``ingest_cascade_window`` for device tallies) the simulator's settle
-layer drives, plus :func:`merge_drain`. Removed: the tracer, logger, flight-recorder and
-sanitizer hooks (``utils.trace``, ``utils.log``, ``obs.recorder``,
+Two driving modes:
+
+- **Synchronous** (:meth:`Replica.handle`, and the two-phase external
+  flush ``drain_pending``/``dispatch_window`` with
+  ``ingest_insert_window``/``ingest_cascade_window`` for device tallies,
+  which the simulator's settle layer drives);
+- **Threaded** (:meth:`Replica.run`): a background thread drains a
+  ``queue.Queue`` inbox until a stop event fires (the reference's
+  ``Replica.Run``, replica/replica.go:88-151), fed by
+  :class:`~hyperdrive_tpu_torch.transport.TcpNode`. A ``flusher``
+  (:class:`~hyperdrive_tpu_torch.tallyflush.DeviceTallyFlusher`,
+  :class:`~hyperdrive_tpu_torch.devsched.flusher.QueueFlusher`) takes over
+  the flush; a ``recorder``
+  (:class:`~hyperdrive_tpu_torch.transport.FlightRecorder`) logs every
+  consumed input; :meth:`Replica.restore` revives a crashed replica from a
+  checkpoint (:mod:`hyperdrive_tpu_torch.utils.checkpoint`).
+
+Port copy of ``hyperdrive_tpu/replica.py``, plus :func:`merge_drain`.
+Removed: the tracer, logger, metrics recorder (``obs``) and sanitizer
+hooks (``utils.trace``, ``utils.log``, ``obs.recorder``,
 ``analysis.sanitizer``, ``@hot_path``) and the committer/catcher wrappers
 that only fed them; the epoch stale-key filter and the admission gate
 (neither exists in this package yet). Not ported yet, and refused with
 ``NotImplementedError``: the columnar settle path
-(``dispatch_window_cols``), per-replica flushers, certificates and the
-threaded ``run`` loop.
+(``dispatch_window_cols``) and certificates.
 """
 
 from __future__ import annotations
 
+import queue as _queue
+import threading
 from collections import deque
 from dataclasses import dataclass, replace
 from typing import Callable, Optional
@@ -47,6 +63,7 @@ from hyperdrive_tpu_torch.types import (
     Signatory,
     Step,
 )
+from hyperdrive_tpu_torch.utils.checkpoint import restore_bytes
 
 __all__ = ["Replica", "ReplicaOptions", "ResetHeight", "merge_drain"]
 
@@ -139,10 +156,9 @@ class Replica:
         did_handle_message: Optional[Callable[[], None]] = None,
         verifier=None,
         flusher=None,
+        recorder=None,
         certifier=None,
     ):
-        if flusher is not None:
-            raise NotImplementedError(f"per-replica flushers are {_LATER}")
         if certifier is not None:
             raise NotImplementedError(f"certificates are {_LATER}")
         f = len(signatories) // 3
@@ -168,6 +184,16 @@ class Replica:
             self.mq.order_of(s)
         self.did_handle_message = did_handle_message
         self.verifier = verifier
+        #: Optional flush delegate (``flush(replica) -> None`` drains the
+        #: queue to quiescence): the seam a deployment uses to put a device
+        #: vote grid behind this replica's own event loop
+        #: (:class:`~hyperdrive_tpu_torch.tallyflush.DeviceTallyFlusher`).
+        self.flusher = flusher
+        #: Optional consumption log (``record(msg)``): every input this
+        #: replica consumes, in consumption order
+        #: (:class:`~hyperdrive_tpu_torch.transport.FlightRecorder`).
+        self.recorder = recorder
+        self._inbox: _queue.Queue = _queue.Queue(maxsize=opts.max_capacity)
         # Synchronous-mode reentrancy guard: a broadcaster wired straight
         # back into handle() (loopback) must enqueue, not recurse.
         self._handling = False
@@ -186,6 +212,33 @@ class Replica:
     def start(self) -> None:
         """Start the underlying Process (round 0 of the starting height)."""
         self.proc.start()
+
+    def restore(self, checkpoint: "bytes | None" = None) -> None:
+        """Crash-restart revive path: restore the Process from a
+        checkpoint envelope (:mod:`hyperdrive_tpu_torch.utils.checkpoint`)
+        and reset every volatile buffer (the sorted queue, the burst fast
+        lane, the reentrant backlog); only the checkpoint survives a
+        crash. The queue's tie-break order map is kept: it derives from
+        the whitelist, not from traffic.
+
+        ``checkpoint=None`` models a replica that crashed before its first
+        checkpoint: the Process restarts from the default state at
+        ``opts.starting_height``. Callers then rejoin via ResetHeight or
+        ``proc.resume()``.
+        """
+        if checkpoint is not None:
+            restore_bytes(self.proc, checkpoint)
+        else:
+            self.proc.state = State.default_with_height(self.opts.starting_height)
+        self.mq.clear()
+        self._lane.clear()
+        self._lane_counts.clear()
+        self._pending.clear()
+        if self.flusher is not None and hasattr(self.flusher, "reset"):
+            # Queue-backed flushers hold in-flight settle futures; the
+            # revived replica must not apply its dead predecessor's
+            # windows on top of the checkpoint.
+            self.flusher.reset(self)
 
     def handle(self, msg) -> None:
         """Synchronously handle one input message, then flush the queue
@@ -246,6 +299,8 @@ class Replica:
                 lane = self._lane
 
     def _handle_one(self, msg) -> None:
+        if self.recorder is not None:
+            self.recorder.record(msg)
         try:
             if isinstance(msg, Timeout):
                 if msg.message_type == MessageType.PROPOSE:
@@ -303,7 +358,11 @@ class Replica:
     def _flush(self) -> None:
         """Drain the queue into the Process until quiescent
         (reference: replica/replica.go:251-264); with a Verifier installed,
-        votes drain in windows and are batch-verified before dispatch."""
+        votes drain in windows and are batch-verified before dispatch; a
+        flusher, when installed, owns the whole flush."""
+        if self.flusher is not None:
+            self.flusher.flush(self)
+            return
         if self.verifier is None:
             while True:
                 n = self.mq.consume(
@@ -383,8 +442,96 @@ class Replica:
     def dispatch_window_cols(self, cols, keep=None) -> None:
         raise NotImplementedError(f"the columnar settle path is {_LATER}")
 
-    def run(self, stop, coalesce: bool = False) -> None:
-        raise NotImplementedError(f"the threaded replica loop is {_LATER}")
+    # -------------------------------------------------------- threaded driving
+
+    def run(self, stop: threading.Event, coalesce: bool = False) -> None:
+        """Drain the inbox until ``stop`` fires (the reference's Run loop,
+        replica/replica.go:88-151). Call from a dedicated thread.
+
+        ``coalesce=True`` drains every message already waiting in the
+        inbox (up to ``verify_window``) before flushing once, instead of
+        flushing after each: a device-verified replica then pays one
+        launch per burst rather than one per vote. Backpressure still
+        fires ``did_handle_message`` per message.
+        """
+        self.proc.start()
+        cap = max(self.opts.verify_window, 1)
+        while not stop.is_set():
+            try:
+                msg = self._inbox.get(timeout=0.05)
+            except _queue.Empty:
+                continue
+            if not coalesce:
+                self.handle(msg)
+                continue
+            batch = [msg]
+            while len(batch) < cap:
+                try:
+                    batch.append(self._inbox.get_nowait())
+                except _queue.Empty:
+                    break
+            self.handle_coalesced(batch)
+        # As the reference: the callback also fires on cancellation
+        # (replica/replica.go:16-18).
+        if self.did_handle_message is not None:
+            self.did_handle_message()
+
+    def handle_coalesced(self, msgs) -> None:
+        """Buffer a burst of inbox messages, then flush ONCE.
+
+        Votes height-filter and insert into the queue without the
+        per-message flush; timeouts and resets take the full
+        :meth:`handle` path (they can move the height). The final flush
+        restores the quiescence contract for the whole burst. The
+        ``external_flush`` mode's batch entry is :meth:`handle_burst`."""
+        if self.opts.external_flush:
+            raise RuntimeError(
+                "handle_coalesced is the self-flushing batch entry; "
+                "external_flush callers use handle_burst"
+            )
+        dh = self.did_handle_message
+        for msg in msgs:
+            t = type(msg)
+            if t is Propose or t is Prevote or t is Precommit:
+                if self.recorder is not None:
+                    self.recorder.record(msg)
+                self._buffer_vote(msg)
+                if dh is not None:
+                    dh()
+            else:
+                self.handle(msg)
+        self._flush()
+
+    def _enqueue(self, msg, stop: Optional[threading.Event] = None) -> None:
+        while True:
+            try:
+                self._inbox.put(msg, timeout=0.05)
+                return
+            except _queue.Full:
+                if stop is not None and stop.is_set():
+                    return
+
+    def propose(self, propose: Propose, stop=None) -> None:
+        """Async insert (reference: replica/replica.go:156-161)."""
+        self._enqueue(propose, stop)
+
+    def prevote(self, prevote: Prevote, stop=None) -> None:
+        self._enqueue(prevote, stop)
+
+    def precommit(self, precommit: Precommit, stop=None) -> None:
+        self._enqueue(precommit, stop)
+
+    def timeout(self, timeout: Timeout, stop=None) -> None:
+        self._enqueue(timeout, stop)
+
+    def reset_height(
+        self, new_height: Height, signatories: list[Signatory] = (), stop=None
+    ) -> None:
+        """Jump a lagging replica to ``new_height`` (> current), dropping
+        stale queued messages (reference: replica/replica.go:222-235)."""
+        if new_height <= self.proc.current_height:
+            return
+        self._enqueue(ResetHeight(new_height, tuple(signatories)), stop)
 
     # ------------------------------------------------------------- inspection
 

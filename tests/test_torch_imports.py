@@ -12,6 +12,8 @@ import pytest
 import torch
 
 from hyperdrive_tpu_torch.ops.ed25519 import TorchBatchVerifier
+from hyperdrive_tpu_torch.tallyflush import DeviceTallyFlusher
+from hyperdrive_tpu_torch.verifier import NullVerifier
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 
@@ -38,7 +40,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
         capture_output=True, text=True, timeout=120, check=True,
     ).stdout.splitlines()[-1])
     assert len(out["names"]) >= 15
-    for name in ("native", "devsched", "devsched.queue", "devsched.policy"):
+    for name in ("native", "devsched", "devsched.queue", "devsched.policy",
+                 "transport", "tallyflush", "devsched.flusher", "utils.checkpoint",
+                 "harness.deploy"):
         assert f"hyperdrive_tpu_torch.{name}" in out["names"]
     assert out["bad"] == []
     assert out["built"] is False
@@ -61,11 +65,15 @@ def test_no_source_names_jax_or_the_jax_package():
 
 
 def test_batch_verifier_defaults_to_the_card():
+    validators = [bytes([i + 1]) * 32 for i in range(4)]
     if torch.cuda.is_available():
         assert TorchBatchVerifier().device.type == "cuda"
+        assert DeviceTallyFlusher(NullVerifier(), validators).device.type == "cuda"
     else:
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             TorchBatchVerifier()
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            DeviceTallyFlusher(NullVerifier(), validators)
 
 
 def test_chip_smoke_refuses_to_run_without_a_card(tmp_path):
