@@ -97,7 +97,43 @@ Phases, each printing its lines:
    verify and tally shares, commit rounds and shed frames on lines that
    begin ``deploy``. Before them, ``deploy contention:`` lines: a flush's
    grid call (n = 1, V = 256) and verify call (100 grouped lanes), host
-   wall per call from one thread and from 64 threads of this process.
+   wall per call from one thread and from 64 threads of this process;
+8. Shamir reconstruct (``ops/shamir.py``, PyTorch ops, no hand-written
+   kernel): ``BatchReconstructor`` on the card at k = 171 (n = 256, f =
+   85) for 16, 64 and 1,024 blocks, every payload equal byte for byte to
+   the oracle's ``reconstruct_payload`` (at 1,024 blocks: to the payload,
+   to the host leg, and 40 sampled blocks to the oracle's
+   ``reconstruct_block``); ms of ``reconstruct_kernel`` (CUDA events),
+   CUDA kernels a call, the bound and its share, the wrapper's and the
+   host leg's wall; ``AdaptiveReconstructor``'s calibration record at
+   1,024 blocks; on lines that begin ``programs: shamir``;
+9. the RLC batch equation (``rlc_check`` on ``ops/msm.py``, PyTorch ops):
+   one 64-lane MSM equal to the oracle's point sum; then
+   ``TorchBatchVerifier(rlc=True)`` at 64, 256, 1,024 and 4,096 lanes: a
+   clean batch accepted by one check with no fallback and no ladder
+   launch, a batch with one forged lane falling back once with its mask
+   equal to ``ed25519_verify``'s and the oracle's, and (64 lanes) the
+   order-8 torsion vector accepted by the RLC and rejected by the ladder;
+   ms and CUDA kernels of ``rlc_check`` beside the ladder's time at the
+   same lanes; on lines that begin ``programs: rlc``;
+10. config 5 (BASELINE configs[4]) as the JAX package's bench runs it
+   (n = 256, k = 171, 496-byte payloads, seed 1005, 20 s timeouts,
+   burst, 10 heights), signed (every settle on ``ed25519_verify``): the
+   host run (``HostVerifier``), a run with
+   ``BatchReconstructor`` pinned on the card (one reconstruct launch a
+   committed value) and one with the adaptive default (16-block commits
+   on the host leg: no launch); each equal to the host run in digest,
+   steps and every replica's reconstructed payloads; heights/s, the
+   reconstruct share of wall and its p50, launches; lines ``config5``;
+11. certificates: the main path with ``certificates=True`` through the
+   packed verifier with ``rlc=False`` and ``rlc=True``: digest
+   ``215413db54656240`` in 656,640 steps, chain digests equal across
+   replicas and to a host run's, every certificate re-verified and
+   round-tripped through its codec, the RLC run's checks, fallbacks and
+   wall; lines ``certs``.
+
+Each path of phases 5, 6, 10 and 11 is driven with the kernel counts set
+to 0 just before it and read just after.
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``. Any failed check raises, so the script
@@ -1285,6 +1321,373 @@ def phase_deploy() -> None:
         run_deploy(*run)
 
 
+# ------------------------------------------------ Shamir payloads, RLC, QCs
+
+#: Config 5 (``BASELINE.json`` configs[4]) as the JAX package's bench runs
+#: it (``benches/run_all.py`` ``config_5``): n = 256, k = 2f + 1 = 171,
+#: 496-byte payloads, seed 1005, 20 s timeouts, burst. Signed here
+#: (``sign=True, dedup_verify=True``, every settle on the batch verifier)
+#: so that row 1 is on its path; the bench's 10 heights, uncut.
+C5_N, C5_PAYLOAD, C5_SEED, C5_TIMEOUT, C5_HEIGHTS = 256, 496, 1005, 20.0, 10
+#: Block counts of the standalone reconstruct: the bench's commit-sized
+#: 16 blocks (a 496-byte payload with its 0x80 pad is 17), the bench's
+#: 64-block launch, and a wide batch past the adaptive router's
+#: calibration point (512 blocks).
+SHAMIR_BLOCKS = (16, 64, 1024)
+RLC_SIZES = (64, 256, 1024, 4096)
+#: The main-path invariant (seed 1, n = 256, five heights).
+MAIN_DIGEST, MAIN_STEPS = "215413db54656240", 656_640
+
+
+def _solved_shares(secrets, xs, lams, rng):
+    """Shares at ``xs`` of polynomials with the given secrets: every
+    share but the last is random, the last solved so that the Lagrange
+    sum at zero is the secret (any k points define one polynomial of
+    degree k - 1). Costs k products a block, where splitting all n
+    shares costs n Horner evaluations of degree k - 1 (17 s at 1,024
+    blocks)."""
+    from hyperdrive_tpu_torch.crypto.shamir import P
+
+    inv_last = pow(lams[-1], P - 2, P)
+    out = []
+    for s in secrets:
+        ys = [int.from_bytes(rng.bytes(32), "little") % P for _ in xs[:-1]]
+        acc = sum(lam * y for lam, y in zip(lams, ys)) % P
+        ys.append((s - acc) * inv_last % P)
+        out.append(list(zip(xs, ys)))
+    return out
+
+
+def phase_shamir() -> None:
+    """BatchReconstructor on the card at k = 171, byte-exact against the
+    oracle; ms, CUDA kernels and bound of one reconstruct call; the host
+    leg's time beside it; AdaptiveReconstructor's calibration record."""
+    from hyperdrive_tpu_torch.crypto import shamir
+    from hyperdrive_tpu_torch.ops import shamir as tshamir
+
+    n = N_VALIDATORS
+    k = 2 * (n // 3) + 1
+    rng = np.random.default_rng(SEED + 5)
+    xs = sorted(int(x) + 1 for x in rng.choice(n, size=k, replace=False))
+    lams = shamir.lagrange_coeffs_at_zero(xs)
+    recon = tshamir.BatchReconstructor(device="cuda")
+    props = torch.cuda.get_device_properties(0)
+    imad_s = IMAD_PER_SM_CLOCK * props.multi_processor_count * sm_clock_mhz() * 1e6
+    for blocks in SHAMIR_BLOCKS:
+        payload = rng.bytes(shamir.BLOCK_BYTES * blocks - 1)
+        padded = payload + b"\x80"
+        secrets = [int.from_bytes(padded[i:i + 31], "little")
+                   for i in range(0, len(padded), 31)]
+        shares = _solved_shares(secrets, xs, lams, rng)
+        got = recon.reconstruct_payload_shares(shares)
+        if blocks <= 64:
+            want = shamir.reconstruct_payload(shares)
+            oracle = "reconstruct_payload_equal=True"
+        else:
+            # The oracle recomputes the k weights for every block (~60 ms
+            # a block at k = 171): 40 sampled blocks through it, all
+            # blocks through the payload's own bytes and the host leg.
+            picks = rng.choice(blocks, size=40, replace=False)
+            if any(shamir.reconstruct_block(shares[b]) != secrets[b] for b in picks):
+                raise AssertionError("shamir: oracle reconstruct_block != secret")
+            want = payload
+            oracle = "reconstruct_block_sample=40_equal=True"
+        host = tshamir.AdaptiveReconstructor(recon)
+        host_out = host.host_reconstruct(shares)  # weights cached from here on
+        if not (got == want == payload == host_out):
+            raise AssertionError(f"shamir: {blocks} blocks differ from the oracle")
+        host_s = min(_host_s(lambda: host.host_reconstruct(shares)) for _ in range(3))
+        wrap_s = min(_host_s(lambda: recon.reconstruct_payload_shares(shares))
+                     for _ in range(3))
+        y = torch.from_numpy(tshamir._limbs_of_ints(
+            v for i in range(k) for v in (sh[i][1] for sh in shares))
+            .reshape(k, blocks, 20)).to("cuda")
+        lam_t = torch.from_numpy(tshamir._limbs_of_ints(lams)).to("cuda")
+        fn = lambda: tshamir.reconstruct_kernel(y, lam_t)  # noqa: E731
+        ms = time_ms(fn, 7)
+        kern = _kernels_per_call(fn)
+        # Bound: k x B field products and additions and B canonical
+        # reductions, in the multiply instructions of the 8 x 32-bit field
+        # (the unit of imad_per_signature), at the cc 9.0 rate; or the
+        # shares and weights read once and the secrets written once, 32 B
+        # a field element, at the memory rate; whichever is larger.
+        ops_ms = (k * blocks * (MUL + ADD) + blocks * CANON) / imad_s * 1e3
+        byt_ms = (k * blocks + k + blocks) * 32 / HBM_BYTES_PER_S * 1e3
+        b_ms, b_by = (ops_ms, "operations") if ops_ms >= byt_ms else (byt_ms, "bytes")
+        print(f"programs: shamir reconstruct k={k} n={n} blocks={blocks} "
+              f"{oracle} ms={ms:.4f} bound_ms={b_ms:.6f} bound_by={b_by} "
+              f"bound_share={b_ms / ms:.5f} chunk_blocks={tshamir._chunk_blocks(k)} "
+              f"cuda_kernels_per_call={kern} wrapper_s={wrap_s:.5f} "
+              f"host_leg_s={host_s:.5f}", flush=True)
+    adaptive = tshamir.AdaptiveReconstructor(tshamir.BatchReconstructor(device="cuda"))
+    if adaptive.reconstruct_payload_shares(shares) != payload or not adaptive.calibrated:
+        raise AssertionError("shamir: calibration run failed")
+    r = adaptive.rates
+    print(f"programs: shamir adaptive calibration blocks={len(shares)} "
+          f"host_blocks_per_s={r['host_blocks_per_s']:.1f} "
+          f"device_blocks_per_s={r['device_blocks_per_s']:.1f} "
+          f"device_overhead_s={r['device_overhead_s']:.5f} "
+          f"crossover_blocks={adaptive.crossover_blocks}", flush=True)
+
+
+def _host_s(fn) -> float:
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def _valid_items(lanes: int, rng) -> list:
+    ring = _ring()
+    out = []
+    for i in range(lanes):
+        kp = ring[i % 32]
+        digest = rng.bytes(32)
+        out.append((kp.public, digest, kp.sign_digest(digest)))
+    return out
+
+
+def _order8_item():
+    """(pub, digest, sig) valid under the cofactored equation and invalid
+    under the strict one: A = R = an order-8 point, s = 0 (the JAX
+    package's ``tests/test_msm.py`` vector)."""
+    from hyperdrive_tpu_torch.crypto import ed25519 as hed
+
+    for seed in range(2, 50):
+        p = hed.point_decompress(bytes([seed]) + bytes(31))
+        if p is None:
+            continue
+        q = hed.scalar_mult(hed.L, p)
+        o, acc = 1, q
+        while not hed.point_equal(acc, hed.IDENTITY) and o <= 8:
+            acc = hed.point_add(acc, q)
+            o += 1
+        if o == 8:
+            break
+    enc = hed.point_compress(q)
+    for i in range(64):
+        msg = b"small-order-%d" % i
+        k = hed.challenge_scalar(enc, enc, msg)
+        if not hed.point_equal(hed.IDENTITY, hed.point_add(q, hed.scalar_mult(k, q))):
+            return enc, msg, enc + bytes(32)
+    raise AssertionError("no diverging message found")
+
+
+def phase_rlc() -> None:
+    """TorchBatchVerifier(rlc=True) on the card: a clean batch in one
+    rlc_check, a forged lane through the fallback (mask equal to the
+    ladder's and the oracle's), the order-8 divergence, one MSM against
+    the oracle's point sum; then ms and CUDA kernels of rlc_check beside
+    the ladder's time at the same lanes."""
+    from hyperdrive_tpu_torch.crypto import ed25519 as hed
+    from hyperdrive_tpu_torch.ops import ed25519 as ted
+    from hyperdrive_tpu_torch.ops import ed25519_cuda, msm
+    from hyperdrive_tpu_torch.verifier import HostVerifier
+
+    rng = np.random.default_rng(SEED + 6)
+    oracle = HostVerifier()
+    props = torch.cuda.get_device_properties(0)
+    imad_s = IMAD_PER_SM_CLOCK * props.multi_processor_count * sm_clock_mhz() * 1e6
+
+    # One 64-lane MSM against the oracle's sum (host points, any Z).
+    pts = [hed.scalar_mult(int(rng.integers(1, 1 << 62)) * 977 + 5, hed.BASE)
+           for _ in range(64)]
+    scalars = [int.from_bytes(rng.bytes(32), "little") % hed.L for _ in range(64)]
+    scalars[7] = 0
+    pts[9] = pts[3]
+    nib = torch.tensor([[(v >> (4 * w)) & 0xF for w in range(64)] for v in scalars],
+                       dtype=torch.int32, device="cuda")
+    px, py, pt = (torch.from_numpy(a).to("cuda") for a in ted.pack_affine(pts))
+    got = ted.affine_of(ted.msm_kernel(px, py, pt, ted._recode_signed(nib)))
+    acc = hed.IDENTITY
+    for p, v in zip(pts, scalars):
+        acc = hed.point_add(acc, hed.scalar_mult(v, p))
+    zi = pow(acc[2], hed.P - 2, hed.P)
+    if got != (acc[0] * zi % hed.P, acc[1] * zi % hed.P):
+        raise AssertionError("msm_kernel (64 lanes) != the oracle's point sum")
+    print("programs: msm 64 lanes x 64 windows equals_oracle_sum=True", flush=True)
+
+    for lanes in RLC_SIZES:
+        bv = ted.TorchBatchVerifier(buckets=(lanes,), rlc=True, device="cuda")
+        bv.warmup()
+        items = _valid_items(lanes, rng)
+        ed25519_cuda.reset_stats()
+        if not bv.verify_signatures(items).all():
+            raise AssertionError(f"rlc {lanes}: a clean batch was rejected")
+        if (bv.rlc_calls, bv.rlc_fallbacks,
+                ed25519_cuda.stats["ed25519_verify"].launches) != (1, 0, 0):
+            raise AssertionError(f"rlc {lanes}: clean batch took {bv.rlc_calls} checks, "
+                                 f"{bv.rlc_fallbacks} fallbacks")
+        bad = list(items)
+        j = lanes // 2
+        sig = bad[j][2]
+        bad[j] = (bad[j][0], bad[j][1], sig[:40] + bytes([sig[40] ^ 1]) + sig[41:])
+        mask = bv.verify_signatures(bad)
+        arrays, prevalid, _ = bv.host.pack(bad)
+        ladder = ed25519_cuda.verify(*(torch.from_numpy(a).to("cuda") for a in arrays))
+        ladder = ladder.cpu().numpy() & prevalid
+        want = np.asarray(oracle.verify_signatures(bad), dtype=bool)
+        sample = [j] + [int(i) for i in rng.choice(lanes, size=min(lanes, 32), replace=False)]
+        if not (np.array_equal(mask, ladder[:lanes]) and np.array_equal(mask, want)
+                and all(mask[i] == hed.verify(*bad[i]) for i in sample)
+                and not mask[j] and int(mask.sum()) == lanes - 1):
+            raise AssertionError(f"rlc {lanes}: fallback mask differs from the ladder's "
+                                 f"or the oracle's")
+        if (bv.rlc_calls, bv.rlc_fallbacks) != (2, 1):
+            raise AssertionError(f"rlc {lanes}: the forged batch did not fall back once")
+        extra = ""
+        if lanes == RLC_SIZES[0]:
+            batch = items[:3] + [_order8_item()]
+            strict = ted.TorchBatchVerifier(buckets=(lanes,), device="cuda")
+            if (strict.verify_signatures(batch).tolist() != [True, True, True, False]
+                    or bv.verify_signatures(batch).tolist() != [True] * 4
+                    or bv.rlc_fallbacks != 1 or hed.verify(*batch[3])):
+                raise AssertionError("rlc: the order-8 vector did not show the "
+                                     "cofactored divergence")
+            extra = " order8_rlc_accepts=True order8_ladder_rejects=True"
+        tensors = [torch.from_numpy(a).to("cuda") for a in arrays]
+        m_nib, z_nib, c_nib = (torch.from_numpy(a).to("cuda") for a in ted.rlc_scalars(
+            arrays[5], arrays[6], prevalid, ted.rlc_binder(items)))
+        fn = lambda: ted.rlc_check(*tensors[:5], m_nib, z_nib, c_nib)  # noqa: E731
+        ms = time_ms(fn, 3, warm=False)  # bv.warmup() ran it at this shape
+        ladder_ms = time_ms(lambda: ed25519_cuda.verify(*tensors), 7)
+        # The profiler's pass over ~10^5 kernels costs seconds: one size.
+        kern = _kernels_per_call(fn) if lanes == RLC_SIZES[-1] else "-"
+        G, g = msm.plan_groups(lanes)
+        # Bound: the accumulation's mixed additions alone (one a lane a
+        # window over 64 + 33 windows), in the multiply instructions of the
+        # 8 x 32-bit field (the unit of imad_per_signature), at the cc 9.0
+        # rate.
+        b_ms = (msm.ED25519_FULL_WINDOWS + msm.ED25519_HALF_WINDOWS) * lanes \
+            * _madd(True) / imad_s * 1e3
+        print(f"programs: rlc lanes={lanes} clean_checks=1 clean_fallbacks=0 "
+              f"forged_fallbacks=1 mask_equals_ladder=True mask_equals_oracle=True{extra} "
+              f"rlc_check_ms={ms:.2f} ladder_ms={ladder_ms:.4f} "
+              f"rlc_over_ladder={ms / ladder_ms:.1f} bound_ms={b_ms:.6f} "
+              f"bound_by=operations bound_share={b_ms / ms:.6f} groups={G}x{g} "
+              f"cuda_kernels_per_call={kern}", flush=True)
+
+
+def _sim_run(**kw):
+    from hyperdrive_tpu_torch.harness import Simulation
+    from hyperdrive_tpu_torch.ops import ed25519_cuda
+
+    sim = Simulation(**kw)
+    if hasattr(sim.batch_verifier, "warmup"):
+        sim.batch_verifier.warmup()
+    torch.cuda.synchronize()
+    ed25519_cuda.reset_stats()
+    t0 = time.perf_counter()
+    res = sim.run(max_steps=20_000_000)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = ed25519_cuda.stats["ed25519_verify"].launches
+    moved = {k: v.launches for k, v in ed25519_cuda.stats.items()
+             if k != "ed25519_verify" and v.launches}
+    if moved:
+        raise AssertionError(f"other kernels launched: {moved}")
+    res.assert_safety()
+    return sim, res, wall, launches
+
+
+def phase_config5() -> None:
+    """Config 5, signed: the host run (HostVerifier, adaptive
+    reconstructor), a run with BatchReconstructor pinned on the card (a
+    reconstruct launch at every committed height) and one with the
+    adaptive default (16-block commits on the host leg: no launch); each
+    card run equal to the host run in digest, steps and every replica's
+    reconstructed payloads, and row 1 launched at every vote settle."""
+    from hyperdrive_tpu_torch.ops.ed25519 import TorchBatchVerifier
+    from hyperdrive_tpu_torch.ops.shamir import AdaptiveReconstructor, BatchReconstructor
+    from hyperdrive_tpu_torch.verifier import HostVerifier
+
+    base = dict(n=C5_N, target_height=C5_HEIGHTS, seed=C5_SEED, timeout=C5_TIMEOUT,
+                sign=True, burst=True, dedup_verify=True, small_window_host=False,
+                payload_bytes=C5_PAYLOAD, device="cuda")
+    runs = [("host", dict(batch_verifier=HostVerifier())),
+            ("pinned", dict(batch_verifier=TorchBatchVerifier(device="cuda"),
+                            reconstructor=BatchReconstructor(device="cuda"))),
+            ("adaptive", dict(batch_verifier=TorchBatchVerifier(device="cuda")))]
+    ref = None
+    for label, opts in runs:
+        sim, res, wall, launches = _sim_run(**base, **opts)
+        if not res.completed:
+            raise AssertionError(f"config5 {label}: stalled at {res.heights}")
+        got = (res.commit_digest(up_to=C5_HEIGHTS), res.steps, sim.reconstructed)
+        if ref is None:
+            ref = got
+        elif got != ref:
+            raise AssertionError(f"config5 {label}: digest, steps or payloads differ "
+                                 f"from the host run")
+        recon = sim.reconstructor
+        if isinstance(recon, AdaptiveReconstructor):
+            recon = recon.device
+        committed = len(set(res.commits[0].values()))
+        if label == "pinned" and not (
+                recon.launches == len(sim.reconstruct_latency) == committed):
+            raise AssertionError(f"config5 pinned: {recon.launches} reconstruct launches "
+                                 f"for {committed} committed values")
+        if label == "adaptive" and recon.launches:
+            raise AssertionError("config5 adaptive: a 16-block commit went to the card")
+        if label != "host" and launches < sim.vote_settles:
+            raise AssertionError(f"config5 {label}: {launches} ed25519_verify launches "
+                                 f"for {sim.vote_settles} vote settles")
+        lat = sorted(sim.reconstruct_latency)
+        blocks = -(-(C5_PAYLOAD + 1) // 31)
+        print(f"config5 {label}: n={C5_N} k={sim.k} payload_bytes={C5_PAYLOAD} "
+              f"blocks={blocks} heights={C5_HEIGHTS} completed={res.completed} "
+              f"steps={res.steps} wall_s={wall:.2f} heights_per_s={C5_HEIGHTS / wall:.3f} "
+              f"reconstructions={len(lat)} reconstruct_share={sum(lat) / wall:.4f} "
+              f"reconstruct_p50_s={statistics.median(lat):.5f} "
+              f"reconstruct_launches={recon.launches} ed25519_verify_launches={launches} "
+              f"vote_settles={sim.vote_settles} payloads_equal_host=True "
+              f"digest={got[0][:16]} matches_host=True", flush=True)
+
+
+def phase_certs() -> None:
+    """The main path with certificates=True: rlc=False (row 1 on every
+    settle) and rlc=True (one rlc_check a settle); the main-path
+    invariant, chain digests equal across replicas and to the host run's,
+    every certificate re-verified and round-tripped through the codec."""
+    from hyperdrive_tpu_torch.certificates import marshal_certificate, unmarshal_certificate
+    from hyperdrive_tpu_torch.codec import Reader, Writer
+    from hyperdrive_tpu_torch.ops.ed25519 import TorchBatchVerifier
+    from hyperdrive_tpu_torch.verifier import HostVerifier
+
+    base = dict(n=N_VALIDATORS, target_height=HEIGHT, seed=1, sign=True, burst=True,
+                dedup_verify=True, small_window_host=False, certificates=True)
+    _, host, _, _ = _sim_run(batch_verifier=HostVerifier(), **base)
+    for rlc in (False, True):
+        bv = TorchBatchVerifier(device="cuda", rlc=rlc)
+        sim, res, wall, launches = _sim_run(batch_verifier=bv, **base)
+        digest = res.commit_digest(up_to=HEIGHT)
+        if digest[:16] != MAIN_DIGEST or res.steps != MAIN_STEPS or not res.completed:
+            raise AssertionError(f"certs rlc={rlc}: digest {digest[:16]} in {res.steps} "
+                                 f"steps, want {MAIN_DIGEST} in {MAIN_STEPS}")
+        if len(set(res.cert_digests)) != 1 or res.cert_digests != host.cert_digests:
+            raise AssertionError(f"certs rlc={rlc}: chain digests differ across replicas "
+                                 f"or from the host run")
+        certs = 0
+        for c in sim.certifiers:
+            for cert in c.certs.values():
+                w = Writer()
+                marshal_certificate(cert, w)
+                if not c.verify(cert) or unmarshal_certificate(Reader(w.data())) != cert:
+                    raise AssertionError(f"certs rlc={rlc}: a certificate failed")
+                certs += 1
+        if rlc and (launches or bv.rlc_fallbacks or not bv.rlc_calls):
+            raise AssertionError(f"certs rlc=True: {bv.rlc_calls} checks, "
+                                 f"{bv.rlc_fallbacks} fallbacks, {launches} ladder launches")
+        if not rlc and launches < sim.vote_settles:
+            raise AssertionError(f"certs rlc=False: {launches} ed25519_verify launches")
+        print(f"certs rlc={rlc}: n={N_VALIDATORS} height={HEIGHT} steps={res.steps} "
+              f"wall_s={wall:.2f} heights_per_s={HEIGHT / wall:.3f} certificates={certs} "
+              f"reverified_and_roundtripped={certs} chain_digests_equal=True "
+              f"chain_equals_host=True rlc_calls={bv.rlc_calls} "
+              f"rlc_fallbacks={bv.rlc_fallbacks} ed25519_verify_launches={launches} "
+              f"settle_passes={sim.settle_passes} digest={digest[:16]}", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs one card",
@@ -1295,8 +1698,14 @@ def main() -> int:
     props = torch.cuda.get_device_properties(0)
     clock = sm_clock_mhz()
     sms = props.multi_processor_count
+    marks = [("start", time.perf_counter())]
+
+    def mark(name):
+        marks.append((name, time.perf_counter()))
+
     phase_card()
     phase_native()
+    mark("card")
     rows = {"ed25519_verify": phase_verify_kernel(clock, sms)}
     rows["ed25519_wire"], rows["ed25519_semiwire"], state = phase_wire_kernels(clock, sms)
     base = rows["ed25519_verify"][PATH_LANES]["ms"]
@@ -1304,9 +1713,24 @@ def main() -> int:
           + " ".join(f"{k}={rows[k][PATH_LANES]['ms'] / base:.4f}"
                      for k in ("ed25519_wire", "ed25519_semiwire")), flush=True)
     rows["ed25519_challenge"] = phase_challenge(state, clock, sms)
+    mark("kernels")
     phase_votegrid()
+    mark("votegrid")
     launches = phase_main_path()
+    mark("main")
     phase_deploy()
+    mark("deploy")
+    phase_shamir()
+    mark("shamir")
+    phase_rlc()
+    mark("rlc")
+    phase_config5()
+    mark("config5")
+    phase_certs()
+    mark("certs")
+    print("phases_s: " + " ".join(f"{name}={t - marks[i][1]:.1f}"
+                                  for i, (name, t) in enumerate(marks[1:]))
+          + f" total={marks[-1][1] - marks[0][1]:.1f}", flush=True)
     table = []
     for name, (source, replaces) in KERNELS.items():
         row = rows[name][PATH_LANES]

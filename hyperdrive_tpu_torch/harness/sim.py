@@ -42,11 +42,26 @@ speculation; a verdict that differs raises
 :class:`~hyperdrive_tpu_torch.devsched.SpeculationMismatch`. The queue is
 ``Simulation._sched``.
 
+With ``payload_bytes > 0`` (BASELINE config 5) every proposed value
+carries a (2f+1)-of-n Shamir share bundle of a payload derived from it,
+validators accept only that bundle, and every commit reconstructs the
+payload (:meth:`Simulation._reconstruct_commit`) through
+``reconstructor`` (by default an
+:class:`~hyperdrive_tpu_torch.ops.shamir.AdaptiveReconstructor` whose
+device leg is on ``device``); ``reconstructed[i][h]`` keeps the bytes and
+``reconstruct_latency`` the wall time of each reconstruction (the
+reference's ``sim.reconstruct.latency`` histogram). With
+``certificates=True`` every replica's Process carries a
+:class:`~hyperdrive_tpu_torch.certificates.Certifier` bound to the batch
+verifier's ``last_transcript``; ``SimulationResult.cert_digests`` holds
+each replica's chain digest.
+
 Not ported (a later slice of the port), and refused: lock-step delivery
 (``burst=False``), per-delivery adversaries, kills, the sharded grid
 (``tally_mesh``), an injected queue (``devsched=``) and per-replica
-flushers, payloads, certificates, epochs, chaos, load, overlay, execution
-and the record/replay log (``SimulationResult.record`` is always None).
+flushers, BLS certificates (``bls_certificates``), epochs, chaos, load,
+overlay, execution and the record/replay log
+(``SimulationResult.record`` is always None).
 The tracer, flight recorder, metrics registry and device telemetry are
 dropped (tracing returns in a later slice); the columnar
 window path (``columnar_ingest``) is replaced by the object path with
@@ -57,6 +72,7 @@ from __future__ import annotations
 
 import hashlib
 import heapq
+import time
 from dataclasses import dataclass, field
 from typing import Optional
 
@@ -134,6 +150,8 @@ class SimulationResult:
     alive: list[bool]
     #: The replay log; this package does not record runs yet.
     record: None = field(default=None)
+    #: Per-replica certificate chain digests (``certificates=True`` runs).
+    cert_digests: "list[str] | None" = None
 
     def assert_safety(self) -> None:
         """All replicas must agree byte for byte wherever their commit maps
@@ -194,6 +212,11 @@ class Simulation:
     the slots it bypasses; 0 = never. ``route_hysteresis`` N: when 95% of
     the last N routed settles went to the host, grid upkeep stops until a
     device-routed settle rebuilds it (0 = off).
+
+    ``payload_bytes``, ``dedup_reconstruct`` (reconstruct each committed
+    value once, not once per replica) and ``reconstructor``: the Shamir
+    payload path (refused with ``pipeline_heights``). ``certificates``:
+    a quorum certificate at every commit.
     """
 
     def __init__(
@@ -215,6 +238,10 @@ class Simulation:
         route_hysteresis: int = 32,
         pipeline_heights: Optional[bool] = None,
         pipeline_depth: int = 6,
+        payload_bytes: int = 0,
+        dedup_reconstruct: bool = True,
+        reconstructor=None,
+        certificates: bool = False,
         device="cuda",
         **unported,
     ):
@@ -239,6 +266,13 @@ class Simulation:
                     "pipeline_heights pipelines the batch_verifier's "
                     "launches; pass one (or sign=True, which installs a "
                     "default)"
+                )
+            if payload_bytes:
+                raise ValueError(
+                    "pipeline_heights defers commit finalization past "
+                    "the height, but payload reconstruction reads the "
+                    "committed height's propose logs at commit time — "
+                    "run the payload path sequentially"
                 )
         if device_tally and not burst:
             raise ValueError(
@@ -328,6 +362,44 @@ class Simulation:
         self.fused_settles = 0
         self.tally_launches = 0
         self.host_routed_settles = 0
+        #: certificates=True: every replica's Process carries a
+        #: certificates.Certifier minting a QuorumCertificate at each
+        #: commit (transcript-bound to the batch verifier when it has
+        #: one); chain digests land in SimulationResult.cert_digests.
+        self.certificates_on = bool(certificates)
+        self.certifiers: list = []
+        #: The MPC payload path (BASELINE config 5): every proposed value
+        #: carries its (2f+1)-of-n share bundle, validators accept only
+        #: that bundle, and every commit reconstructs the payload.
+        self.payload_bytes = payload_bytes
+        self.dedup_reconstruct = dedup_reconstruct
+        self._bundle_cache: dict[Value, bytes] = {}
+        self._recon_cache: dict[Value, bytes] = {}
+        #: Wall seconds of each commit's reconstruction (the reference's
+        #: ``sim.reconstruct.latency`` histogram; no tracer here).
+        self.reconstruct_latency: list[float] = []
+        if payload_bytes:
+            from hyperdrive_tpu_torch.ops.shamir import (
+                AdaptiveReconstructor,
+                BatchReconstructor,
+            )
+
+            self.k = 2 * self.f + 1
+            #: Routes host/device by block count: commit-sized batches
+            #: (~16 blocks) sit below the provisional crossover and below
+            #: calibrate_at, so every commit takes the cached-weight host
+            #: leg and launches nothing. ``reconstructor=`` pins a
+            #: backend, e.g. BatchReconstructor() for the device program
+            #: at every commit. The default's device leg is on ``device``.
+            self.reconstructor = (
+                reconstructor
+                if reconstructor is not None
+                else AdaptiveReconstructor(BatchReconstructor(device=device))
+            )
+            #: Per-replica height -> reconstructed payload bytes.
+            self.reconstructed: list[dict[Height, bytes]] = [
+                dict() for _ in range(n)
+            ]
         self.replicas: list[Replica] = [
             self._build_replica(i, timeout, timeout_scaling, max_capacity)
             for i in range(n)
@@ -410,6 +482,26 @@ class Simulation:
             timeout_scaling=scaling,
         )
         caught = self.caught
+        proposer = MockProposer(fn=self._default_value)
+        validator = MockValidator(ok=True)
+        if self.payload_bytes:
+            proposer = _PayloadProposer(self, self._default_value)
+            validator = _PayloadValidator(self)
+        certifier = None
+        if self.certificates_on:
+            from hyperdrive_tpu_torch.certificates import Certifier
+
+            # Bind the batch verifier lazily: its last_transcript is the
+            # launch that verified this commit's quorum (b"" on the
+            # ladder and host paths).
+            certifier = Certifier(
+                list(self.signatories),
+                self.f,
+                transcript_source=lambda: getattr(
+                    self.batch_verifier, "last_transcript", b""
+                ),
+            )
+            self.certifiers.append(certifier)
         return Replica(
             ReplicaOptions(
                 max_capacity=capacity, external_flush=True, batch_ingest=True
@@ -417,8 +509,8 @@ class Simulation:
             self.signatories[i],
             list(self.signatories),
             timer,
-            MockProposer(fn=self._default_value),
-            MockValidator(ok=True),
+            proposer,
+            validator,
             CommitterCallback(on_commit=lambda h, v, i=i: self._on_commit(i, h, v)),
             CatcherCallbacks(
                 on_double_propose=lambda a, b, i=i: caught.append(("double_propose", i)),
@@ -429,6 +521,7 @@ class Simulation:
             BroadcasterCallbacks(
                 on_propose=bcast, on_prevote=bcast, on_precommit=bcast
             ),
+            certifier=certifier,
         )
 
     # -------------------------------------------------------------- running
@@ -444,6 +537,8 @@ class Simulation:
             self._gated_commits.append((i, height, value, self._spec_last_fut))
             return (0, None)
         self.commits[i][height] = value
+        if self.payload_bytes:
+            self._reconstruct_commit(i, height, value)
         if height >= self.target_height:
             self._pending_replicas.discard(i)
         return (0, None)
@@ -461,6 +556,86 @@ class Simulation:
             self.commits[i][height] = value
             if height >= self.target_height:
                 self._pending_replicas.discard(i)
+
+    # ---------------------------------------------------- payload (config 5)
+
+    def _payload_for_value(self, value: Value) -> bytes:
+        """The deterministic payload a value commits to: a SHA-256 stream
+        keyed by (seed, value), expanded to ``payload_bytes``."""
+        out = bytearray()
+        counter = 0
+        while len(out) < self.payload_bytes:
+            out += hashlib.sha256(
+                b"payload-%d-" % self.seed + value + counter.to_bytes(4, "little")
+            ).digest()
+            counter += 1
+        return bytes(out[: self.payload_bytes])
+
+    def _bundle_for_value(self, value: Value) -> bytes:
+        """The encoded (2f+1)-of-n share bundle for a value's payload.
+        Deterministic (tagged by the value), so every replica — proposer,
+        validator, re-proposer — derives the identical bundle; cached
+        because splitting is the expensive host-side step."""
+        bundle = self._bundle_cache.get(value)
+        if bundle is None:
+            from hyperdrive_tpu_torch.crypto import shamir as host_shamir
+
+            blocks = host_shamir.split_payload(
+                self._payload_for_value(value), self.k, self.n, tag=value
+            )
+            bundle = host_shamir.encode_share_bundle(blocks)
+            # Bounded FIFO: entries are dead once every replica passes the
+            # value's height.
+            while len(self._bundle_cache) >= 64:
+                self._bundle_cache.pop(next(iter(self._bundle_cache)))
+            self._bundle_cache[value] = bundle
+        return bundle
+
+    def _reconstruct_commit(self, i: int, height: Height, value: Value) -> None:
+        """Committer half of the payload path: pull the committed round's
+        bundle from replica i's propose log, reconstruct from k shares,
+        check the payload against the value's commitment."""
+        payload = (
+            self._recon_cache.get(value) if self.dedup_reconstruct else None
+        )
+        if payload is None:
+            from hyperdrive_tpu_torch.crypto import shamir as host_shamir
+
+            state = self.replicas[i].proc.state
+            # Only a propose that passed validation can be the committed
+            # one — an earlier-round tampered propose for the same value
+            # sits in the logs marked invalid and must not be picked.
+            propose = next(
+                (
+                    p
+                    for rnd, p in state.propose_logs.items()
+                    if p.value == value
+                    and p.payload
+                    and state.propose_is_valid.get(rnd)
+                ),
+                None,
+            )
+            if propose is None:  # committed without a payload-carrying propose
+                return
+            blocks = host_shamir.decode_share_bundle(propose.payload)
+            # Any k of the n shares reconstruct; rotate the contributor set
+            # by height so different subsets (hence different Lagrange
+            # weight sets) are exercised across the run.
+            start = height % self.n
+            picked = [(start + j) % self.n for j in range(self.k)]
+            subset = [[shares[x] for x in picked] for shares in blocks]
+            t0 = time.perf_counter()
+            payload = self.reconstructor.reconstruct_payload_shares(subset)
+            self.reconstruct_latency.append(time.perf_counter() - t0)
+            if payload != self._payload_for_value(value):
+                raise AssertionError(
+                    f"reconstructed payload mismatch at height {height}"
+                )
+            if self.dedup_reconstruct:
+                while len(self._recon_cache) >= 64:
+                    self._recon_cache.pop(next(iter(self._recon_cache)))
+                self._recon_cache[value] = payload
+        self.reconstructed[i][height] = payload
 
     def _completed(self) -> bool:
         return not self._pending_replicas
@@ -523,6 +698,10 @@ class Simulation:
             heights=[r.current_height() for r in self.replicas],
             commits=self.commits,
             alive=self.alive,
+            cert_digests=(
+                [c.chain_digest() for c in self.certifiers]
+                if self.certifiers else None
+            ),
         )
 
     def _prune_clock(self) -> None:
@@ -1240,3 +1419,38 @@ class Simulation:
         self._cascade(plans, counts, {i: h for i, _ in windows}, tmaps,
                       l28_slot, l28_vals)
         return True
+
+
+class _PayloadProposer:
+    """Proposer for the MPC payload path: values as usual, with the
+    value-keyed share bundle attached via the Process's duck-typed
+    ``payload_for_value`` hook (so re-proposed ValidValues re-derive their
+    original bundle)."""
+
+    __slots__ = ("_sim", "_fn")
+
+    def __init__(self, sim: "Simulation", fn):
+        self._sim = sim
+        self._fn = fn
+
+    def propose(self, height, round_):
+        return self._fn(height, round_)
+
+    def payload_for_value(self, value):
+        return self._sim._bundle_for_value(value)
+
+
+class _PayloadValidator:
+    """Accepts a proposal iff its payload is exactly the share bundle its
+    value commits to (the Process's duck-typed ``valid_propose`` hook)."""
+
+    __slots__ = ("_sim",)
+
+    def __init__(self, sim: "Simulation"):
+        self._sim = sim
+
+    def valid(self, height, round_, value):
+        return True
+
+    def valid_propose(self, propose):
+        return propose.payload == self._sim._bundle_for_value(propose.value)

@@ -29,9 +29,11 @@ Removed: the tracer, logger, metrics recorder (``obs``) and sanitizer
 hooks (``utils.trace``, ``utils.log``, ``obs.recorder``,
 ``analysis.sanitizer``, ``@hot_path``) and the committer/catcher wrappers
 that only fed them; the epoch stale-key filter and the admission gate
-(neither exists in this package yet). Not ported yet, and refused with
-``NotImplementedError``: the columnar settle path
-(``dispatch_window_cols``) and certificates.
+(neither exists in this package yet). A ``certifier``
+(:class:`~hyperdrive_tpu_torch.certificates.Certifier`) goes to the
+Process, which mints a certificate at every commit. Not ported yet, and
+refused with ``NotImplementedError``: the columnar settle path
+(``dispatch_window_cols``).
 """
 
 from __future__ import annotations
@@ -159,8 +161,6 @@ class Replica:
         recorder=None,
         certifier=None,
     ):
-        if certifier is not None:
-            raise NotImplementedError(f"certificates are {_LATER}")
         f = len(signatories) // 3
         self.opts = opts
         self.proc = Process(
@@ -172,6 +172,7 @@ class Replica:
             validator=validator,
             broadcaster=broadcaster,
             committer=committer,
+            certifier=certifier,
             catcher=catcher,
             height=opts.starting_height,
         )

@@ -41,8 +41,13 @@ metrics recorder (``obs``), the ``@async_scope`` and ``device_fetch``
 analysis hooks, and the sanitizer's default ``tally_check``
 (``analysis.sanitizer.maybe_tally_check``). Refused with
 ``NotImplementedError``: :meth:`~DeviceTallyFlusher.settle_block` (the
-columnar path), :meth:`~DeviceTallyFlusher.rotate_validators` (epochs)
-and ``certifier=`` (certificates).
+columnar path) and :meth:`~DeviceTallyFlusher.rotate_validators`
+(epochs).
+
+A ``certifier`` (:class:`~hyperdrive_tpu_torch.certificates.Certifier`,
+shared with the replica's Process) is bound to the verifier's
+``last_transcript`` when it has no transcript source, re-verifies every
+certificate a settle minted, and is reset with the flusher.
 """
 
 from __future__ import annotations
@@ -78,9 +83,17 @@ class DeviceTallyFlusher:
                  buckets: tuple = (256, 1024, 4096), tally_check=None,
                  pipeline_split: int = 512, queue=None, certifier=None,
                  device=None):
-        if certifier is not None:
-            raise NotImplementedError(f"certificates are {_LATER}")
         self.verifier = verifier
+        #: Optional Certifier shared with the replica's Process: the
+        #: settle path re-verifies each newly minted certificate in O(1)
+        #: (binding + quorum weight). One with no transcript source is
+        #: bound to this flusher's verifier, so certificates commit to the
+        #: batch launch that established their quorum.
+        self.certifier = certifier
+        if certifier is not None and certifier.transcript_source is None:
+            certifier.transcript_source = lambda: getattr(
+                self.verifier, "last_transcript", b""
+            )
         if device is None:
             device = getattr(verifier, "device", None)
         self.grid = VoteGrid(
@@ -156,6 +169,8 @@ class DeviceTallyFlusher:
         self._inflight.clear()
         self._height = None
         self._dirty = set()
+        if self.certifier is not None:
+            self.certifier.reset()
 
     def rotate_validators(self, validators, generation=None) -> None:
         raise NotImplementedError(f"epoch rotation of the grid is {_LATER}")
@@ -337,4 +352,13 @@ class DeviceTallyFlusher:
         )
         if self.tally_check is not None:
             view = self.tally_check(view, proc)
+        h_before = proc.current_height
         replica.ingest_cascade_window(plan, view)
+        if self.certifier is not None:
+            # Any height the cascade just committed minted a certificate
+            # (Process L49); re-check each here in O(1), so a broken
+            # emission seam fails the settle that produced it.
+            for ch in range(h_before, proc.current_height):
+                cert = self.certifier.certificate_for(ch)
+                if cert is not None:
+                    self.certifier.verify(cert)

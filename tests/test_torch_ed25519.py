@@ -240,6 +240,9 @@ def test_wrapper_checks_inputs_and_refuses_rlc():
         ed25519_cuda.verify(z20, z20, z20, z20, z20, z64, z64[:4])
     with pytest.raises(ValueError):
         ed25519_cuda.verify(z20.t().contiguous().t(), z20, z20, z20, z20, z64, z64)
-    with pytest.raises(NotImplementedError):
-        ted.TorchBatchVerifier(device="cpu", rlc=True)
-    assert ted.TorchBatchVerifier(device="cpu").rlc is False
+    # The RLC path is ported: rlc=True builds; a value that is neither
+    # "auto" nor a bool is refused.
+    assert ted.TorchBatchVerifier(device="cpu", rlc=True).rlc is True
+    with pytest.raises(ValueError):
+        ted.TorchBatchVerifier(device="cpu", rlc="on")
+    assert ted.TorchBatchVerifier(device="cpu", rlc=False).rlc is False

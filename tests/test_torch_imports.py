@@ -42,7 +42,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     assert len(out["names"]) >= 15
     for name in ("native", "devsched", "devsched.queue", "devsched.policy",
                  "transport", "tallyflush", "devsched.flusher", "utils.checkpoint",
-                 "harness.deploy"):
+                 "harness.deploy", "crypto.shamir", "ops.shamir", "ops.msm",
+                 "certificates"):
         assert f"hyperdrive_tpu_torch.{name}" in out["names"]
     assert out["bad"] == []
     assert out["built"] is False

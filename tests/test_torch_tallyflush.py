@@ -32,6 +32,7 @@ from hyperdrive_tpu.utils.checkpoint import checkpoint_bytes as ref_checkpoint_b
 from hyperdrive_tpu.verifier import HostVerifier as RefHostVerifier
 from hyperdrive_tpu.verifier import NullVerifier as RefNullVerifier
 from hyperdrive_tpu_torch import messages
+from hyperdrive_tpu_torch.certificates import Certifier
 from hyperdrive_tpu_torch.crypto.keys import KeyRing
 from hyperdrive_tpu_torch.devsched import DeviceWorkQueue, FifoDrainPolicy, QueueFlusher
 from hyperdrive_tpu_torch.ops.ed25519_wire import TorchWireVerifier, ValidatorTable
@@ -88,7 +89,7 @@ class _Run:
     """One replica of one package behind a flusher, with every launch's
     checked TallyView kept."""
 
-    def __init__(self, pkg, verifier=None, sigs=SIGS, **flusher_kw):
+    def __init__(self, pkg, verifier=None, sigs=SIGS, certifier=None, **flusher_kw):
         self.pkg = pkg
         self.views = []
         self.commits: dict = {}
@@ -100,7 +101,7 @@ class _Run:
 
         self.verifier = pkg["Null"]() if verifier is None else verifier
         self.fl = pkg["Flusher"](self.verifier, list(sigs), tally_check=check,
-                                 **pkg["flusher_kw"], **flusher_kw)
+                                 certifier=certifier, **pkg["flusher_kw"], **flusher_kw)
         lb = _Loopback()
         self.rep = pkg["Replica"](
             pkg["Options"](), whoami=sigs[0], signatories=list(sigs),
@@ -109,6 +110,7 @@ class _Run:
             committer=pkg["Committer"](
                 on_commit=lambda h, v: (self.commits.__setitem__(h, v), (0, None))[1]),
             catcher=None, broadcaster=lb, verifier=None, flusher=self.fl,
+            certifier=certifier,
         )
         lb.rep = self.rep
 
@@ -372,9 +374,14 @@ def test_unported_flusher_features_refuse():
         fl.settle_block(None, None)
     with pytest.raises(NotImplementedError):
         fl.rotate_validators(SIGS)
+    # Certificates are ported: a Certifier binds to the flusher and rides
+    # the Replica's Process; its BLS keyring and aggregates are not.
+    certifier = Certifier(SIGS, 1)
+    assert DeviceTallyFlusher(NullVerifier(), SIGS, device="cpu",
+                              certifier=certifier).certifier is certifier
+    rep = Replica(ReplicaOptions(), whoami=SIGS[0], signatories=SIGS, timer=None,
+                  proposer=None, validator=None, committer=None, catcher=None,
+                  broadcaster=None, certifier=certifier)
+    assert rep.proc.certifier is certifier
     with pytest.raises(NotImplementedError):
-        DeviceTallyFlusher(NullVerifier(), SIGS, device="cpu", certifier=object())
-    with pytest.raises(NotImplementedError):
-        Replica(ReplicaOptions(), whoami=SIGS[0], signatories=SIGS, timer=None,
-                proposer=None, validator=None, committer=None, catcher=None,
-                broadcaster=None, certifier=object())
+        Certifier(SIGS, 1, bls_keyring={})
