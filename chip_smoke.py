@@ -130,9 +130,25 @@ Phases, each printing its lines:
    ``215413db54656240`` in 656,640 steps, chain digests equal across
    replicas and to a host run's, every certificate re-verified and
    round-tripped through its codec, the RLC run's checks, fallbacks and
-   wall; lines ``certs``.
+   wall; lines ``certs``;
+12. the execution layer (``exec/``, ``ops/ledger.py``, ``ops/merkle.py``,
+   PyTorch ops, no hand-written kernel) at the JAX package's documented
+   sizes: one Merkleized apply step at 65,536 accounts and 16,384
+   (incremental tree update) and 65,536 txs (full rebuild), every output
+   equal to the host executor's, ms (CUDA events), CUDA kernels a call and
+   the bound by bytes (``programs: exec``); leg A, the n = 256 network
+   sequential with a ``DeviceLedgerExecutor`` a replica (65,536 accounts,
+   16,384-tx blocks, three heights), every replica's commit record equal
+   to the value and the host executor's root, heights/s, apply and
+   block-synthesis shares; leg B, pipelined, speculative and signed (4,096
+   accounts, 1,024 txs a block, every 7th signature forged, five
+   heights), fused on the card, fused with the host executor and
+   two-kind on the card: rollbacks, no discarded root committed, commits
+   equal across the three and the JAX package's digest, fewer
+   ``ed25519_verify`` launches fused, and the blocks' signature rows
+   verified by ``ed25519_verify``; lines ``exec``.
 
-Each path of phases 5, 6, 10 and 11 is driven with the kernel counts set
+Each path of phases 5, 6, 10, 11 and 12 is driven with the kernel counts set
 to 0 just before it and read just after.
 
 The line before the last is the kernel table as JSON; the last line is
@@ -1688,6 +1704,307 @@ def phase_certs() -> None:
               f"settle_passes={sim.settle_passes} digest={digest[:16]}", flush=True)
 
 
+# ------------------------------------------------------ the execution layer
+
+#: The JAX package's documented execution deployments, not cut. 65,536
+#: accounts: the README "Trustless reads" ledger and the largest of
+#: ``benches/proof_bench.py``'s sizes; blocks of 16,384 and 65,536 txs: the
+#: smallest and largest of ``benches/exec_bench.py`` ``E2E_SIZES`` (:78),
+#: with that bench's stake lane and amount cap.
+EXEC_ACCOUNTS = 65_536
+EXEC_PROBE_TXS = (16_384, 65_536)
+EXEC_LEG_A = dict(accounts=EXEC_ACCOUNTS, txs_per_block=16_384, stake_every=4,
+                  amount_cap=64)
+EXEC_A_HEIGHTS = 3
+#: Leg B: ``benches/exec_bench.py``'s apply ledger (4,096 accounts, :87),
+#: signed, every 7th signature forged.
+EXEC_LEG_B = dict(accounts=4096, txs_per_block=1024, stake_every=4, sign_txs=True,
+                  bad_sig_every=7)
+EXEC_B_HEIGHTS = 5
+#: Leg B's commit digest as the JAX package's Simulation gives it for the
+#: same call with its host verifier, fused and two-kind alike.
+EXEC_B_DIGEST = "d9ddcebeaffe5645"
+
+
+def exec_step_bytes(accounts: int, txs: int, branch: str) -> int:
+    """Bytes one Merkleized apply step must move: the two int32 state
+    arrays read and written, the [5, T] int32 columns read, and the tree
+    levels at 4 B a uint32 word, written, and read too on the incremental
+    branch (a full rebuild only writes them). The mix matrix is a
+    splitmix function of the word index, which a kernel computes in
+    registers: no bytes."""
+    from hyperdrive_tpu_torch.ops import merkle
+
+    nodes = 2 * merkle.leaf_count(accounts) - 1
+    tree = nodes * merkle.NODE_WORDS * 4
+    return (2 * 2 * accounts * 4 + 5 * txs * 4
+            + (2 if branch == "incremental" else 1) * tree)
+
+
+def phase_exec_probe() -> None:
+    """One Merkleized apply step (``apply_block_chain_merkle_cols_torch``)
+    on the card at 65,536 accounts for each probe block size, from the
+    genesis ledger: every output (state, applied count, root, digest, every
+    tree level) equal to the host reference executor stepping the same
+    block; ms (CUDA events, best of five), CUDA kernels a call, the bound
+    by bytes and its share."""
+    from hyperdrive_tpu_torch.exec import ExecutionConfig
+    from hyperdrive_tpu_torch.exec.ledger import HostLedgerExecutor
+    from hyperdrive_tpu_torch.ops import ledger
+    from hyperdrive_tpu_torch.ops.rootmix import root_words
+
+    dev = torch.device("cuda")
+    for txs in EXEC_PROBE_TXS:
+        cfg = ExecutionConfig(**dict(EXEC_LEG_A, txs_per_block=txs,
+                                     stake_accounts=N_VALIDATORS))
+        host = HostLedgerExecutor(cfg)
+        state = (np.array(host.balances, np.int32), np.array(host.stakes, np.int32))
+        tree, root = [lvl.copy() for lvl in host._tree], host._root_words.copy()
+        cols = ledger.pack_block_cols(*host.source.block(1)._np)
+        host.advance_to(1)
+        args = ledger.from_reference(*state, root, tree, cols, device=dev)
+        mix = ledger.mix_tensor(4 * cfg.accounts, dev)
+        fn = lambda: ledger.apply_block_chain_merkle_cols_torch(  # noqa: E731
+            *args[:4], 1, args[4], mix)
+        bal, stk, count, new_root, digest, new_tree = fn()
+        want_tree = [lvl.astype(np.int64) for lvl in host._tree]
+        if not (np.array_equal(bal.cpu().numpy(), host.balances)
+                and np.array_equal(stk.cpu().numpy(), host.stakes)
+                and int(count) == host.applied_total
+                and np.array_equal(new_root.cpu().numpy(), root_words(host.roots[1]))
+                and np.array_equal(digest.cpu().numpy(), host._last_digest)
+                and len(new_tree) == len(want_tree)
+                and all(np.array_equal(g.cpu().numpy(), w)
+                        for g, w in zip(new_tree, want_tree))):
+            raise AssertionError(f"exec probe txs={txs}: the card's step differs from "
+                                 f"the host executor")
+        branch = "full" if 2 * cols.shape[1] >= len(tree[0]) else "incremental"
+        ms = min(time_ms(fn, 1, warm=False) for _ in range(5))
+        kern = _kernels_per_call(fn)
+        b_ms = exec_step_bytes(cfg.accounts, cols.shape[1], branch) / HBM_BYTES_PER_S * 1e3
+        print(f"programs: exec apply+merkle accounts={cfg.accounts} txs={txs} "
+              f"branch={branch} applied={host.applied_total} equal_host=True ms={ms:.4f} "
+              f"cuda_kernels_per_call={kern} bound_ms={b_ms:.6f} bound_by=bytes "
+              f"bound_share={b_ms / ms:.5f}", flush=True)
+
+
+class _ExecClock:
+    """Seconds spent in the executors' ``advance_to``, ``speculate`` and
+    ``resolve`` (apply, digest, tree, fold, rollback and the window's host
+    copy, block synthesis included), in ``BlockSource.block``
+    (synthesis) and in ``BlockSource.sig_items`` (signing the block's
+    transactions), outermost calls only; and, per
+    verify launcher launch, or (in a sequential run) per batch-verifier
+    call, that carries a block's signature rows, the ``ed25519_verify``
+    launches it made. Installed for one run."""
+
+    def __init__(self):
+        from hyperdrive_tpu_torch.devsched.queue import VerifyLauncher
+        from hyperdrive_tpu_torch.exec.ledger import BlockSource, HostLedgerExecutor
+        from hyperdrive_tpu_torch.ops import ed25519_cuda
+        from hyperdrive_tpu_torch.ops.ed25519 import TorchBatchVerifier
+
+        self.spent: dict = {}
+        self.exec_rows = self.exec_launches = self.exec_kernels = 0
+        self._lists: dict = {}
+        depth: dict = {}
+        in_launch = [0]
+        sig_items = BlockSource.sig_items
+
+        def register(src, blk):
+            items = sig_items(src, blk)
+            self._lists[id(items)] = items
+            return items
+
+        launch = VerifyLauncher.launch
+
+        def count(rows, before):
+            if rows:
+                self.exec_rows += rows
+                self.exec_launches += 1
+                self.exec_kernels += ed25519_cuda.stats["ed25519_verify"].launches - before
+
+        def counted(launcher, payloads):
+            before = ed25519_cuda.stats["ed25519_verify"].launches
+            in_launch[0] += 1
+            try:
+                out = launch(launcher, payloads)
+            finally:
+                in_launch[0] -= 1
+            count(sum(len(p) for p in payloads if id(p) in self._lists), before)
+            return out
+
+        verify = TorchBatchVerifier.verify_signatures
+
+        def verified(verifier, items):
+            before = ed25519_cuda.stats["ed25519_verify"].launches
+            out = verify(verifier, items)
+            if not in_launch[0] and id(items) in self._lists:
+                count(len(items), before)
+            return out
+
+        # The executors' entry points (DeviceLedgerExecutor inherits them).
+        entry = ("advance_to", "speculate", "resolve")
+        self._saved = [(cls, name, getattr(cls, name)) for cls, name in (
+            *((HostLedgerExecutor, e) for e in entry), (BlockSource, "block"),
+            (BlockSource, "sig_items"), (VerifyLauncher, "launch"),
+            (TorchBatchVerifier, "verify_signatures"))]
+        for name in entry:
+            setattr(HostLedgerExecutor, name, _timed(
+                self.spent, depth, "exec", getattr(HostLedgerExecutor, name)))
+        BlockSource.block = _timed(self.spent, depth, "synth", BlockSource.block)
+        BlockSource.sig_items = _timed(self.spent, depth, "txsign", register)
+        VerifyLauncher.launch = counted
+        TorchBatchVerifier.verify_signatures = verified
+
+    def close(self) -> None:
+        for cls, name, fn in self._saved:
+            setattr(cls, name, fn)
+
+
+def _exec_run(label: str, **kw):
+    """One n = 256 network with the execution layer on the card, timed and
+    counted by an :class:`_ExecClock`; ``_sim_run`` checks safety and that
+    no kernel but ``ed25519_verify`` launched."""
+    clock = _ExecClock()
+    try:
+        sim, res, wall, launches = _sim_run(n=N_VALIDATORS, seed=1, sign=True,
+                                            burst=True, device="cuda", **kw)
+    finally:
+        clock.close()
+    if not res.completed:
+        raise AssertionError(f"exec {label}: stalled at {res.heights}")
+    return sim, res, wall, launches, clock
+
+
+def phase_exec() -> None:
+    """The execution layer on the card: the apply probe; leg A (sequential,
+    a device executor a replica, 65,536 accounts, 16,384-tx blocks), every
+    replica's commit record the value and the host executor's root; leg B
+    (pipelined, speculative, signed: fused on the card, fused with the host
+    executor, two-kind on the card), with rollbacks, no discarded root
+    committed, equal commits, fewer verify launches fused, and
+    ``ed25519_verify`` launched on the blocks' signature rows; leg C (leg
+    B's signed blocks, sequential, a device executor a replica), the
+    commits leg B's and each block verified once by ``ed25519_verify``,
+    none by an executor; and a card executor without a height's
+    signature verdicts refusing to verify them on the host."""
+    from hyperdrive_tpu_torch.exec import ExecutionConfig
+    from hyperdrive_tpu_torch.exec.device import DeviceLedgerExecutor
+    from hyperdrive_tpu_torch.exec.ledger import HostLedgerExecutor
+
+    print(card_line(), flush=True)
+    phase_exec_probe()
+
+    cfg = ExecutionConfig(device=True, **EXEC_LEG_A)
+    sim, res, wall, launches, clock = _exec_run(
+        "A", target_height=EXEC_A_HEIGHTS, dedup_verify=True, execution=cfg,
+        dedup_exec=False)
+    host = HostLedgerExecutor(sim._execution)
+    roots = {h: host.advance_to(h) for h in range(1, EXEC_A_HEIGHTS + 1)}
+    if not (len(sim._exec_unique) == N_VALIDATORS
+            and all(isinstance(ex, DeviceLedgerExecutor) for ex in sim._exec_unique)):
+        raise AssertionError("exec A: not one device executor a replica")
+    for i, commits in enumerate(res.commits):
+        for h in range(1, EXEC_A_HEIGHTS + 1):
+            v = commits.get(h)
+            if v is None or len(v) != 64 or v[32:] != roots[h]:
+                raise AssertionError(f"exec A: replica {i} height {h}: record is not "
+                                     f"the value and the host executor's root")
+    if launches < sim.vote_settles:
+        raise AssertionError(f"exec A: {launches} ed25519_verify launches for "
+                             f"{sim.vote_settles} vote settles")
+    synth = clock.spent.get("synth", 0.0)
+    apply_s = clock.spent["exec"] - synth
+    print(f"exec A sequential: n={N_VALIDATORS} accounts={cfg.accounts} "
+          f"txs_per_block={cfg.txs_per_block} heights={EXEC_A_HEIGHTS} "
+          f"executors={len(sim._exec_unique)} applies={N_VALIDATORS * EXEC_A_HEIGHTS} "
+          f"steps={res.steps} wall_s={wall:.2f} "
+          f"heights_per_s={EXEC_A_HEIGHTS / wall:.3f} apply_share={apply_s / wall:.3f} "
+          f"synthesis_share={synth / wall:.4f} ed25519_verify_launches={launches} "
+          f"roots_equal_host=True digest={res.commit_digest(up_to=EXEC_A_HEIGHTS)[:16]}",
+          flush=True)
+
+    runs = {}
+    for label, device, fused in (("device+fused", True, True), ("host+fused", False, True),
+                                 ("device+two_kind", True, False)):
+        cfg = ExecutionConfig(device=device, **EXEC_LEG_B)
+        sim, res, wall, launches, clock = _exec_run(
+            label, target_height=EXEC_B_HEIGHTS, pipeline_heights=True, execution=cfg,
+            fused_exec_drain=fused)
+        ex = sim._exec_unique[0]
+        committed = {v[32:] for c in res.commits for v in c.values()}
+        if not (ex.spec_rolled_back > 0 and ex.discarded_roots
+                and not ex.discarded_roots & committed):
+            raise AssertionError(f"exec B {label}: rollbacks={ex.spec_rolled_back}, "
+                                 f"or a discarded root was committed")
+        if not (clock.exec_launches and clock.exec_kernels):
+            raise AssertionError(f"exec B {label}: no ed25519_verify launch on the "
+                                 f"blocks' signature rows")
+        runs[label] = (res.commits, launches)
+        print(f"exec B {label}: n={N_VALIDATORS} accounts={cfg.accounts} "
+              f"txs_per_block={cfg.txs_per_block} heights={EXEC_B_HEIGHTS} "
+              f"steps={res.steps} wall_s={wall:.2f} heights_per_s={EXEC_B_HEIGHTS / wall:.3f} "
+              f"apply_share={(clock.spent['exec'] - clock.spent['synth']) / wall:.3f} "
+              f"synthesis_share={clock.spent['synth'] / wall:.4f} "
+              f"tx_sign_share={clock.spent.get('txsign', 0.0) / wall:.3f} "
+              f"rolled_back={ex.spec_rolled_back} confirmed={ex.spec_confirmed} "
+              f"discarded_roots={len(ex.discarded_roots)} discarded_committed=0 "
+              f"queue_submitted={sim._sched.submitted} queue_launches={sim._sched.launches} "
+              f"ed25519_verify_launches={launches} exec_rows={clock.exec_rows} "
+              f"exec_row_launches={clock.exec_launches} "
+              f"exec_row_kernel_launches={clock.exec_kernels} "
+              f"digest={res.commit_digest(up_to=EXEC_B_HEIGHTS)[:16]}", flush=True)
+        if res.commit_digest(up_to=EXEC_B_HEIGHTS)[:16] != EXEC_B_DIGEST:
+            raise AssertionError(f"exec B {label}: digest differs from the JAX package's "
+                                 f"{EXEC_B_DIGEST}")
+    want = runs["device+fused"][0]
+    if any(r[0] != want for r in runs.values()):
+        raise AssertionError("exec B: commits differ across device/host or fused/two-kind")
+    if not runs["device+fused"][1] < runs["device+two_kind"][1]:
+        raise AssertionError(f"exec B: fused {runs['device+fused'][1]} verify launches, "
+                             f"two-kind {runs['device+two_kind'][1]}")
+    print(f"exec B: commits_equal=True fused_verify_launches={runs['device+fused'][1]} "
+          f"two_kind_verify_launches={runs['device+two_kind'][1]}", flush=True)
+
+    cfg = ExecutionConfig(device=True, **EXEC_LEG_B)
+    sim, res, wall, launches, clock = _exec_run(
+        "C", target_height=EXEC_A_HEIGHTS, dedup_verify=True, execution=cfg,
+        dedup_exec=False)
+    heights = range(1, EXEC_A_HEIGHTS + 1)
+    if any(c.get(h) != w[h] for c, w in zip(res.commits, want) for h in heights):
+        raise AssertionError("exec C: commits differ from leg B's")
+    if not (len(sim._exec_unique) == N_VALIDATORS
+            and all(isinstance(ex, DeviceLedgerExecutor) and ex._verifier is None
+                    for ex in sim._exec_unique)):
+        raise AssertionError("exec C: not one device executor a replica, or an "
+                             "executor verified a block itself")
+    if not (clock.exec_launches == EXEC_A_HEIGHTS
+            and clock.exec_rows == EXEC_A_HEIGHTS * cfg.txs_per_block
+            and clock.exec_kernels >= EXEC_A_HEIGHTS):
+        raise AssertionError(f"exec C: {clock.exec_launches} verifies of "
+                             f"{clock.exec_rows} block rows ({clock.exec_kernels} "
+                             f"ed25519_verify launches), not one a block on the card")
+    print(f"exec C sequential signed: n={N_VALIDATORS} accounts={cfg.accounts} "
+          f"txs_per_block={cfg.txs_per_block} heights={EXEC_A_HEIGHTS} "
+          f"executors={len(sim._exec_unique)} steps={res.steps} wall_s={wall:.2f} "
+          f"heights_per_s={EXEC_A_HEIGHTS / wall:.3f} "
+          f"apply_share={(clock.spent['exec'] - clock.spent['synth']) / wall:.3f} "
+          f"tx_sign_share={clock.spent.get('txsign', 0.0) / wall:.3f} "
+          f"ed25519_verify_launches={launches} exec_rows={clock.exec_rows} "
+          f"exec_row_verifies={clock.exec_launches} "
+          f"exec_row_kernel_launches={clock.exec_kernels} commits_equal_leg_B=True",
+          flush=True)
+    bare = DeviceLedgerExecutor(ExecutionConfig(**EXEC_LEG_B, stake_accounts=N_VALIDATORS))
+    try:
+        bare.advance_to(1)
+    except RuntimeError as e:
+        if "no admission mask" not in str(e):
+            raise
+    else:
+        raise AssertionError("exec: a card executor verified a signed block on the host")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs one card",
@@ -1728,6 +2045,8 @@ def main() -> int:
     mark("config5")
     phase_certs()
     mark("certs")
+    phase_exec()
+    mark("exec")
     print("phases_s: " + " ".join(f"{name}={t - marks[i][1]:.1f}"
                                   for i, (name, t) in enumerate(marks[1:]))
           + f" total={marks[-1][1] - marks[0][1]:.1f}", flush=True)

@@ -17,7 +17,10 @@ Dropped from the copy, as the port's conventions say: the ``drain_point``
 lint marker, the recorder (``obs``), the metrics sink (``tracer``), the
 launch probe (``devtel``) and the backpressure controller seam. The
 futures' ``seq`` and ``launch_id`` attribution fields went with the
-probe.
+probe. Added: ``submit(callback=)``, which attaches a done-callback
+before the ``max_depth`` auto-drain can resolve the command (the
+execution layer's speculation resolves there, see
+:meth:`DeviceWorkQueue.submit`).
 """
 
 from __future__ import annotations
@@ -223,16 +226,22 @@ class DeviceWorkQueue:
             self._launchers[key] = got
         return got
 
-    def submit(self, launcher, payload, origin=None, rows=None) -> DeviceFuture:
+    def submit(self, launcher, payload, origin=None, rows=None,
+               callback=None) -> DeviceFuture:
         """Enqueue one command; returns its future. Auto-drains when
         ``max_depth`` is reached (including the command just submitted),
         so a pipeline slot never grows unbounded.
 
         ``origin`` / ``rows`` (the submitting track and the command's lane
-        count, default ``len(payload)``) feed the drain policy only."""
+        count, default ``len(payload)``) feed the drain policy only.
+        ``callback`` is attached to the future before that auto-drain: a
+        callback attached to the returned future runs only after the
+        drain's ``on_drain`` hook, which may depend on it having run."""
         if self._closed:
             raise RuntimeError("queue is closed")
         fut = DeviceFuture(self)
+        if callback is not None:
+            fut.add_done_callback(callback)
         meta = None
         if self.policy is not None:
             if rows is None:

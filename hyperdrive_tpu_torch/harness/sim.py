@@ -42,6 +42,19 @@ speculation; a verdict that differs raises
 :class:`~hyperdrive_tpu_torch.devsched.SpeculationMismatch`. The queue is
 ``Simulation._sched``.
 
+With ``execution=ExecutionConfig(...)`` every height carries a
+deterministic transaction block (:mod:`hyperdrive_tpu_torch.exec`):
+proposers propose its value, validators accept only that value, and
+every commit record is the value extended with the 32-byte chained state
+root of the replica's executor (``DeviceLedgerExecutor`` on ``device``
+when ``config.device``, else the host reference executor). With
+``sign_txs`` the block's signatures ride the device-work queue, fused
+into the vote launch (``fused_exec_drain``) or as a launch of their own
+(``ExecApplyLauncher``); a sequential run verifies each block once
+through the batch verifier at its first commit. ``exec_speculate``
+applies each height at propose time under a guessed mask and rolls back
+on a mismatch; ``dedup_exec`` shares one executor across the replicas.
+
 With ``payload_bytes > 0`` (BASELINE config 5) every proposed value
 carries a (2f+1)-of-n Shamir share bundle of a payload derived from it,
 validators accept only that bundle, and every commit reconstructs the
@@ -60,8 +73,8 @@ Not ported (a later slice of the port), and refused: lock-step delivery
 (``burst=False``), per-delivery adversaries, kills, the sharded grid
 (``tally_mesh``), an injected queue (``devsched=``) and per-replica
 flushers, BLS certificates (``bls_certificates``), epochs, chaos, load,
-overlay, execution and the record/replay log
-(``SimulationResult.record`` is always None).
+overlay and the record/replay log (``SimulationResult.record`` is
+always None, so no execution trailer is recorded).
 The tracer, flight recorder, metrics registry and device telemetry are
 dropped (tracing returns in a later slice); the columnar
 window path (``columnar_ingest``) is replaced by the object path with
@@ -217,6 +230,13 @@ class Simulation:
     value once, not once per replica) and ``reconstructor``: the Shamir
     payload path (refused with ``pipeline_heights``). ``certificates``:
     a quorum certificate at every commit.
+
+    ``execution`` (an :class:`~hyperdrive_tpu_torch.exec.ExecutionConfig`)
+    puts a ledger behind every committed height; it resolves ``device``
+    (so it raises without CUDA unless ``device="cpu"``), and with
+    ``config.device`` the executors' tensors live there.
+    ``exec_speculate``, ``fused_exec_drain`` and ``dedup_exec`` default
+    to ``pipeline_heights``.
     """
 
     def __init__(
@@ -242,6 +262,10 @@ class Simulation:
         dedup_reconstruct: bool = True,
         reconstructor=None,
         certificates: bool = False,
+        execution=None,
+        exec_speculate: Optional[bool] = None,
+        fused_exec_drain: Optional[bool] = None,
+        dedup_exec: Optional[bool] = None,
         device="cuda",
         **unported,
     ):
@@ -400,6 +424,9 @@ class Simulation:
             self.reconstructed: list[dict[Height, bytes]] = [
                 dict() for _ in range(n)
             ]
+        self._init_execution(
+            execution, exec_speculate, fused_exec_drain, dedup_exec, device
+        )
         self.replicas: list[Replica] = [
             self._build_replica(i, timeout, timeout_scaling, max_capacity)
             for i in range(n)
@@ -487,6 +514,12 @@ class Simulation:
         if self.payload_bytes:
             proposer = _PayloadProposer(self, self._default_value)
             validator = _PayloadValidator(self)
+        if self._execution is not None:
+            # The proposed value commits to the height's deterministic tx
+            # block (round-independent: retries re-propose the same
+            # block), and honest validators accept ONLY that value.
+            proposer = MockProposer(fn=self._exec_value)
+            validator = MockValidator(fn=self._exec_valid)
         certifier = None
         if self.certificates_on:
             from hyperdrive_tpu_torch.certificates import Certifier
@@ -536,7 +569,9 @@ class Simulation:
             # any gated commit is finalized.
             self._gated_commits.append((i, height, value, self._spec_last_fut))
             return (0, None)
-        self.commits[i][height] = value
+        self.commits[i][height] = (
+            self._exec_extend(i, height, value) if self.executors else value
+        )
         if self.payload_bytes:
             self._reconstruct_commit(i, height, value)
         if height >= self.target_height:
@@ -550,12 +585,237 @@ class Simulation:
         self._spec_inflight = 0
         self._spec_rows = 0
         self._spec_last_fut = None
+        if self._exec_speculate:
+            # The drain just resolved every exec speculation it covered:
+            # confirm any still-open exact windows so the gated finalizes
+            # below read settled roots, then close the speculation epoch
+            # (the block cache may evict the window's columns from here
+            # on: rollbacks can no longer replay them).
+            for ex in self._exec_unique:
+                ex.confirm_to(ex.height)
+            self._exec_source.spec_epoch += 1
         gated = self._gated_commits
         self._gated_commits = []
         for i, height, value, _ in gated:
+            # The covering drain resolved the height's exec mask, so the
+            # executor can apply the block and extend the record.
+            if self.executors:
+                value = self._exec_extend(i, height, value)
             self.commits[i][height] = value
             if height >= self.target_height:
                 self._pending_replicas.discard(i)
+
+    # ---------------------------------------------------------- execution
+
+    def _init_execution(self, execution, exec_speculate, fused_exec_drain,
+                        dedup_exec, device) -> None:
+        """Execution-layer wiring: the block source, the executors (one,
+        shared, with ``dedup_exec``; else one per replica), speculation
+        and the exec launcher of a ``sign_txs`` run."""
+        self.executors: list = []
+        self._execution = None
+        self._exec_source = None
+        self._exec_masks: dict = {}
+        #: Heights whose exec work (speculation, signature rows) was
+        #: started at their first proposal.
+        self._exec_proposed: set = set()
+        self._exec_launcher = None
+        #: A sequential sign_txs run's block verifier (the sim's batch
+        #: verifier), and the last height whose mask it has filled.
+        self._exec_verifier = None
+        self._exec_masked_to = 0
+        #: Unique executor objects (dedup_exec aliases one across all
+        #: replicas) — the speculate/resolve fan-out target.
+        self._exec_unique: list = []
+        self._exec_spec_heights: set = set()
+        self._exec_speculate = False
+        self._exec_fused = False
+        if execution is None:
+            if exec_speculate or fused_exec_drain or dedup_exec:
+                raise ValueError(
+                    "exec_speculate/fused_exec_drain/dedup_exec require "
+                    "execution="
+                )
+            return
+        if self.payload_bytes:
+            raise ValueError(
+                "execution blocks and MPC payload bundles both define the "
+                "proposed value's content; run one content layer at a time"
+            )
+        import dataclasses
+
+        from hyperdrive_tpu_torch.exec.ledger import BlockSource, HostLedgerExecutor
+        from hyperdrive_tpu_torch.ops.merkle import resolve_device
+
+        # The execution layer is an entry point: on the card unless the
+        # caller asks for the CPU, whichever executor the config picks.
+        dev = resolve_device(device)
+        n = self.n
+        cfg = execution
+        if cfg.stake_accounts == 0 and cfg.stake_every > 0:
+            if cfg.accounts < n:
+                raise ValueError(
+                    f"execution.accounts={cfg.accounts} cannot host {n} "
+                    "validator stake accounts (accounts 0..n-1)"
+                )
+            cfg = dataclasses.replace(cfg, stake_accounts=n)
+        self._execution = cfg
+        self._exec_source = BlockSource(cfg)
+        kwargs = dict(source=self._exec_source, masks=self._exec_masks)
+        exec_cls = HostLedgerExecutor
+        if cfg.device:
+            from hyperdrive_tpu_torch.exec.device import DeviceLedgerExecutor
+
+            exec_cls = DeviceLedgerExecutor
+            kwargs["device"] = dev
+        #: Executor dedup (pipelined default): executors are pure
+        #: functions of the committed height sequence, so in a run where
+        #: every replica commits every height the n per-replica ledgers
+        #: are n identical recomputations — alias ONE executor across all
+        #: replicas and a height's block is applied once per network.
+        if dedup_exec is None:
+            dedup_exec = self._pipeline_heights
+        self._exec_unique = [
+            exec_cls(cfg, **kwargs) for _ in range(1 if dedup_exec else n)
+        ]
+        self.executors = (
+            self._exec_unique * n if dedup_exec else list(self._exec_unique)
+        )
+        #: Speculative execution: apply height h's block at PROPOSE time
+        #: under the well-formedness guess while its verify launch is in
+        #: flight; the exec future's resolution confirms or rolls back,
+        #: and commit finalize reads the already-settled root. Default: on
+        #: exactly when the run pipelines heights.
+        if exec_speculate is None:
+            exec_speculate = self._pipeline_heights
+        elif exec_speculate and self._sched is None:
+            raise ValueError(
+                "exec_speculate resolves speculation at queue drains — "
+                "pass pipeline_heights=True"
+            )
+        self._exec_speculate = bool(exec_speculate)
+        if cfg.sign_txs and self._sched is not None:
+            #: Fused drain: the block's tx-signature triples go through the
+            #: SAME memoized launcher that carries the vote verifies, so one
+            #: drain cycle issues ONE launch for votes + exec rows. The
+            #: two-kind path (ExecApplyLauncher, its own launch per drain)
+            #: is the comparison baseline.
+            if fused_exec_drain is None:
+                fused_exec_drain = self._pipeline_heights
+            self._exec_fused = bool(fused_exec_drain)
+            if self._exec_fused:
+                self._exec_launcher = self._sched.verify_launcher(
+                    self.batch_verifier
+                )
+            else:
+                from hyperdrive_tpu_torch.exec.ledger import ExecApplyLauncher
+
+                self._exec_launcher = ExecApplyLauncher(self.batch_verifier)
+        elif fused_exec_drain:
+            raise ValueError(
+                "fused_exec_drain requires sign_txs execution and a devsched "
+                "queue (pipeline_heights=True)"
+            )
+        if cfg.sign_txs and self._exec_launcher is None:
+            # Sequential sign_txs: each committed height's block is
+            # verified ONCE, through the batch verifier (on the card by
+            # default), before any executor applies it; the executors
+            # read the verdicts from ``_exec_masks``. (The reference
+            # leaves it to each executor's own host verifier: n
+            # verifications of every block on the CPU without dedup.)
+            self._exec_verifier = self.batch_verifier
+            if self._exec_verifier is None:
+                from hyperdrive_tpu_torch.ops.ed25519 import TorchBatchVerifier
+
+                self._exec_verifier = TorchBatchVerifier(device=dev)
+
+    def _exec_value(self, height: Height, round_: int) -> Value:
+        """Proposal value in execution mode: commits to the height's
+        deterministic tx block. The first proposal of a sign_txs height
+        also submits the block's signature triples through the device
+        queue (fused into the vote launcher or as an ``exec.apply``
+        command), resolving the admission mask into ``_exec_masks``.
+
+        With ``exec_speculate`` the height is also APPLIED here, under the
+        well-formedness guess, while that launch is in flight: the
+        future's resolution confirms the guess or rolls the executor back
+        and re-applies under the true mask, so by the time the covering
+        drain finalizes the gated commit the root is settled (a
+        rolled-back root can never reach a commit record)."""
+        if (
+            (self._exec_launcher is not None or self._exec_speculate)
+            and height not in self._exec_proposed
+        ):
+            self._exec_proposed.add(height)
+            items = guess = None
+            if self._execution.sign_txs:
+                blk = self._exec_source.block(height)
+                items = self._exec_source.sig_items(blk)
+                guess = [
+                    s is not None and len(s) == 64 and len(p) == 32
+                    for (p, _, s) in items
+                ]
+            # Heights past the target are proposed (the pipeline runs
+            # ahead) but never finalized — don't burn an apply on them.
+            if self._exec_speculate and height <= self.target_height:
+                self._exec_spec_heights.add(height)
+                for ex in self._exec_unique:
+                    ex.speculate(height, guess)
+            if items is not None and self._exec_launcher is not None:
+                if self._exec_fused:
+                    # Fused rows count toward the row-aware slot close
+                    # (_settle_speculative's would_spill check).
+                    self._spec_rows += len(items)
+                from hyperdrive_tpu_torch.exec.ledger import EXEC_ORIGIN
+
+                def _resolve(f, h=height):
+                    mask = [bool(b) for b in f.result()]
+                    self._exec_masks.setdefault(h, mask)
+                    if h in self._exec_spec_heights:
+                        for ex in self._exec_unique:
+                            ex.resolve(h, mask)
+
+                # The callback goes in with the command: if this submit
+                # auto-drains, _on_sched_drain confirms every window, and
+                # the height must be resolved by then. (The reference
+                # attaches it after submit returns, and then raises in
+                # confirm_to.)
+                self._sched.submit(
+                    self._exec_launcher, items,
+                    origin=EXEC_ORIGIN, rows=len(items), callback=_resolve,
+                )
+        return self._exec_source.value(height)
+
+    def _exec_valid(self, height: Height, round_: int, value: Value) -> bool:
+        return value == self._exec_source.value(height)
+
+    def _exec_extend(self, i: int, height: Height, value: Value) -> Value:
+        """The external commit record in execution mode: the agreed value
+        extended with replica ``i``'s chained state root after applying
+        every block up to ``height``. Votes and certificates keep the raw
+        32-byte value; the extension is what ``commits`` and
+        ``commit_digest`` cover, so two runs agree end to end only if
+        their ledgers do."""
+        if self._exec_verifier is not None:
+            self._verify_exec_blocks(height)
+        return value + self.executors[i].advance_to(height)
+
+    def _verify_exec_blocks(self, height: Height) -> None:
+        """Fill ``_exec_masks`` up to ``height`` in a sequential sign_txs
+        run: one batch-verifier call a block. The verifier's
+        ``last_transcript`` is kept as it was, since a certificate binds
+        the launch that verified its quorum, not a block's."""
+        bv = self._exec_verifier
+        while self._exec_masked_to < height:
+            h = self._exec_masked_to + 1
+            if h not in self._exec_masks:
+                items = self._exec_source.sig_items(self._exec_source.block(h))
+                transcript = getattr(bv, "last_transcript", None)
+                mask = bv.verify_signatures(items)
+                if transcript is not None:
+                    bv.last_transcript = transcript
+                self._exec_masks[h] = [bool(b) for b in mask]
+            self._exec_masked_to = h
 
     # ---------------------------------------------------- payload (config 5)
 

@@ -43,7 +43,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     for name in ("native", "devsched", "devsched.queue", "devsched.policy",
                  "transport", "tallyflush", "devsched.flusher", "utils.checkpoint",
                  "harness.deploy", "crypto.shamir", "ops.shamir", "ops.msm",
-                 "certificates"):
+                 "certificates", "ops.rootmix", "ops.merkle", "ops.ledger", "exec",
+                 "exec.ledger", "exec.device"):
         assert f"hyperdrive_tpu_torch.{name}" in out["names"]
     assert out["bad"] == []
     assert out["built"] is False
