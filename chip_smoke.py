@@ -5,14 +5,16 @@
 Phases, each printing its lines:
 
 1. card: the card's name and power limit as nvidia-smi prints them, then
-   the nvcc build of the kernel library (the three verify kernels and the
-   challenge kernel) from the sources in this checkout, with each kernel's
-   registers, stack and spills as ptxas reports them; then the g++ build
-   of the native host runtime (``hyperdrive_tpu_torch/native``: signer,
-   packers, host verifier) and its host times a signature, a packed item
-   and a host verification beside the pure-Python oracle's, on a line
-   that begins ``native: loaded`` (``HD_NO_NATIVE`` set, or a failed
-   build, is an error here, not a fallback);
+   the nvcc builds of the two kernel libraries (the three verify kernels
+   and the challenge kernel in one unit, ``g1_aggregate`` in another; both
+   nvcc calls started together) from the sources in this checkout, with
+   each kernel's registers, stack and spills as ptxas reports them; then
+   the g++ build of the native host runtime (``hyperdrive_tpu_torch/
+   native``: signer, packers, host verifier) and its host times a
+   signature, a packed item and a host verification beside the
+   pure-Python oracle's, on a line that begins ``native: loaded``
+   (``HD_NO_NATIVE`` set, or a failed build, is an error here, not a
+   fallback);
 2. kernels against their plain PyTorch versions on the card, mask for mask
    on every lane, on mixed lanes made from a fixed seed:
    - ``ed25519_verify`` (packed limbs) at the verifier's bucket sizes (64,
@@ -146,10 +148,33 @@ Phases, each printing its lines:
    two-kind on the card: rollbacks, no discarded root committed, commits
    equal across the three and the JAX package's digest, fewer
    ``ed25519_verify`` launches fused, and the blocks' signature rows
-   verified by ``ed25519_verify``; lines ``exec``.
+   verified by ``ed25519_verify``; lines ``exec``;
+13. BLS12-381 (``phase_bls``): ``fp381.mul`` (PyTorch ops) on 4,096 products
+   against Python ints; the ``g1_aggregate`` kernel (``csrc/g1_aggregate.cu``,
+   built in phase 1 beside the ed25519 library, one nvcc a unit, both
+   started together) against its plain version ``aggregate_kernel`` at the
+   JAX package's bench widths (256, 1,024 and 4,096 lanes, masks about
+   two-thirds set), on edge lanes (an all-masked committee, identity rows,
+   P and -P, P twice), at odd widths 5 and 255 and on a batched 8 x 256
+   call through ``G1SumLauncher`` (one launch), every coordinate equal
+   after ``canonical`` and every affine sum equal to the oracle's fold;
+   kernel ms (CUDA events), plain ms, host-fold s, the bound (multiply
+   instructions of a 12 x 32-bit field) and the plain version's CUDA
+   kernels a call; ``g1_msm_kernel`` (PyTorch ops, 8 lanes, 64 windows)
+   against the oracle; the n = 256 certificate minted on the kernel and
+   on the host fold (equal aggregates, the light-client check passing and
+   a forged height failing); then the certified sim (``Simulation(n=16,
+   target_height=5, seed=1, sign=True, burst=True, dedup_verify=True,
+   small_window_host=False, bls_certificates="device")``) on the card
+   against its host run with the host fold: digest, steps and chain
+   digests equal, ``g1_aggregate`` launched once a replica a commit and
+   no kernel but it and ``ed25519_verify``, one certificate a height
+   re-verified; heights/s and the aggregate's share of wall; lines
+   ``bls``, ``kernel g1_aggregate`` and ``programs: bls``, after the
+   card's name and power limit.
 
-Each path of phases 5, 6, 10, 11 and 12 is driven with the kernel counts set
-to 0 just before it and read just after.
+Each path of phases 5, 6, 10, 11, 12 and 13 is driven with the kernel counts
+set to 0 just before it and read just after.
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``. Any failed check raises, so the script
@@ -158,6 +183,7 @@ exits non-zero; without CUDA it exits non-zero before printing a result.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import os
@@ -207,6 +233,8 @@ KERNELS = {
     "ed25519_challenge": ("hyperdrive_tpu_torch/csrc/ed25519_challenge.cu",
                           "hyperdrive_tpu/ops/sha512_jax.py:146 (with :345, under "
                           "hyperdrive_tpu/ops/ed25519_wire.py:328)"),
+    "g1_aggregate": ("hyperdrive_tpu_torch/csrc/g1_aggregate.cu",
+                     "hyperdrive_tpu/ops/g1.py:182 (batched by :246)"),
 }
 
 
@@ -414,7 +442,7 @@ def ptxas_report(log: str) -> list:
     "Compiling entry function" line."""
     out = []
     for m in re.finditer(
-        r"Compiling entry function '[^']*?(hd_ed25519_\w+?_kernel)[^']*'.*?"
+        r"Compiling entry function '[^']*?(hd_\w+?_kernel)[^']*'.*?"
         r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads"
         r".*?Used (\d+) registers", log, re.S,
     ):
@@ -424,18 +452,32 @@ def ptxas_report(log: str) -> list:
 
 
 def phase_card():
-    from hyperdrive_tpu_torch.ops import ed25519_cuda
+    """Build every kernel library from the sources in this checkout, one
+    nvcc a unit, all started together, and print what ptxas reports."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from hyperdrive_tpu_torch.ops import ed25519_cuda, g1_cuda
 
     print(card_line(), flush=True)
+
+    def timed_build(mod):
+        t0 = time.perf_counter()
+        lib = mod.build(force=True)
+        return lib, time.perf_counter() - t0
+
     t0 = time.perf_counter()
-    lib = ed25519_cuda.build(force=True)
-    build_s = time.perf_counter() - t0
-    log = (lib.parent / "nvcc.log").read_text()
-    report = ptxas_report(log)
+    with ThreadPoolExecutor(2) as pool:
+        built = list(pool.map(timed_build, (ed25519_cuda, g1_cuda)))
+    wall = time.perf_counter() - t0
+    report = []
+    for lib, build_s in built:
+        entries = ptxas_report((lib.parent / "nvcc.log").read_text())
+        report += entries
+        print(f"build: nvcc {build_s:.2f} s for {lib.name} ({len(entries)} kernels, "
+              f"one unit)", flush=True)
     if len(report) != len(KERNELS):
-        raise AssertionError(f"expected {len(KERNELS)} kernels in the ptxas log, got {report}")
-    print(f"build: nvcc {build_s:.2f} s for {lib.name} ({len(KERNELS)} kernels, one unit)",
-          flush=True)
+        raise AssertionError(f"expected {len(KERNELS)} kernels in the ptxas logs, got {report}")
+    print(f"build: {len(built)} units in parallel, {wall:.2f} s wall", flush=True)
     for name, regs, stack, st, ld in report:
         print(f"ptxas: {name} registers={regs} stack_bytes={stack} "
               f"spill_stores={st} spill_loads={ld}", flush=True)
@@ -2005,6 +2047,305 @@ def phase_exec() -> None:
         raise AssertionError("exec: a card executor verified a signed block on the host")
 
 
+# ------------------------------------------------------------ BLS12-381
+
+#: Committee widths of the JAX package's BLS bench (``benches/bls_bench.py``
+#: ``AGG_SIZES``), its odd widths and its batched launcher shape.
+BLS_SIZES = (256, 1024, 4096)
+BLS_ODD = (5, 255)
+BLS_BATCH, BLS_BATCH_WIDTH = 8, 256
+BLS_PRODUCTS = 4096
+#: The certified sim: n = 16 (every certifier signs each counted partial in
+#: pure Python, ~12 ms a signature on one x86 CPU core, so n = 256 would
+#: take minutes a height); the n = 256 committee runs through Certifier
+#: directly.
+BLS_SIM = dict(n=16, target_height=5, seed=1, sign=True, burst=True, dedup_verify=True,
+               small_window_host=False)
+BLS_CERT_N = 256
+#: Multiply instructions of a product of a 12 x 32-bit word field (2 * 12^2
+#: for a * b, 2 * 12^2 for m * p, 12 for m), products a complete addition,
+#: bytes a lane in (three 30-limb int32 coordinates and the mask word) and
+#: a committee out.
+G1_IMAD_PER_PRODUCT = 2 * 12 * 12 * 2 + 12
+G1_PRODUCTS_PER_ADD = 12
+G1_LANE_BYTES, G1_OUT_BYTES = 3 * 30 * 4 + 4, 3 * 30 * 4
+
+
+def g1_bound_ms(selected, lanes: int, clock_mhz: float, sms: int):
+    """(bound ms, bound_by) of masked sums: k - 1 complete additions for a
+    committee with k selected lanes (what this run's masks need), each 12
+    products, at the cc 9.0 multiply rate; or each input lane read once and
+    each committee's sum written once, at the memory rate."""
+    n_ops = sum(max(int(k) - 1, 0) for k in selected) * G1_PRODUCTS_PER_ADD \
+        * G1_IMAD_PER_PRODUCT
+    ops = n_ops / (sms * IMAD_PER_SM_CLOCK * clock_mhz * 1e6)
+    byt = (lanes * G1_LANE_BYTES + len(selected) * G1_OUT_BYTES) / HBM_BYTES_PER_S
+    return (ops * 1e3, "operations") if ops >= byt else (byt * 1e3, "bytes")
+
+
+def derive_g1_points(n: int) -> list:
+    """n distinct G1 points by a doubling/adding chain from the generator
+    (``bls_bench._derive_points``)."""
+    from hyperdrive_tpu_torch.crypto import bls
+
+    pts, p = [], bls.G1_GEN
+    for i in range(n):
+        p = bls.g1_double(p) if i % 3 else bls.g1_add(p, bls.G1_GEN)
+        pts.append(p)
+    return pts
+
+
+def _g1_compare(label: str, points_rows, masks: np.ndarray, timed: bool = False):
+    """g1_aggregate against the plain aggregate_kernel on the card on one
+    [B, N] batch: every coordinate equal after canonical (and limb for
+    limb), every affine sum equal to the oracle's fold. Returns (max
+    difference after canonical, kernel ms, plain ms, affine sums)."""
+    from hyperdrive_tpu_torch.crypto import bls
+    from hyperdrive_tpu_torch.ops import fp381 as fp
+    from hyperdrive_tpu_torch.ops import g1
+
+    coords = [np.stack([g1.pack_points(r)[c] for r in points_rows]) for c in range(3)]
+    args = g1.from_reference(coords + [masks.astype(np.int32)], "cuda")
+    got = g1.g1_aggregate(*args)
+    p_ms = time_ms(lambda: g1.aggregate_kernel(*args), 1, warm=False, keep=(out := []))
+    want = out[0]
+    err = max(int((fp.canonical(a) - fp.canonical(b)).abs().max()) for a, b in zip(got, want))
+    limbs_equal = all(torch.equal(a, b) for a, b in zip(got, want))
+    sums = g1.unpack_points(got[0][:, 0], got[1][:, 0], got[2][:, 0])
+    folds = [bls.aggregate_signatures([p for p, m in zip(r, row) if m])
+             for r, row in zip(points_rows, masks)]
+    if err or sums != folds:
+        raise AssertionError(f"bls {label}: kernel != plain (max {err}) or != the oracle")
+    k_ms = time_ms(lambda: g1.g1_aggregate(*args), 5) if timed else None
+    return err, k_ms, p_ms, sums, limbs_equal
+
+
+def phase_bls(clock_mhz: float, sms: int):
+    """BLS12-381 on the card: fp381.mul against Python ints; the g1_aggregate
+    kernel against its plain version at the bench's widths, edge lanes, odd
+    widths and the batched launcher; g1_msm_kernel against the oracle; the
+    n = 256 certificate on the kernel and the host fold; the certified
+    n = 16 sim, its counts zeroed before it and read after. Returns the
+    kernel's rows by width and its launches on the sim."""
+    from hyperdrive_tpu_torch.certificates import (
+        Certifier, certificate_size, verify_bls_certificate,
+    )
+    from hyperdrive_tpu_torch.crypto import bls
+    from hyperdrive_tpu_torch.devsched.queue import DeviceWorkQueue
+    from hyperdrive_tpu_torch.harness import Simulation
+    from hyperdrive_tpu_torch.ops import ed25519_cuda, g1, g1_cuda
+    from hyperdrive_tpu_torch.ops import fp381 as fp
+    from hyperdrive_tpu_torch.ops.ed25519 import TorchBatchVerifier
+    from hyperdrive_tpu_torch.verifier import HostVerifier
+
+    print(f"bls card: {card_line()}", flush=True)
+    rng = np.random.default_rng(SEED + 13)
+
+    # 1. The field product against Python ints.
+    xs = [int.from_bytes(rng.bytes(48), "little") % fp.P_INT for _ in range(BLS_PRODUCTS)]
+    ys = [int.from_bytes(rng.bytes(48), "little") % fp.P_INT for _ in range(BLS_PRODUCTS)]
+    a, b = (fp.from_reference(fp.to_mont(v), "cuda") for v in (xs, ys))
+    prod = fp.mul(a, b)
+    if fp.from_mont(prod) != [x * y % fp.P_INT for x, y in zip(xs, ys)]:
+        raise AssertionError("bls: fp381.mul on the card != Python ints")
+    if not torch.equal(prod.cpu(), fp.mul(a.cpu(), b.cpu())):
+        raise AssertionError("bls: fp381.mul on the card != on the CPU, limb for limb")
+    mul_ms = time_ms(lambda: fp.mul(a, b), 5)
+    mul_bound = BLS_PRODUCTS * G1_IMAD_PER_PRODUCT / (sms * IMAD_PER_SM_CLOCK * clock_mhz * 1e3)
+    print(f"programs: bls fp381.mul products={BLS_PRODUCTS} equals_python_ints=True "
+          f"limbs_equal_cpu=True ms={mul_ms:.4f} bound_ms={mul_bound:.6f} "
+          f"bound_by=operations bound_share={mul_bound / mul_ms:.6f} "
+          f"cuda_kernels_per_call={_kernels_per_call(lambda: fp.mul(a, b))}", flush=True)
+
+    # 2-3. The kernel against its plain version, with times and bounds.
+    pts = derive_g1_points(max(*BLS_SIZES, BLS_BATCH * BLS_BATCH_WIDTH))
+    rows, worst = {}, 0
+    for width in BLS_SIZES:
+        mask = (rng.random((1, width)) < 2 / 3).astype(np.int32)
+        err, k_ms, p_ms, _, same = _g1_compare(f"{width} lanes", [pts[:width]], mask,
+                                               timed=True)
+        sel = [p for p, m in zip(pts[:width], mask[0]) if m]
+        t0 = time.perf_counter()
+        bls.aggregate_signatures(sel)
+        host_s = time.perf_counter() - t0
+        b_ms, b_by = g1_bound_ms(mask.sum(axis=1), width, clock_mhz, sms)
+        rows[width] = {"ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
+                       "err": err}
+        worst = max(worst, err)
+        print(f"kernel g1_aggregate: lanes={width} selected={len(sel)} blocks=1 "
+              f"kernel_ms={k_ms:.4f} plain_ms={p_ms:.2f} host_fold_s={host_s:.4f} "
+              f"bound_ms={b_ms:.6f} bound_by={b_by} bound_share={b_ms / k_ms:.6f} "
+              f"equal_after_canonical=True limbs_equal={same} equals_oracle=True",
+              flush=True)
+    args256 = g1.from_reference(
+        [c[None] for c in g1.pack_points(pts[:256])] + [np.ones((1, 256), np.int32)], "cuda")
+    print(f"programs: bls aggregate_kernel (plain) lanes=256 cuda_kernels_per_call="
+          f"{_kernels_per_call(lambda: g1.aggregate_kernel(*args256))}", flush=True)
+
+    # Edge lanes in one batch: all masked out, identity rows, P and -P, P twice.
+    w = BLS_BATCH_WIDTH
+    edge_rows = [pts[:w],
+                 [None if i % 4 == 0 else p for i, p in enumerate(pts[:w])],
+                 [bls.g1_neg(pts[i // 2]) if i % 2 else pts[i // 2] for i in range(w)],
+                 [pts[i // 2] for i in range(w)]]
+    edge_masks = np.ones((4, w), np.int32)
+    edge_masks[0] = 0
+    edge_masks[2, 5] = 0  # one unpaired lane
+    err, _, _, sums, _ = _g1_compare("edges", edge_rows, edge_masks)
+    worst = max(worst, err)
+    if sums[0] is not None:
+        raise AssertionError("bls edges: an all-masked committee is not the identity")
+    for width in BLS_ODD:
+        mask = (rng.random((1, width)) < 2 / 3).astype(np.int32)
+        worst = max(worst, _g1_compare(f"odd {width}", [pts[:width]], mask)[0])
+    # The batched launcher: 8 committees of 256 lanes, one drain, one launch.
+    payloads = [pts[i::BLS_BATCH][: w - BLS_BATCH + i] for i in range(BLS_BATCH)]
+    batch_masks = np.zeros((BLS_BATCH, w), np.int32)
+    for i, pl in enumerate(payloads):
+        batch_masks[i, : len(pl)] = 1
+    padded = [pl + [None] * (w - len(pl)) for pl in payloads]
+    worst = max(worst, _g1_compare("batched", padded, batch_masks)[0])
+    queue = DeviceWorkQueue()
+    launcher = g1.G1SumLauncher(width=w, device="cuda")
+    g1_cuda.reset_stats()
+    futs = [queue.submit(launcher, pl) for pl in payloads]
+    queue.drain()
+    got = [f.result() for f in futs]
+    if (launcher.launched, g1_cuda.stats["g1_aggregate"].launches) != (1, 1) or got != [
+            bls.aggregate_signatures(pl) for pl in payloads]:
+        raise AssertionError("bls: G1SumLauncher did not fold 8 payloads in one launch")
+    rows["edges"] = {"err": worst}
+    print(f"bls edges: all_masked=identity identity_rows P_minus_P P_twice odd_widths="
+          f"{','.join(map(str, BLS_ODD))} batched={BLS_BATCH}x{w} (G1SumLauncher: 1 "
+          f"launch for {BLS_BATCH} payloads) equal_after_canonical=True "
+          f"equals_oracle=True max_abs_err={worst}", flush=True)
+
+    # 4. The MSM (PyTorch ops), 8 lanes, a zero scalar and an identity point.
+    msm_pts = pts[:7] + [None]
+    ks = [int.from_bytes(rng.bytes(32), "little") % bls.R_ORDER for _ in range(8)]
+    ks[0] = 0
+    mx, my, mz = g1.from_reference(g1.pack_points(msm_pts), "cuda")
+    (digits,) = g1.from_reference([g1.recode_scalars(ks)], "cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    msum = g1.g1_msm_kernel(mx, my, mz, digits)
+    torch.cuda.synchronize()
+    msm_s = time.perf_counter() - t0
+    acc = None
+    for p, k in zip(msm_pts, ks):
+        acc = bls.g1_add(acc, bls.g1_mul(p, k))
+    if g1.unpack_points(*msum)[0] != acc:
+        raise AssertionError("bls: g1_msm_kernel != the oracle's sum of g1_mul")
+    print(f"programs: bls g1_msm_kernel lanes=8 windows={g1.G1_WINDOWS} wall_s={msm_s:.2f} "
+          f"equals_oracle=True", flush=True)
+
+    # 5. The n = 256 certificate, on the kernel and on the host fold.
+    class _CachedSigner:
+        # Bench set-up (benches/bls_bench.py bench_certificates): every
+        # counted signer shares one of two keys and signs one message.
+        def __init__(self, kp):
+            self._kp, self._sigs = kp, {}
+            self.pk_bytes = kp.pk_bytes
+
+        def sign(self, msg):
+            if msg not in self._sigs:
+                self._sigs[msg] = self._kp.sign(msg)
+            return self._sigs[msg]
+
+    signers = [_CachedSigner(bls.bls_keypair_from_identity(b"bls-bench-%d" % i))
+               for i in range(2)]
+    n = BLS_CERT_N
+    ids = [bytes([i & 0xFF, i >> 8]) * 16 for i in range(n)]
+    keyring = {s: signers[1 - i % 2] for i, s in enumerate(ids)}
+    quorum = 2 * ((n - 1) // 3) + 1
+    certs = {}
+    for label, fold in (("kernel", lambda parts: g1.aggregate_points(
+            parts, width=n, device="cuda")), ("host", None)):
+        c = Certifier(ids, (n - 1) // 3, transcript_source=lambda: b"\x5a" * 32,
+                      bls_keyring=keyring, bls_aggregate_fn=fold)
+        t0 = time.perf_counter()
+        certs[label] = c.observe_commit(3, 0, b"block", ids[:quorum])
+        certs[label + "_s"] = time.perf_counter() - t0
+    cert = certs["kernel"]
+    t0 = time.perf_counter()
+    ok = verify_bls_certificate(cert, c.bls_pubkeys(), quorum)
+    verify_s = time.perf_counter() - t0
+    forged = verify_bls_certificate(dataclasses.replace(cert, height=cert.height + 1),
+                                    c.bls_pubkeys(), quorum)
+    if (cert.agg_sig != certs["host"].agg_sig or cert.binding != certs["host"].binding
+            or not ok or forged
+            or certificate_size(n, with_bls=True) != certificate_size(n) + 48):
+        raise AssertionError("bls cert: kernel != host fold, or the light-client check failed")
+    print(f"bls cert: n={n} quorum={quorum} agg_sig_equal_host=True "
+          f"mint_kernel_s={certs['kernel_s']:.4f} mint_host_s={certs['host_s']:.4f} "
+          f"light_client_verify_s={verify_s:.2f} verified=True forged_rejected=True "
+          f"size_bytes={certificate_size(n, with_bls=True)} "
+          f"plain_size_bytes={certificate_size(n)}", flush=True)
+
+    # 6. The certified sim on the card against the host run.
+    t0 = time.perf_counter()
+    host_sim = Simulation(**BLS_SIM, batch_verifier=HostVerifier(), bls_certificates=True)
+    host = host_sim.run(max_steps=20_000_000)
+    host_wall = time.perf_counter() - t0
+    sim = Simulation(**BLS_SIM, batch_verifier=TorchBatchVerifier(device="cuda"),
+                     bls_certificates="device", device="cuda")
+    spent = {"agg": 0.0, "bls": 0.0, "calls": 0}
+
+    def timed(fn, key):
+        def call(*a):
+            t = time.perf_counter()
+            try:
+                return fn(*a)
+            finally:
+                spent[key] += time.perf_counter() - t
+                spent["calls"] += key == "agg"
+        return call
+
+    for c in sim.certifiers:
+        c._bls_aggregate_fn = timed(c._bls_aggregate_fn, "agg")
+        c._bls_aggregate = timed(c._bls_aggregate, "bls")
+    sim.batch_verifier.warmup()
+    torch.cuda.synchronize()
+    ed25519_cuda.reset_stats()
+    g1_cuda.reset_stats()
+    t0 = time.perf_counter()
+    res = sim.run(max_steps=20_000_000)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    agg_launches = g1_cuda.stats["g1_aggregate"].launches
+    verify_launches = ed25519_cuda.stats["ed25519_verify"].launches
+    others = {k: v.launches for k, v in ed25519_cuda.stats.items()
+              if k != "ed25519_verify" and v.launches}
+    res.assert_safety()
+    minted = sum(len(c.certs) for c in sim.certifiers)
+    heights = BLS_SIM["target_height"]
+    if not res.completed or (res.commit_digest(up_to=heights), res.steps) != (
+            host.commit_digest(up_to=heights), host.steps):
+        raise AssertionError("bls sim: digest or steps differ from the host run")
+    if len(set(res.cert_digests)) != 1 or res.cert_digests != host.cert_digests:
+        raise AssertionError("bls sim: chain digests differ across replicas or from the "
+                             "host fold's run")
+    if others or verify_launches < sim.vote_settles or not (
+            agg_launches == spent["calls"] == minted == BLS_SIM["n"] * heights):
+        raise AssertionError(f"bls sim: g1_aggregate {agg_launches} launches for {minted} "
+                             f"certificates, ed25519_verify {verify_launches}, others "
+                             f"{others}")
+    pks = sim.certifiers[0].bls_pubkeys()
+    for h in range(1, heights + 1):
+        cert = sim.certifiers[h % BLS_SIM["n"]].certs[h]
+        if len(cert.agg_sig) != 48 or not verify_bls_certificate(cert, pks, 2 * sim.f + 1):
+            raise AssertionError(f"bls sim: height {h}'s certificate fails verification")
+    print(f"bls sim: n={BLS_SIM['n']} heights={heights} steps={res.steps} "
+          f"wall_s={wall:.2f} heights_per_s={heights / wall:.3f} "
+          f"host_run_wall_s={host_wall:.2f} certificates={minted} "
+          f"g1_aggregate_launches={agg_launches} ed25519_verify_launches={verify_launches} "
+          f"vote_settles={sim.vote_settles} aggregate_share={spent['agg'] / wall:.4f} "
+          f"bls_share={spent['bls'] / wall:.4f} reverified_heights={heights} "
+          f"chain_equals_host=True digest={res.commit_digest(up_to=heights)[:16]} "
+          f"matches_host=True", flush=True)
+    return rows, agg_launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs one card",
@@ -2047,6 +2388,8 @@ def main() -> int:
     mark("certs")
     phase_exec()
     mark("exec")
+    rows["g1_aggregate"], launches["g1_aggregate"] = phase_bls(clock, sms)
+    mark("bls")
     print("phases_s: " + " ".join(f"{name}={t - marks[i][1]:.1f}"
                                   for i, (name, t) in enumerate(marks[1:]))
           + f" total={marks[-1][1] - marks[0][1]:.1f}", flush=True)

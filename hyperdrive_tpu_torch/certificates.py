@@ -10,13 +10,20 @@ binding to the batch-verification transcript that established the quorum
 :class:`~hyperdrive_tpu_torch.tallyflush.DeviceTallyFlusher` carry and
 re-verify in O(1).
 
-Trust model: the *binding* is an integrity commitment, not an aggregate
-signature. It proves the certificate's fields are exactly what the
-emitting replica committed after its verifier's batched launch accepted
-the 2f+1 precommits (the RLC transcript digest from
+Trust model — two tiers. The *binding* is an integrity commitment, not
+an aggregate signature: it proves the certificate's fields are exactly
+what the emitting replica committed after its verifier's batched launch
+accepted the 2f+1 precommits (the RLC transcript digest from
 ``TorchBatchVerifier.last_transcript`` rides inside it). Tampering with
 any field breaks the binding, but trusting it means trusting the emitting
-seam.
+seam. The optional **BLS aggregate signature** (``agg_sig``, 48 bytes
+compressed G1) drops that residual trust: each counted signer's BLS
+partial over the canonical commit message (:func:`bls_commit_message`) is
+aggregated — on the card by the ``g1_aggregate`` kernel
+(:func:`~hyperdrive_tpu_torch.ops.g1.aggregate_points`), or on the host —
+and a light client holding only the committee's public keys re-verifies
+the quorum with :func:`verify_bls_certificate`: one pairing product, no
+transcript trust, no vote-set gossip.
 
 Wire format (codec.py, canonical):
 
@@ -24,16 +31,13 @@ Wire format (codec.py, canonical):
     raw bitmap (u32 length prefix) | bytes32 transcript | bytes32 binding |
     raw agg_sig (empty or 48 B)
 
-116 bytes + n/8 for the signer bitmap: 148 B at n=256.
+116 bytes + n/8 for the signer bitmap (+48 when the BLS aggregate rides
+along): 148/196 B at n=256.
 
 Port copy of the JAX package's ``certificates.py``, byte for byte on the
-wire and in the binding. Dropped: the ``wire_codec`` analysis annotation
-and the metrics recorder (``obs``, the ``cert.emit``/``cert.verify``
-events). Not ported yet (the BLS12-381 slice), and refused with
-``NotImplementedError``: a BLS keyring or aggregation backend on
-:class:`Certifier` and :func:`verify_bls_certificate`. The ``agg_sig``
-field, its v2 binding and its wire slot are kept, so certificates that
-carry an aggregate still decode and bind.
+wire, in the binding and in the aggregate signature. Dropped: the
+``wire_codec`` analysis annotation and the metrics recorder (``obs``, the
+``cert.emit``/``cert.verify``/``bls.cert.agg`` events).
 """
 
 from __future__ import annotations
@@ -42,6 +46,7 @@ import hashlib
 from dataclasses import dataclass
 
 from hyperdrive_tpu_torch.codec import Reader, SerdeError, Writer
+from hyperdrive_tpu_torch.crypto import bls
 
 __all__ = [
     "QuorumCertificate",
@@ -52,8 +57,6 @@ __all__ = [
     "bls_commit_message",
     "verify_bls_certificate",
 ]
-
-_LATER = "not ported to the PyTorch package yet (the BLS12-381 slice)"
 
 #: Domain separator for the binding hash (versioned: a format change must
 #: not collide with old bindings). Certificates without a BLS aggregate
@@ -70,7 +73,10 @@ _BLS_MSG_TAG = b"hd-bls-commit-v1"
 
 def bls_commit_message(height: int, round: int, value_digest: bytes) -> bytes:
     """The canonical byte string a committee member BLS-signs to endorse
-    one committed (height, round, value)."""
+    one committed (height, round, value). Same-message across the
+    committee, which is what makes rogue-key-safe *same-message*
+    aggregation applicable (every signer is a whitelisted identity with
+    a deterministically derived key)."""
     return (
         _BLS_MSG_TAG
         + int(height).to_bytes(8, "little")
@@ -96,8 +102,9 @@ class QuorumCertificate:
     signers: bytes
     transcript: bytes
     binding: bytes
-    #: Compressed BLS12-381 G1 aggregate signature (48 bytes), or b"" on
-    #: the transcript-bound-only path (the only one this package mints).
+    #: Compressed BLS12-381 G1 aggregate signature over
+    #: :func:`bls_commit_message` (48 bytes), or b"" on the
+    #: transcript-bound-only path.
     agg_sig: bytes = b""
 
     def signer_count(self) -> int:
@@ -176,9 +183,43 @@ def certificate_size(n_validators: int, with_bls: bool = False) -> int:
 
 def verify_bls_certificate(cert: QuorumCertificate, pubkeys,
                            quorum: "int | None" = None) -> bool:
-    """Light-client verification of a certificate's BLS aggregate: not
-    ported yet."""
-    raise NotImplementedError(f"BLS certificate verification is {_LATER}")
+    """Light-client verification: accept the certificate on the strength
+    of its BLS aggregate alone — no transcript, no binding, no trust in
+    the emitting replica.
+
+    ``pubkeys``: the committee's G2 public keys in whitelist order, as
+    96-byte compressed blobs or affine Fp2 pairs. The signer bitmap
+    selects which keys participate; ``quorum`` (default: reject nothing
+    on weight — pass 2f+1 to enforce) gates the signer count. One
+    pairing product regardless of committee size."""
+    if len(cert.agg_sig) != 48 or len(cert.value_digest) != 32:
+        return False
+    if len(cert.signers) != -(-len(pubkeys) // 8):
+        return False
+    if quorum is not None and cert.signer_count() < quorum:
+        return False
+    try:
+        sig = bls.g1_decompress(cert.agg_sig)
+    except Exception:
+        return False
+    selected = []
+    for i, pk in enumerate(pubkeys):
+        if not cert.signers[i >> 3] >> (i & 7) & 1:
+            continue
+        if isinstance(pk, (bytes, bytearray)):
+            try:
+                pk = bls.g2_decompress(bytes(pk))
+            except Exception:
+                return False
+        selected.append(pk)
+    # Trailing bits past the committee width must be clear.
+    for i in range(len(pubkeys), 8 * len(cert.signers)):
+        if cert.signers[i >> 3] >> (i & 7) & 1:
+            return False
+    if not selected:
+        return False
+    msg = bls_commit_message(cert.height, cert.round, cert.value_digest)
+    return bls.verify_aggregate_same_message(selected, msg, sig)
 
 
 class Certifier:
@@ -195,17 +236,34 @@ class Certifier:
 
     def __init__(self, signatories, f: int, transcript_source=None,
                  bls_keyring=None, bls_aggregate_fn=None):
-        if bls_keyring is not None or bls_aggregate_fn is not None:
-            raise NotImplementedError(f"BLS aggregate certificates are {_LATER}")
         self.signatories = list(signatories)
         self._pos = {s: i for i, s in enumerate(self.signatories)}
         self.f = int(f)
         self.transcript_source = transcript_source
+        #: Optional BLS committee keyring: signatory identity ->
+        #: :class:`~hyperdrive_tpu_torch.crypto.bls.BlsKeyPair`. When set,
+        #: emitted certificates carry the 48-byte aggregate signature.
+        #: (Harness shortcut: partials that would ride on precommit
+        #: messages in a deployment are computed here from the shared
+        #: deterministic keyring — same bytes either way.)
+        self.bls_keyring = bls_keyring
+        #: Aggregation backend: callable(list of affine G1 partials) ->
+        #: affine G1 aggregate. Defaults to the host fold; the sim
+        #: injects the ``g1_aggregate`` kernel here.
+        self._bls_aggregate_fn = bls_aggregate_fn
         #: height -> QuorumCertificate, in emission order.
         self.certs: dict = {}
         #: Verification outcomes.
         self.verified = 0
         self.rejected = 0
+
+    def bls_pubkeys(self):
+        """The committee's compressed G2 public keys in whitelist order
+        (what a light client needs for :func:`verify_bls_certificate`),
+        or None when no keyring is installed."""
+        if self.bls_keyring is None:
+            return None
+        return [self.bls_keyring[s].pk_bytes for s in self.signatories]
 
     # ------------------------------------------------------------- emission
 
@@ -228,16 +286,46 @@ class Certifier:
                 else bytes(32)
         value_digest = hashlib.sha256(value).digest()
         signers_b = bytes(bitmap)
+        agg_sig = self._bls_aggregate(height, round, value_digest, signers_b)
         cert = QuorumCertificate(
             height=int(height),
             round=int(round),
             value_digest=value_digest,
             signers=signers_b,
             transcript=transcript,
-            binding=_binding(height, round, value_digest, signers_b, transcript),
+            binding=_binding(
+                height, round, value_digest, signers_b, transcript, agg_sig
+            ),
+            agg_sig=agg_sig,
         )
         self.certs[int(height)] = cert
         return cert
+
+    def _bls_aggregate(self, height, round, value_digest,
+                       signers_b: bytes) -> bytes:
+        """Aggregate the counted signers' BLS partials over the commit
+        message. Returns the 48-byte compressed aggregate, or b"" when
+        no keyring is installed or a counted signer has no key (an
+        aggregate that disagrees with the bitmap would be worse than
+        none)."""
+        if self.bls_keyring is None:
+            return b""
+        counted = []
+        for i, s in enumerate(self.signatories):
+            if signers_b[i >> 3] >> (i & 7) & 1:
+                kp = self.bls_keyring.get(s)
+                if kp is None:
+                    return b""
+                counted.append(kp)
+        if not counted:
+            return b""
+        msg = bls_commit_message(height, round, value_digest)
+        partials = [kp.sign(msg) for kp in counted]
+        if self._bls_aggregate_fn is not None:
+            agg = self._bls_aggregate_fn(partials)
+        else:
+            agg = bls.aggregate_signatures(partials)
+        return bls.g1_compress(agg)
 
     # ----------------------------------------------------------- re-verify
 
@@ -267,12 +355,19 @@ class Certifier:
         """Epoch hot-swap: install the next committee's whitelist order and
         quorum threshold. Emitted certificates are kept — the chain stays
         continuous across the transition; only bitmap indexing for NEW
-        emissions follows the new order."""
-        if bls_keyring is not None:
-            raise NotImplementedError(f"BLS aggregate certificates are {_LATER}")
+        emissions follows the new order. When a keyring is installed and
+        none is supplied for the new committee, keys are re-derived
+        deterministically from the identities (the same construction every
+        component uses), so BLS emission survives churn."""
         self.signatories = list(signatories)
         self._pos = {s: i for i, s in enumerate(self.signatories)}
         self.f = int(f)
+        if bls_keyring is not None:
+            self.bls_keyring = bls_keyring
+        elif self.bls_keyring is not None:
+            for s in self.signatories:
+                if s not in self.bls_keyring:
+                    self.bls_keyring[s] = bls.bls_keypair_from_identity(s)
 
     # ------------------------------------------------------------- chaining
 

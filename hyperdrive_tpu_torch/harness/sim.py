@@ -67,12 +67,15 @@ reference's ``sim.reconstruct.latency`` histogram). With
 ``certificates=True`` every replica's Process carries a
 :class:`~hyperdrive_tpu_torch.certificates.Certifier` bound to the batch
 verifier's ``last_transcript``; ``SimulationResult.cert_digests`` holds
-each replica's chain digest.
+each replica's chain digest. ``bls_certificates`` (True or ``"device"``)
+implies ``certificates`` and adds the 48-byte BLS aggregate signature to
+every certificate, folded on the host or, with ``"device"``, by the
+``g1_aggregate`` kernel on ``device``.
 
 Not ported (a later slice of the port), and refused: lock-step delivery
 (``burst=False``), per-delivery adversaries, kills, the sharded grid
 (``tally_mesh``), an injected queue (``devsched=``) and per-replica
-flushers, BLS certificates (``bls_certificates``), epochs, chaos, load,
+flushers, epochs (with ``EpochCertifier``), chaos, load,
 overlay and the record/replay log (``SimulationResult.record`` is
 always None, so no execution trailer is recorded).
 The tracer, flight recorder, metrics registry and device telemetry are
@@ -229,7 +232,12 @@ class Simulation:
     ``payload_bytes``, ``dedup_reconstruct`` (reconstruct each committed
     value once, not once per replica) and ``reconstructor``: the Shamir
     payload path (refused with ``pipeline_heights``). ``certificates``:
-    a quorum certificate at every commit.
+    a quorum certificate at every commit. ``bls_certificates``: False,
+    True (every certificate carries the committee's BLS aggregate
+    signature, folded on the host) or ``"device"`` (folded by the
+    ``g1_aggregate`` kernel on ``device``, at the committee width rounded
+    up to a power of two; it resolves ``device``, so it raises without
+    CUDA unless ``device="cpu"``); either implies ``certificates``.
 
     ``execution`` (an :class:`~hyperdrive_tpu_torch.exec.ExecutionConfig`)
     puts a ledger behind every committed height; it resolves ``device``
@@ -262,6 +270,7 @@ class Simulation:
         dedup_reconstruct: bool = True,
         reconstructor=None,
         certificates: bool = False,
+        bls_certificates=False,
         execution=None,
         exec_speculate: Optional[bool] = None,
         fused_exec_drain: Optional[bool] = None,
@@ -390,7 +399,21 @@ class Simulation:
         #: certificates.Certifier minting a QuorumCertificate at each
         #: commit (transcript-bound to the batch verifier when it has
         #: one); chain digests land in SimulationResult.cert_digests.
-        self.certificates_on = bool(certificates)
+        self.certificates_on = bool(certificates) or bool(bls_certificates)
+        #: bls_certificates: False | True | "device". Truthy implies
+        #: certificates=True and installs the deterministic BLS committee
+        #: keyring on every certifier, so each commit's certificate
+        #: carries the 48-byte aggregate signature a light client can
+        #: check with no transcript trust. "device" routes the G1
+        #: aggregation through the g1_aggregate kernel on ``device``;
+        #: True keeps the host fold — digests are identical either way.
+        self.bls_certificates = bls_certificates
+        self._bls_keyring: "dict | None" = None
+        self._bls_device = None
+        if str(bls_certificates) == "device":
+            from hyperdrive_tpu_torch.ops.fp381 import resolve_device
+
+            self._bls_device = resolve_device(device)
         self.certifiers: list = []
         #: The MPC payload path (BASELINE config 5): every proposed value
         #: carries its (2f+1)-of-n share bundle, validators accept only
@@ -527,12 +550,20 @@ class Simulation:
             # Bind the batch verifier lazily: its last_transcript is the
             # launch that verified this commit's quorum (b"" on the
             # ladder and host paths).
+            bls_keyring = None
+            bls_agg_fn = None
+            if self.bls_certificates:
+                bls_keyring = self._bls_committee_keyring()
+                if self._bls_device is not None:
+                    bls_agg_fn = self._bls_device_aggregate
             certifier = Certifier(
                 list(self.signatories),
                 self.f,
                 transcript_source=lambda: getattr(
                     self.batch_verifier, "last_transcript", b""
                 ),
+                bls_keyring=bls_keyring,
+                bls_aggregate_fn=bls_agg_fn,
             )
             self.certifiers.append(certifier)
         return Replica(
@@ -556,6 +587,32 @@ class Simulation:
             ),
             certifier=certifier,
         )
+
+    # -------------------------------------------------- BLS certificates
+
+    def _bls_committee_keyring(self) -> dict:
+        """The shared committee keyring (identity -> BlsKeyPair), derived
+        deterministically from signatory identities and built once — all
+        certifiers alias one dict, exactly like the Ed25519 KeyRing."""
+        if self._bls_keyring is None:
+            from hyperdrive_tpu_torch.crypto import bls
+
+            self._bls_keyring = {
+                s: bls.bls_keypair_from_identity(s) for s in self.signatories
+            }
+        return self._bls_keyring
+
+    def _bls_device_aggregate(self, partials):
+        """Certifier aggregation backend on the ``g1_aggregate`` kernel
+        (the plain version on a CPU device). Launch width is the committee
+        size rounded up to a power of two, so every commit — whatever its
+        quorum count — launches one shape."""
+        from hyperdrive_tpu_torch.ops import g1
+
+        width = 1
+        while width < max(len(self.signatories), 1):
+            width *= 2
+        return g1.aggregate_points(partials, width=width, device=self._bls_device)
 
     # -------------------------------------------------------------- running
 

@@ -183,9 +183,9 @@ def consts_block_w32() -> np.ndarray:
     return block
 
 
-def source_hash() -> str:
+def source_hash(sources=SOURCES) -> str:
     h = hashlib.sha256()
-    for name in SOURCES:
+    for name in sources:
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
@@ -202,18 +202,19 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernel cannot be built here")
 
 
-def build(force: bool = False) -> pathlib.Path:
-    """Compile the kernel library (all four kernels) from the sources in
-    the package (once per source hash, or anew with ``force``) and return
-    its path. The compiler's register and spill report is kept beside it
-    as ``nvcc.log``."""
-    out_dir = BUILD_DIR / f"ed25519_{source_hash()}"
-    lib = out_dir / "libhd_ed25519.so"
+def build_library(tag: str, unit: str, sources, force: bool = False) -> pathlib.Path:
+    """Compile the translation unit ``csrc/<unit>`` into
+    ``_build/<tag>_<hash>/libhd_<tag>.so`` (once per hash of ``sources``
+    and the flags, or anew with ``force``) and return its path. The
+    compiler's register and spill report is kept beside it as
+    ``nvcc.log``."""
+    out_dir = BUILD_DIR / f"{tag}_{source_hash(sources)}"
+    lib = out_dir / f"libhd_{tag}.so"
     if lib.exists() and not force:
         return lib
     out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out_dir / f"libhd_ed25519.{os.getpid()}.tmp.so"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / "ed25519_kernels.cu")]
+    tmp = out_dir / f"libhd_{tag}.{os.getpid()}.tmp.so"
+    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / unit)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     (out_dir / "nvcc.log").write_text(proc.stdout + proc.stderr)
     if proc.returncode != 0:
@@ -222,6 +223,12 @@ def build(force: bool = False) -> pathlib.Path:
         )
     os.replace(tmp, lib)
     return lib
+
+
+def build(force: bool = False) -> pathlib.Path:
+    """Compile the kernel library (all four kernels) from the sources in
+    the package and return its path (:func:`build_library`)."""
+    return build_library("ed25519", "ed25519_kernels.cu", SOURCES, force)
 
 
 class _Library:

@@ -11,12 +11,21 @@
   sequential, an ``rlc=True`` run binds its verifier's transcripts;
   ``DeviceTallyFlusher`` binds the transcript, re-verifies every minted
   certificate and resets as the JAX flusher does;
-- what stays unported (BLS keyrings and aggregates, ``bls_certificates``,
-  epoch certifiers) is refused.
+- BLS certificates: with a committee keyring the port mints the JAX
+  certifier's aggregate signature, binding and bytes, folded on the host
+  or by the plain ``g1_aggregate`` path; ``rotate`` re-derives churned
+  keys; ``verify_bls_certificate`` accepts the light-client check and
+  rejects a forged message, a wrong signer set and malformed fields;
+  ``Simulation(bls_certificates=True | "device")`` commits the JAX sim's
+  digest and certificate chains (both sides in burst mode, the port's
+  only delivery);
+- what stays unported (epochs, and with them epoch certifiers) is
+  refused.
 
 Bytes, digests and verdicts: every comparison is exact.
 """
 
+import dataclasses
 import hashlib
 import random
 
@@ -27,6 +36,7 @@ from hyperdrive_tpu.certificates import Certifier as RefCertifier
 from hyperdrive_tpu.certificates import QuorumCertificate as RefQuorumCertificate
 from hyperdrive_tpu.certificates import marshal_certificate as ref_marshal
 from hyperdrive_tpu.certificates import unmarshal_certificate as ref_unmarshal
+from hyperdrive_tpu.crypto import bls as ref_bls
 from hyperdrive_tpu.codec import Reader as RefReader
 from hyperdrive_tpu.codec import Writer as RefWriter
 from hyperdrive_tpu.harness import Simulation as RefSimulation
@@ -41,7 +51,9 @@ from hyperdrive_tpu_torch.certificates import (
     verify_bls_certificate,
 )
 from hyperdrive_tpu_torch.codec import Reader, SerdeError, Writer
+from hyperdrive_tpu_torch.crypto import bls
 from hyperdrive_tpu_torch.harness import Simulation
+from hyperdrive_tpu_torch.ops import g1
 from hyperdrive_tpu_torch.ops.ed25519 import TorchBatchVerifier
 from hyperdrive_tpu_torch.verifier import HostVerifier
 
@@ -188,20 +200,119 @@ def test_transcript_widening_chain_order_reset_and_rotation():
 
 
 def test_unported_bls_parts_refuse():
-    sigs = [bytes([i]) * 32 for i in range(4)]
+    # BLS certificates are ported; epochs (and EpochCertifier) are not.
     with pytest.raises(NotImplementedError):
-        Certifier(sigs, 1, bls_keyring={})
-    with pytest.raises(NotImplementedError):
-        Certifier(sigs, 1, bls_aggregate_fn=lambda parts: None)
-    with pytest.raises(NotImplementedError):
-        Certifier(sigs, 1).rotate(sigs, 1, bls_keyring={})
-    cert = Certifier(sigs, 1).observe_commit(1, 0, b"v", sigs)
-    with pytest.raises(NotImplementedError):
-        verify_bls_certificate(cert, [bytes(96)] * 4)
-    for opt in (dict(bls_certificates=True), dict(bls_certificates="device"),
-                dict(epochs=object())):
-        with pytest.raises(NotImplementedError):
-            Simulation(n=4, target_height=1, burst=True, certificates=True, **opt)
+        Simulation(n=4, target_height=1, burst=True, certificates=True,
+                   epochs=object())
+
+
+# ------------------------------------------------------------ BLS aggregate
+
+BLS_IDS = [bytes([i]) * 32 for i in range(7)]
+
+
+@pytest.fixture(scope="module")
+def keyrings():
+    """The same committee keyring from the port's oracle and the JAX
+    package's."""
+    return ({s: bls.bls_keypair_from_identity(s) for s in BLS_IDS},
+            {s: ref_bls.bls_keypair_from_identity(s) for s in BLS_IDS})
+
+
+def _device_fold(parts):
+    return g1.aggregate_points(parts, width=8, device="cpu")
+
+
+@pytest.mark.parametrize("fold", ["host", "plain_device"])
+def test_bls_certificate_matches_reference(keyrings, fold):
+    mine, ref = keyrings
+    fn = _device_fold if fold == "plain_device" else None
+    c = Certifier(BLS_IDS, 2, transcript_source=lambda: b"\x5a" * 32,
+                  bls_keyring=dict(mine), bls_aggregate_fn=fn)
+    rc = RefCertifier(BLS_IDS, 2, transcript_source=lambda: b"\x5a" * 32,
+                      bls_keyring=dict(ref))
+    assert c.bls_pubkeys() == rc.bls_pubkeys()
+    for h, signers in ((3, BLS_IDS[:5]), (4, BLS_IDS[1:])):
+        cert = c.observe_commit(h, 1, b"block-%d" % h, signers)
+        want = rc.observe_commit(h, 1, b"block-%d" % h, signers)
+        assert len(cert.agg_sig) == 48
+        assert (cert.agg_sig, cert.binding) == (want.agg_sig, want.binding)
+        assert _wire(cert) == _wire(want, RefWriter, ref_marshal)
+        assert c.verify(cert)
+    assert c.chain_digest() == rc.chain_digest()
+    # No keyring, or a counted signer without a key: no aggregate.
+    assert Certifier(BLS_IDS, 2).observe_commit(1, 0, b"v", BLS_IDS).agg_sig == b""
+    partial = {s: mine[s] for s in BLS_IDS[:3]}
+    assert Certifier(BLS_IDS, 2, bls_keyring=partial).observe_commit(
+        1, 0, b"v", BLS_IDS[:4]).agg_sig == b""
+
+
+def test_bls_rotate_matches_reference(keyrings):
+    mine, ref = keyrings
+    c = Certifier(BLS_IDS, 2, bls_keyring=dict(mine))
+    rc = RefCertifier(BLS_IDS, 2, bls_keyring=dict(ref))
+    new_ids = BLS_IDS[2:] + [bytes([99]) * 32]
+    c.rotate(new_ids, f=2)
+    rc.rotate(new_ids, f=2)
+    assert c.bls_pubkeys() == rc.bls_pubkeys()
+    cert = c.observe_commit(4, 0, b"block-four", new_ids[:5])
+    assert _wire(cert) == _wire(rc.observe_commit(4, 0, b"block-four", new_ids[:5]),
+                                RefWriter, ref_marshal)
+    # An explicit keyring replaces the installed one.
+    swapped = {s: mine[BLS_IDS[0]] for s in new_ids}
+    c.rotate(new_ids, f=2, bls_keyring=swapped)
+    assert c.bls_keyring is swapped
+    assert c.bls_pubkeys() == [mine[BLS_IDS[0]].pk_bytes] * len(new_ids)
+
+
+def test_verify_bls_certificate(keyrings):
+    mine, _ = keyrings
+    c = Certifier(BLS_IDS, 2, bls_keyring=dict(mine))
+    cert = c.observe_commit(3, 1, b"block-three", BLS_IDS[:5])
+    pks = c.bls_pubkeys()
+    assert verify_bls_certificate(cert, pks, quorum=5)
+    # The same aggregate over another message (a forged height), and over
+    # another signer set of the same size: the pairing rejects both.
+    assert not verify_bls_certificate(dataclasses.replace(cert, height=4), pks)
+    moved = bytearray(cert.signers)
+    moved[0] ^= 0b1000001  # drop signer 0, claim signer 6
+    assert not verify_bls_certificate(dataclasses.replace(cert, signers=bytes(moved)), pks)
+    # Rejected before any pairing: quorum, widths, trailing bits, no key.
+    assert not verify_bls_certificate(cert, pks, quorum=6)
+    assert not verify_bls_certificate(dataclasses.replace(cert, agg_sig=b""), pks)
+    assert not verify_bls_certificate(cert, pks + [pks[0]] * 2)
+    trailing = dataclasses.replace(cert, signers=bytes([cert.signers[0] | 0x80]))
+    assert not verify_bls_certificate(trailing, pks)
+    assert not verify_bls_certificate(dataclasses.replace(cert, signers=b"\x00"), pks)
+    assert not verify_bls_certificate(cert, pks[:4] + [b"\x01" * 96] + pks[5:])
+    # Affine G2 keys are taken as they are.
+    assert verify_bls_certificate(cert, [mine[s].pk for s in BLS_IDS], quorum=5)
+    assert certificate_size(256, with_bls=True) == certificate_size(256) + 48
+
+
+@pytest.fixture(scope="module")
+def ref_bls_run():
+    ref = RefSimulation(n=4, target_height=3, seed=5, timeout=1.0, burst=True,
+                        bls_certificates=True)
+    return ref, ref.run(max_steps=100_000)
+
+
+@pytest.mark.parametrize("mode", [True, "device"])
+def test_sim_bls_certificates_match_reference(ref_bls_run, mode):
+    ref, want = ref_bls_run
+    sim = Simulation(n=4, target_height=3, seed=5, timeout=1.0, burst=True,
+                     bls_certificates=mode, device="cpu")
+    got = sim.run(max_steps=100_000)
+    assert got.completed and got.commit_digest() == want.commit_digest()
+    assert got.cert_digests == want.cert_digests
+    minted = 0
+    for i, certifier in enumerate(sim.certifiers):
+        assert set(certifier.certs) == set(ref.certifiers[i].certs)
+        for h, cert in certifier.certs.items():
+            assert len(cert.agg_sig) == 48
+            assert _wire(cert) == _wire(ref.certifiers[i].certs[h], RefWriter, ref_marshal)
+            minted += 1
+    assert minted >= 3 * 4
 
 
 # ----------------------------------------------------------- consensus seams

@@ -25,11 +25,14 @@ for name in names:
     importlib.import_module(name)
 import chip_smoke  # noqa: F401
 from hyperdrive_tpu_torch import native
+from hyperdrive_tpu_torch.ops import ed25519_cuda, g1_cuda
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "jaxlib"
              or m == "hyperdrive_tpu" or m.startswith("hyperdrive_tpu."))
-# Importing builds nothing: the native library is compiled at first use.
-built = native._lib is not None or native._lib_err is not None
+# Importing builds nothing: the native library and the CUDA kernels are
+# compiled at first use.
+built = (native._lib is not None or native._lib_err is not None
+         or ed25519_cuda._LIB is not None or g1_cuda._LIB is not None)
 print(json.dumps({"names": names, "bad": bad, "built": built}))
 """
 
@@ -44,7 +47,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                  "transport", "tallyflush", "devsched.flusher", "utils.checkpoint",
                  "harness.deploy", "crypto.shamir", "ops.shamir", "ops.msm",
                  "certificates", "ops.rootmix", "ops.merkle", "ops.ledger", "exec",
-                 "exec.ledger", "exec.device"):
+                 "exec.ledger", "exec.device", "crypto.bls", "ops.limbs", "ops.fp381",
+                 "ops.g1", "ops.g1_cuda"):
         assert f"hyperdrive_tpu_torch.{name}" in out["names"]
     assert out["bad"] == []
     assert out["built"] is False

@@ -375,7 +375,8 @@ def test_unported_flusher_features_refuse():
     with pytest.raises(NotImplementedError):
         fl.rotate_validators(SIGS)
     # Certificates are ported: a Certifier binds to the flusher and rides
-    # the Replica's Process; its BLS keyring and aggregates are not.
+    # the Replica's Process; since the BLS slice, so does a BLS keyring
+    # (a counted signer without a key mints no aggregate).
     certifier = Certifier(SIGS, 1)
     assert DeviceTallyFlusher(NullVerifier(), SIGS, device="cpu",
                               certifier=certifier).certifier is certifier
@@ -383,5 +384,7 @@ def test_unported_flusher_features_refuse():
                   proposer=None, validator=None, committer=None, catcher=None,
                   broadcaster=None, certifier=certifier)
     assert rep.proc.certifier is certifier
-    with pytest.raises(NotImplementedError):
-        Certifier(SIGS, 1, bls_keyring={})
+    keyed = Certifier(SIGS, 1, bls_keyring={})
+    assert DeviceTallyFlusher(NullVerifier(), SIGS, device="cpu",
+                              certifier=keyed).certifier is keyed
+    assert keyed.observe_commit(1, 0, b"v", SIGS).agg_sig == b""
