@@ -37,6 +37,11 @@ Phases, each printing its lines:
    deployment capstone's bucket), 256, 1,024 (the pipelined runs'
    coalesced batch) and 4,096, with edge digests (all-zero and all-0xff M) and R = 0xff...;
    kernel and plain times, the integer-instruction bound and its share;
+   then, at each width, the kernel alone (``kernel ed25519_challenge
+   alone:``): 100 back-to-back wrapper calls and 100 back-to-back direct
+   ``hd_ed25519_challenge`` calls between two CUDA events, the host's
+   enqueue time a call beside them, the throughput bound and the latency
+   bound (one lane's dependent instructions, ``depth_challenge``);
 4. the vote grid (``ops/votegrid.py``, PyTorch ops, no hand-written
    kernel) at the main path's shape (n = V = 256, R = 4): one seeded
    sequence of settles (scatters with resets and L28 lanes, an empty
@@ -155,12 +160,15 @@ Phases, each printing its lines:
    started together) against its plain version ``aggregate_kernel`` at the
    JAX package's bench widths (256, 1,024 and 4,096 lanes, masks about
    two-thirds set), on edge lanes (an all-masked committee, identity rows,
-   P and -P, P twice), at odd widths 5 and 255 and on a batched 8 x 256
-   call through ``G1SumLauncher`` (one launch), every coordinate equal
-   after ``canonical`` and every affine sum equal to the oracle's fold;
-   kernel ms (CUDA events), plain ms, host-fold s, the bound (multiply
-   instructions of a 12 x 32-bit field) and the plain version's CUDA
-   kernels a call; ``g1_msm_kernel`` (PyTorch ops, 8 lanes, 64 windows)
+   P and -P, P twice), at odd widths 5 and 255, at widths 1, 2 and 3, at
+   32,768 lanes (above what a cluster's shared memory holds: the sums in
+   the global scratch) and on a batched 8 x 256 call through
+   ``G1SumLauncher`` (one launch), every coordinate equal after
+   ``canonical`` and every affine sum equal to the oracle's fold; kernel
+   ms (CUDA events), blocks and cluster, plain ms, host-fold s, the bound
+   (multiply instructions of a 12 x 32-bit field), the ratio to the
+   earlier design's recorded times (``redesign:``) and the plain
+   version's CUDA kernels a call; ``g1_msm_kernel`` (PyTorch ops, 8 lanes, 64 windows)
    against the oracle; the n = 256 certificate minted on the kernel and
    on the host fold (equal aggregates, the light-client check passing and
    a forged height failing); then the certified sim (``Simulation(n=16,
@@ -346,6 +354,35 @@ def ops_challenge() -> int:
     return schedule + rounds + digest + folds + 2 * 8 * (STEP + 1)
 
 
+# The challenge kernel's latency bound: one lane's dependent chain, in
+# instructions, times the cycles from one integer instruction to the next
+# that reads its result. Counting rule: a round's e and a chains run side
+# by side, each a rotation (one funnel shift), a three-input logic function
+# (one LOP3) and a sum of five terms as two three-input additions of the low
+# halves and the carry into the high half (3 deep): 5 a round, 80 rounds;
+# the feed-forward a 64-bit addition (2) and a byte swap (1); each fold a
+# wavefront of its rows over its limbs, limbs + rows steps of a
+# multiply-add and its carry (2 each); each conditional subtraction of L an
+# 8-limb borrow chain (2 a limb) and its select (1). The loads of the rows
+# are not counted.
+ROUND_DEPTH = 5
+#: Cycles from a fixed-latency integer instruction (IADD3, LOP3, SHF, IMAD)
+#: to one that reads its result, compute capability 7.0 on (Jia et al.,
+#: "Dissecting the NVIDIA Volta GPU Architecture via Microbenchmarking",
+#: 2018); not measured on this card.
+DEP_LATENCY_CYCLES = 4
+
+
+def depth_challenge() -> int:
+    """One lane's dependent instructions (the rule above)."""
+    folds = sum(2 * (nr + nb) for nb, nr in SC_FOLDS)
+    return 80 * ROUND_DEPTH + 2 + 1 + folds + 2 * (2 * 8 + 1)
+
+
+def challenge_latency_ms(clock_mhz: float) -> float:
+    return depth_challenge() * DEP_LATENCY_CYCLES / (clock_mhz * 1e3)
+
+
 def challenge_bytes(lanes: int, uniq: int) -> int:
     """Bytes the challenge kernel must move: per lane the index 4, the R
     row and the A row 64 and the k row out 32; then the digest index 1 a
@@ -386,6 +423,24 @@ def time_ms(fn, reps: int, warm: bool = True, keep=None) -> float:
         if keep is not None:
             keep.append(got)
     return statistics.median(times)
+
+
+def burst_ms(fn, reps: int = 100) -> tuple:
+    """(device ms a call, host ms a call) over ``reps`` back-to-back calls
+    between two CUDA events, after one warm-up call: when the host enqueues
+    slower than the card runs, the device time is the host's."""
+    fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    host = (time.perf_counter() - t0) * 1e3 / reps
+    b.synchronize()
+    return a.elapsed_time(b) / reps, host
 
 
 def _ring():
@@ -774,9 +829,45 @@ def phase_challenge(state, clock_mhz: float, sms: int) -> dict:
                   f"lanes_per_s={lanes / k_ms * 1e3:.0f} bound_ms={b_ms:.6f} "
                   f"bound_by={b_by} bound_share={b_ms / k_ms:.4f} mismatches=0", flush=True)
             if form == "grouped":
-                rows[lanes] = {"ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms,
+                alone = _challenge_alone(lanes, args, k_ms, b_ms, clock_mhz)
+                rows[lanes] = {"ms": alone, "plain_ms": p_ms, "bound_ms": b_ms,
                                "bound_by": b_by, "err": err}
     return rows
+
+
+def _challenge_alone(lanes: int, args, call_ms: float, b_ms: float, clock_mhz: float) -> float:
+    """The grouped challenge kernel's own time: 100 back-to-back wrapper
+    calls, then 100 back-to-back calls of ``hd_ed25519_challenge`` through
+    the library on pre-made inputs and output (no Python checks, no
+    allocation). Prints both beside the single wrapper call's time, the
+    throughput bound and the latency bound; returns the direct time."""
+    from hyperdrive_tpu_torch.ops import ed25519_cuda
+
+    idx, r_rows, m_idx, m_uniq, trows = args
+    wrap_ms, wrap_host = burst_ms(lambda: ed25519_cuda.challenge_grouped(*args))
+    index = torch.cuda.current_device()
+    fn = ed25519_cuda._library(index).lib.hd_ed25519_challenge
+    out = torch.empty((lanes, 32), dtype=torch.uint8, device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+    call = (index, idx.data_ptr(), r_rows.data_ptr(), m_uniq.data_ptr(), m_idx.data_ptr(),
+            m_uniq.shape[0], trows.data_ptr(), trows.shape[0], out.data_ptr(), lanes, stream)
+
+    def direct():
+        if fn(*call) != 0:
+            raise AssertionError("hd_ed25519_challenge launch failed")
+
+    direct_ms, direct_host = burst_ms(direct)
+    if not torch.equal(out, ed25519_cuda.challenge_grouped(*args)):
+        raise AssertionError("direct hd_ed25519_challenge calls != the wrapper's")
+    lat = challenge_latency_ms(clock_mhz)
+    print(f"kernel ed25519_challenge alone: form=grouped lanes={lanes} "
+          f"wrapper_call_ms={call_ms:.4f} wrapper_burst_ms={wrap_ms:.4f} "
+          f"wrapper_host_ms={wrap_host:.4f} direct_burst_ms={direct_ms:.4f} "
+          f"direct_host_ms={direct_host:.4f} host_bound={direct_host >= 0.9 * direct_ms} "
+          f"bound_ms={b_ms:.6f} latency_bound_ms={lat:.6f} "
+          f"dependent_instructions={depth_challenge()} "
+          f"latency_share={lat / direct_ms:.4f}", flush=True)
+    return direct_ms
 
 
 #: The grid at the main path's shape: n replicas x V validators x R slots.
@@ -2053,6 +2144,15 @@ def phase_exec() -> None:
 #: ``AGG_SIZES``), its odd widths and its batched launcher shape.
 BLS_SIZES = (256, 1024, 4096)
 BLS_ODD = (5, 255)
+#: The smallest widths (one lane; one addition; an odd tail on the first
+#: level) and one above what a cluster's shared memory holds
+#: (``g1_cuda.MAX_SHARED_WIDTH``), whose sums live in the global scratch.
+BLS_SMALL = (1, 2, 3)
+BLS_WIDE = 32_768
+#: The recorded times (one wrapper call) of the kernel's earlier design
+#: (one block a committee, 30 x 13-bit CIOS) at the bench widths, three
+#: runs on an NVIDIA H100 80GB HBM3, 700.00 W (PERF.md section 6, row 5).
+G1_EARLIER_MS = {256: (0.6337, 0.7054), 1024: (1.1814, 1.2082), 4096: (3.3593, 3.4238)}
 BLS_BATCH, BLS_BATCH_WIDTH = 8, 256
 BLS_PRODUCTS = 4096
 #: The certified sim: n = 16 (every certifier signs each counted partial in
@@ -2097,9 +2197,11 @@ def derive_g1_points(n: int) -> list:
 
 def _g1_compare(label: str, points_rows, masks: np.ndarray, timed: bool = False):
     """g1_aggregate against the plain aggregate_kernel on the card on one
-    [B, N] batch: every coordinate equal after canonical (and limb for
-    limb), every affine sum equal to the oracle's fold. Returns (max
-    difference after canonical, kernel ms, plain ms, affine sums)."""
+    [B, N] batch: every coordinate equal after canonical, every affine sum
+    equal to the oracle's fold. Returns (max difference after canonical,
+    kernel ms, plain ms, affine sums, limbs equal: False where the
+    kernel's canonical limbs differ from the plain version's redundant
+    ones)."""
     from hyperdrive_tpu_torch.crypto import bls
     from hyperdrive_tpu_torch.ops import fp381 as fp
     from hyperdrive_tpu_torch.ops import g1
@@ -2116,8 +2218,38 @@ def _g1_compare(label: str, points_rows, masks: np.ndarray, timed: bool = False)
              for r, row in zip(points_rows, masks)]
     if err or sums != folds:
         raise AssertionError(f"bls {label}: kernel != plain (max {err}) or != the oracle")
-    k_ms = time_ms(lambda: g1.g1_aggregate(*args), 5) if timed else None
+    k_ms = None
+    if timed:
+        k_ms = {"call": time_ms(lambda: g1.g1_aggregate(*args), 5),
+                "alone": _g1_alone_ms(args, got)}
     return err, k_ms, p_ms, sums, limbs_equal
+
+
+def _g1_alone_ms(args, want) -> float:
+    """The g1_aggregate kernel alone: 100 back-to-back ``hd_g1_aggregate``
+    calls through the library on pre-made outputs (and scratch), between
+    two CUDA events; their outputs must equal ``want``, the wrapper's."""
+    from hyperdrive_tpu_torch.ops import g1_cuda
+
+    px, py, pz, mask = args
+    bsz, n, _ = px.shape
+    index = torch.cuda.current_device()
+    lib = g1_cuda._library(index)
+    outs = [torch.empty_like(w) for w in want]
+    words = g1_cuda.scratch_words(n)
+    scratch = torch.empty(bsz * words, dtype=torch.int32, device="cuda") if words else None
+    call = (index, px.data_ptr(), py.data_ptr(), pz.data_ptr(), mask.data_ptr(), bsz, n,
+            None if scratch is None else scratch.data_ptr(),
+            *(o.data_ptr() for o in outs), torch.cuda.current_stream().cuda_stream)
+
+    def direct():
+        if lib.hd_g1_aggregate(*call) != 0:
+            raise AssertionError("hd_g1_aggregate launch failed")
+
+    ms, _ = burst_ms(direct)
+    if not all(torch.equal(o, w) for o, w in zip(outs, want)):
+        raise AssertionError("direct hd_g1_aggregate calls != the wrapper's")
+    return ms
 
 
 def phase_bls(clock_mhz: float, sms: int):
@@ -2169,14 +2301,27 @@ def phase_bls(clock_mhz: float, sms: int):
         bls.aggregate_signatures(sel)
         host_s = time.perf_counter() - t0
         b_ms, b_by = g1_bound_ms(mask.sum(axis=1), width, clock_mhz, sms)
-        rows[width] = {"ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by,
-                       "err": err}
+        rows[width] = {"ms": k_ms["alone"], "call_ms": k_ms["call"], "plain_ms": p_ms,
+                       "bound_ms": b_ms, "bound_by": b_by, "err": err}
         worst = max(worst, err)
-        print(f"kernel g1_aggregate: lanes={width} selected={len(sel)} blocks=1 "
-              f"kernel_ms={k_ms:.4f} plain_ms={p_ms:.2f} host_fold_s={host_s:.4f} "
-              f"bound_ms={b_ms:.6f} bound_by={b_by} bound_share={b_ms / k_ms:.6f} "
+        print(f"kernel g1_aggregate: lanes={width} selected={len(sel)} "
+              f"blocks={g1_cuda.CLUSTER} cluster={g1_cuda.CLUSTER} "
+              f"sums_in={'global' if g1_cuda.scratch_words(width) else 'shared'} "
+              f"kernel_ms={k_ms['alone']:.4f} wrapper_call_ms={k_ms['call']:.4f} "
+              f"plain_ms={p_ms:.2f} host_fold_s={host_s:.4f} "
+              f"bound_ms={b_ms:.6f} bound_by={b_by} bound_share={b_ms / k_ms['alone']:.6f} "
               f"equal_after_canonical=True limbs_equal={same} equals_oracle=True",
               flush=True)
+    # The earlier design was timed as one wrapper call between two events:
+    # wrapper_call_ms is the like-for-like figure, kernel_ms (back-to-back
+    # launches) the kernel's own.
+    print("redesign: g1_aggregate over the earlier design's recorded times (one block a "
+          "committee): "
+          + " ".join(f"lanes={w} kernel_ms={rows[w]['ms']:.4f} "
+                     f"wrapper_call_ms={rows[w]['call_ms']:.4f} earlier_ms={lo}-{hi} "
+                     f"kernel_ratio={rows[w]['ms'] / hi:.4f}-{rows[w]['ms'] / lo:.4f} "
+                     f"call_ratio={rows[w]['call_ms'] / hi:.4f}-{rows[w]['call_ms'] / lo:.4f}"
+                     for w, (lo, hi) in G1_EARLIER_MS.items()), flush=True)
     args256 = g1.from_reference(
         [c[None] for c in g1.pack_points(pts[:256])] + [np.ones((1, 256), np.int32)], "cuda")
     print(f"programs: bls aggregate_kernel (plain) lanes=256 cuda_kernels_per_call="
@@ -2198,6 +2343,24 @@ def phase_bls(clock_mhz: float, sms: int):
     for width in BLS_ODD:
         mask = (rng.random((1, width)) < 2 / 3).astype(np.int32)
         worst = max(worst, _g1_compare(f"odd {width}", [pts[:width]], mask)[0])
+    for width in BLS_SMALL:  # all set, and one lane set
+        masks = np.ones((2, width), np.int32)
+        masks[1, :-1] = 0
+        worst = max(worst, _g1_compare(f"width {width}", [pts[:width]] * 2, masks)[0])
+    # Above the cluster's shared memory: the sums in the global scratch.
+    if g1_cuda.scratch_words(BLS_WIDE) == 0:
+        raise AssertionError(f"bls: {BLS_WIDE} lanes fit in shared memory; pick a wider width")
+    wide = derive_g1_points(BLS_WIDE)
+    mask = (rng.random((1, BLS_WIDE)) < 2 / 3).astype(np.int32)
+    err, w_ms, wp_ms, _, _ = _g1_compare(f"{BLS_WIDE} lanes", [wide], mask, timed=True)
+    worst = max(worst, err)
+    wb_ms, wb_by = g1_bound_ms(mask.sum(axis=1), BLS_WIDE, clock_mhz, sms)
+    print(f"kernel g1_aggregate: lanes={BLS_WIDE} selected={int(mask.sum())} "
+          f"blocks={g1_cuda.CLUSTER} cluster={g1_cuda.CLUSTER} sums_in=global "
+          f"max_shared_width={g1_cuda.MAX_SHARED_WIDTH} kernel_ms={w_ms['alone']:.4f} "
+          f"wrapper_call_ms={w_ms['call']:.4f} plain_ms={wp_ms:.2f} bound_ms={wb_ms:.6f} "
+          f"bound_by={wb_by} bound_share={wb_ms / w_ms['alone']:.6f} "
+          f"equal_after_canonical=True equals_oracle=True", flush=True)
     # The batched launcher: 8 committees of 256 lanes, one drain, one launch.
     payloads = [pts[i::BLS_BATCH][: w - BLS_BATCH + i] for i in range(BLS_BATCH)]
     batch_masks = np.zeros((BLS_BATCH, w), np.int32)
@@ -2216,7 +2379,8 @@ def phase_bls(clock_mhz: float, sms: int):
         raise AssertionError("bls: G1SumLauncher did not fold 8 payloads in one launch")
     rows["edges"] = {"err": worst}
     print(f"bls edges: all_masked=identity identity_rows P_minus_P P_twice odd_widths="
-          f"{','.join(map(str, BLS_ODD))} batched={BLS_BATCH}x{w} (G1SumLauncher: 1 "
+          f"{','.join(map(str, BLS_ODD))} small_widths={','.join(map(str, BLS_SMALL))} "
+          f"wide={BLS_WIDE} batched={BLS_BATCH}x{w} (G1SumLauncher: 1 "
           f"launch for {BLS_BATCH} payloads) equal_after_canonical=True "
           f"equals_oracle=True max_abs_err={worst}", flush=True)
 

@@ -207,10 +207,11 @@ def g1_aggregate(px, py, pz, mask):
     ``[B, N, 30]`` (Montgomery limbs, any signed redundant form within the
     fp381 invariant), mask int32 ``[B, N]``, N >= 1 -> ``[B, 1, 30]`` x3.
 
-    A CUDA tensor launches the ``g1_aggregate`` kernel (one block a
-    committee) on the current stream without synchronizing, limb for limb
-    :func:`aggregate_kernel`, which CPU tensors run. No fallback from one
-    to the other."""
+    A CUDA tensor launches the ``g1_aggregate`` kernel (one cluster of
+    blocks a committee) on the current stream without synchronizing: the
+    tree and formula of :func:`aggregate_kernel`, which CPU tensors run,
+    so each coordinate is its field element, in canonical limbs. No
+    fallback from one to the other."""
     device = g1_cuda.check_aggregate(px, py, pz, mask)
     if device.type == "cpu":
         return aggregate_kernel(px, py, pz, mask)

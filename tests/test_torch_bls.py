@@ -279,10 +279,20 @@ def test_g1_aggregate_checks_its_inputs():
 
 
 def test_kernel_constants_come_from_the_reference_field():
+    # The kernel's 12 x 32-bit field (R = 2^384): p, n0' = -p^-1 mod 2^32,
+    # 1 and its negative fold, and the conversions from and to the
+    # reference's R = 2^390, each from the reference field's modulus.
     block = g1_cuda.consts_block()
     assert block.shape == (61,) and block.dtype == np.int32
-    assert (block[:30] == ref_fp.to_limbs(ref_fp.P_INT)).all()
-    assert (block[30:60] == ref_fp.ONE).all() and block[60] == ref_fp.MONT.n0p
+    w = [int(v) for v in block.view(np.uint32)]
+
+    def val(k):
+        return sum(x << (32 * i) for i, x in enumerate(w[k:k + 12]))
+
+    p = ref_fp.P_INT
+    assert val(0) == p and (p * w[12]) % (1 << 32) == (1 << 32) - 1
+    assert val(13) == (1 << 384) % p and val(25) == p - (1 << 384) % p
+    assert val(37) * (1 << 12) % p == ref_fp.MONT.encode(1) == val(49) == 2 ** 390 % p
     assert g1_cuda.stats["g1_aggregate"].launches == 0  # CPU tensors launch nothing
 
 
