@@ -6,8 +6,9 @@ Phases, each printing its lines:
 
 1. card: the card's name and power limit as nvidia-smi prints them, then
    the nvcc builds of the two kernel libraries (the three verify kernels
-   and the challenge kernel in one unit, ``g1_aggregate`` in another; both
-   nvcc calls started together) from the sources in this checkout, with
+   and the challenge kernel in one unit, ``g1_aggregate`` in another) and
+   of the probe unit, all three nvcc calls started together, from the
+   sources in this checkout, with
    each kernel's registers, stack and spills as ptxas reports them; then
    the g++ build of the native host runtime (``hyperdrive_tpu_torch/
    native``: signer, packers, host verifier) and its host times a
@@ -30,18 +31,34 @@ Phases, each printing its lines:
    multiply instructions of the 8 x 32-bit field for the same work) and
    its share; then the 256-lane time of each wire kernel over
    ``ed25519_verify``'s in the same run;
-3. ``ed25519_challenge`` (SHA-512 and the reduction mod L in one kernel):
-   k rows of a 256-lane sample equal the host's challenge scalars on both
-   forms (per-lane and grouped digests); kernel against its plain version
-   (the PyTorch-ops leg) byte for byte on both forms at 64 lanes (the
-   deployment capstone's bucket), 256, 1,024 (the pipelined runs'
-   coalesced batch) and 4,096, with edge digests (all-zero and all-0xff M) and R = 0xff...;
-   kernel and plain times, the integer-instruction bound and its share;
-   then, at each width, the kernel alone (``kernel ed25519_challenge
-   alone:``): 100 back-to-back wrapper calls and 100 back-to-back direct
-   ``hd_ed25519_challenge`` calls between two CUDA events, the host's
-   enqueue time a call beside them, the throughput bound and the latency
-   bound (one lane's dependent instructions, ``depth_challenge``);
+3. ``ed25519_challenge`` (SHA-512 and the reduction mod L in one kernel,
+   two warps a 32 lanes): k rows of a 256-lane sample equal the host's
+   challenge scalars on both forms (per-lane and grouped digests); edge
+   lanes against the plain version (n = 1, 31, 33; indices outside the
+   table and digest indices at or above U, which read zeros); kernel
+   against its plain version (the PyTorch-ops leg) byte for byte on both
+   forms at 64 lanes (the deployment capstone's bucket), 256, 1,024 (the
+   pipelined runs' coalesced batch) and 4,096, with edge digests (all-zero
+   and all-0xff M) and R = 0xff...; before the timings, from the probe
+   unit (``csrc/ed25519_probe.cu``, built beside the libraries): the
+   empty kernel's device time at the kernel's grid (``floor:``), the
+   dependent latency and issue interval of the round's integer
+   instructions (``latency:``) and the kernel's SASS, executed
+   instructions by warp and dependent chain (``sass:``); kernel and plain
+   times, the integer-instruction bound and its share; at each width the
+   kernel alone (``kernel ed25519_challenge alone:``): its device time
+   under the profiler (or, when CUPTI records none, between CUDA events
+   queued behind a spin kernel; ``device_ms_by=`` says which) over direct
+   ``hd_ed25519_challenge`` calls, 100
+   back-to-back wrapper and direct calls between two CUDA events with the
+   host's enqueue time a call, the throughput bound, the latency bound
+   (``depth_challenge`` at the measured latency) and, as diagnostics, the
+   busiest warp's issue time and the floor; phase stamps of the kernel at
+   256 and 4,096 lanes (``stamps:``, clock64 cycles since entry by warp);
+   the ratio to the first design's recorded times (``redesign:``); and
+   ``chal_semiwire_verify`` (both kernels in one library call) against
+   the two wrapper calls at 256 and 4,096 lanes, verdicts and k rows
+   equal, with both paths' host times (``chal_semiwire:``);
 4. the vote grid (``ops/votegrid.py``, PyTorch ops, no hand-written
    kernel) at the main path's shape (n = V = 256, R = 4): one seeded
    sequence of settles (scatters with resets and L28 lanes, an empty
@@ -66,7 +83,8 @@ Phases, each printing its lines:
    tally_check=CheckedTallyView`` through the packed verifier (every
    vote-bearing settle verified, merged and tallied in one fused call)
    and through the table's challenge route (verify, then a separate tally
-   launch on every settle). Each run is checked for safety, against one
+   launch on every settle); the challenge routes make one library call a
+   settle (``chal_semiwire_calls``). Each run is checked for safety, against one
    run with the host verifier (digest, steps, heights), and for having
    launched its own kernels, each at least once per vote-bearing settle,
    and no other; the device-tally runs also for device counts consulted
@@ -356,27 +374,26 @@ def ops_challenge() -> int:
 
 # The challenge kernel's latency bound: one lane's dependent chain, in
 # instructions, times the cycles from one integer instruction to the next
-# that reads its result. Counting rule: a round's e and a chains run side
-# by side, each a rotation (one funnel shift), a three-input logic function
-# (one LOP3) and a sum of five terms as two three-input additions of the low
-# halves and the carry into the high half (3 deep): 5 a round, 80 rounds;
-# the feed-forward a 64-bit addition (2) and a byte swap (1); each fold a
-# wavefront of its rows over its limbs, limbs + rows steps of a
-# multiply-add and its carry (2 each); each conditional subtraction of L an
-# 8-limb borrow chain (2 a limb) and its select (1). The loads of the rows
-# are not counted.
+# that reads its result. Counted in the kernel's SASS (``sass_chain`` over
+# ``cuobjdump -sass`` of the sm_90a build; ``phase_challenge`` prints the
+# counts of the build it runs): the loop body of 16 rounds is 81
+# instructions deep, 5 a round (a round's e and a chains run side by side:
+# a funnel shift, a LOP3, a three-input addition and its carry, and one
+# more addition for d + t1 or t1 + Sigma0 + Maj); the feed-forward, the
+# three folds, the two subtractions of L and the store's selects after the
+# rounds are 93 deep. The loads of the rows are not counted.
 ROUND_DEPTH = 5
-#: Cycles from a fixed-latency integer instruction (IADD3, LOP3, SHF, IMAD)
-#: to one that reads its result, compute capability 7.0 on (Jia et al.,
-#: "Dissecting the NVIDIA Volta GPU Architecture via Microbenchmarking",
-#: 2018); not measured on this card.
-DEP_LATENCY_CYCLES = 4
+REDUCE_DEPTH = 93
+#: Cycles from an integer instruction to one that reads its result on an
+#: H100: the median over IADD3 (4.31), IADD3 -> IADD3.X carry pairs (5.06),
+#: SHF (4.16), LOP3 (3.96) and IMAD (4.13), chip_smoke.py's chain probes
+#: (``Probe.chains``; ``latency:`` lines, NVIDIA H100 80GB HBM3, 700.00 W).
+DEP_LATENCY_CYCLES = 4.157
 
 
 def depth_challenge() -> int:
     """One lane's dependent instructions (the rule above)."""
-    folds = sum(2 * (nr + nb) for nb, nr in SC_FOLDS)
-    return 80 * ROUND_DEPTH + 2 + 1 + folds + 2 * (2 * 8 + 1)
+    return 80 * ROUND_DEPTH + REDUCE_DEPTH
 
 
 def challenge_latency_ms(clock_mhz: float) -> float:
@@ -443,6 +460,55 @@ def burst_ms(fn, reps: int = 100) -> tuple:
     return a.elapsed_time(b) / reps, host
 
 
+def queued_ms(fn, reps: int = 50) -> float:
+    """Device ms a call over ``reps`` back-to-back calls of ``fn`` between
+    two CUDA events, enqueued behind a spin kernel so that the card runs
+    them back to back whatever the host's enqueue rate; the spin must still
+    be running when the last call is enqueued, or the time is refused."""
+    fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    for cycles in (20_000_000, 400_000_000):
+        torch.cuda._sleep(cycles)
+        a.record()
+        for _ in range(reps):
+            fn()
+        b.record()
+        queued = not a.query()
+        b.synchronize()
+        if queued:
+            return a.elapsed_time(b) / reps
+    raise AssertionError("the spin kernel ended before the calls were enqueued")
+
+
+def device_ms(fn, kernel: str, reps: int = 50) -> tuple:
+    """(mean device ms of one launch of ``kernel``, the method that gave it).
+    The method is "profiler": ``kernel`` (a substring of its name) over
+    ``reps`` calls of ``fn`` under ``torch.profiler`` (CUDA activity), after
+    one warm-up call, each call launching it once. CUPTI now and then
+    records no kernel in a session: after three such sessions the method is
+    "queued", ``queued_ms`` (which also counts the card's gap between two
+    launches)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    seen = []
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        evs = [e for e in prof.key_averages() if kernel in e.key]
+        if sum(e.count for e in evs) == reps:
+            return sum(e.device_time_total for e in evs) / reps / 1e3, "profiler"
+        seen.append([(e.key[:48], e.count) for e in evs])
+    print(f"profiler: {kernel} not recorded in 3 sessions (saw {seen}); "
+          "timed with CUDA events behind a spin kernel instead", flush=True)
+    return queued_ms(fn, reps), "queued"
+
+
 def _ring():
     from hyperdrive_tpu_torch.crypto.keys import KeyRing
 
@@ -507,8 +573,10 @@ def ptxas_report(log: str) -> list:
 
 
 def phase_card():
-    """Build every kernel library from the sources in this checkout, one
-    nvcc a unit, all started together, and print what ptxas reports."""
+    """Build every kernel library and the probe unit from the sources in
+    this checkout, one nvcc a unit, all started together, and print what
+    ptxas reports. Returns the paths of the ed25519 library and the probe
+    library."""
     from concurrent.futures import ThreadPoolExecutor
 
     from hyperdrive_tpu_torch.ops import ed25519_cuda, g1_cuda
@@ -520,22 +588,33 @@ def phase_card():
         lib = mod.build(force=True)
         return lib, time.perf_counter() - t0
 
+    class _Probe:  # the probe unit, built like the kernel libraries
+        @staticmethod
+        def build(force=False):
+            return ed25519_cuda.build_library("probe", "ed25519_probe.cu", PROBE_SOURCES,
+                                              force)
+
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(2) as pool:
-        built = list(pool.map(timed_build, (ed25519_cuda, g1_cuda)))
+    with ThreadPoolExecutor(3) as pool:
+        built = list(pool.map(timed_build, (ed25519_cuda, g1_cuda, _Probe)))
     wall = time.perf_counter() - t0
     report = []
-    for lib, build_s in built:
+    for lib, build_s in built[:2]:
         entries = ptxas_report((lib.parent / "nvcc.log").read_text())
         report += entries
         print(f"build: nvcc {build_s:.2f} s for {lib.name} ({len(entries)} kernels, "
               f"one unit)", flush=True)
+    print(f"build: nvcc {built[2][1]:.2f} s for {built[2][0].name} (probes, one unit)",
+          flush=True)
     if len(report) != len(KERNELS):
         raise AssertionError(f"expected {len(KERNELS)} kernels in the ptxas logs, got {report}")
     print(f"build: {len(built)} units in parallel, {wall:.2f} s wall", flush=True)
     for name, regs, stack, st, ld in report:
         print(f"ptxas: {name} registers={regs} stack_bytes={stack} "
               f"spill_stores={st} spill_loads={ld}", flush=True)
+        if name == "hd_ed25519_challenge_kernel" and (stack or st or ld):
+            raise AssertionError("the challenge kernel uses a stack or spills")
+    return built[0][0], built[2][0]
 
 
 def _host_us(fn, count: int, reps: int = 5) -> float:
@@ -770,7 +849,7 @@ def _challenge_inputs(lanes: int, table, pool, rng, digests: int = 16):
     return idx, r_rows, m_rows, m_idx, m_uniq
 
 
-def phase_challenge(state, clock_mhz: float, sms: int) -> dict:
+def phase_challenge(state, clock_mhz: float, sms: int, lib, probe_lib) -> dict:
     from hyperdrive_tpu_torch.crypto import ed25519 as host_ed
     from hyperdrive_tpu_torch.ops import bucketing, ed25519_cuda
     from hyperdrive_tpu_torch.ops import ed25519_wire as wire
@@ -795,7 +874,10 @@ def phase_challenge(state, clock_mhz: float, sms: int) -> dict:
             raise AssertionError(f"grouped challenge differs from the host on lane {i}")
     print("kernel ed25519_challenge: oracle sample 256 lanes agree (per-lane and grouped)",
           flush=True)
+    _challenge_edges(table, pool, np.random.default_rng(SEED + 3))
 
+    probe = Probe(probe_lib)
+    diag = _challenge_probes(probe, lib, clock_mhz)
     rng = np.random.default_rng(SEED + 2)
     rows = {}
     # The deployment capstone's 64-lane bucket, a sequential vote window, a
@@ -824,23 +906,145 @@ def phase_challenge(state, clock_mhz: float, sms: int) -> dict:
             p_ms = time_ms(lambda plain=plain, args=args: plain(*args), 5)
             b_ms, b_by = bound_ms("ed25519_challenge", lanes, clock_mhz, sms, uniq)
             print(f"kernel ed25519_challenge: form={form} lanes={lanes} "
-                  f"digests={digests if uniq else lanes} threads_per_lane=1 "
+                  f"digests={digests if uniq else lanes} warps_per_32_lanes=2 "
                   f"launches=1 kernel_ms={k_ms:.4f} plain_ms={p_ms:.3f} "
                   f"lanes_per_s={lanes / k_ms * 1e3:.0f} bound_ms={b_ms:.6f} "
                   f"bound_by={b_by} bound_share={b_ms / k_ms:.4f} mismatches=0", flush=True)
             if form == "grouped":
-                alone = _challenge_alone(lanes, args, k_ms, b_ms, clock_mhz)
+                alone = _challenge_alone(lanes, args, k_ms, b_ms, clock_mhz, diag)
                 rows[lanes] = {"ms": alone, "plain_ms": p_ms, "bound_ms": b_ms,
                                "bound_by": b_by, "err": err}
+    for lanes in (PATH_LANES, SIZES[-1]):
+        idx, r_rows, _, m_idx, m_uniq = _challenge_inputs(lanes, table, pool, rng)
+        got = probe.stamps((idx, r_rows, m_idx, m_uniq, table.rows), lanes)
+        print(f"stamps: challenge lanes={lanes} clock_mhz={clock_mhz:.0f} "
+              f"cycles_since_entry={json.dumps(got['warps'], sort_keys=True)} "
+              f"entry_spread_ns={got['entry_spread_ns']} span_ns={got['span_ns']}", flush=True)
+    print("redesign: challenge kernel alone, PR 11's recorded time over this run's "
+          + " ".join(f"lanes={n}: device {CHAL_PR11_DEVICE[n] / rows[n]['ms']:.2f}x"
+                     for n in sorted(rows)), flush=True)
+    _chal_semiwire_check(state, np.random.default_rng(SEED + 4))
     return rows
 
 
-def _challenge_alone(lanes: int, args, call_ms: float, b_ms: float, clock_mhz: float) -> float:
-    """The grouped challenge kernel's own time: 100 back-to-back wrapper
-    calls, then 100 back-to-back calls of ``hd_ed25519_challenge`` through
-    the library on pre-made inputs and output (no Python checks, no
-    allocation). Prints both beside the single wrapper call's time, the
-    throughput bound and the latency bound; returns the direct time."""
+#: The first design's recorded times (PERF.md section 6, row 4: PR 11 run
+#: 8, device time of one launch under the profiler, grouped form, NVIDIA
+#: H100 80GB HBM3, 700.00 W), ms by lanes; 1,024 stands for the pipelined
+#: batch's bucket.
+CHAL_PR11_DEVICE = {64: 0.0071, 256: 0.0069, 1024: 0.0078, 4096: 0.0080}
+#: Lanes and threads of a challenge block, and the trips of its chunk loop
+#: (chunks 2-5; ``csrc/ed25519_challenge.cu``).
+CHAL_LANES, CHAL_THREADS, CHAL_LOOP_TRIPS = 32, 64, 4
+
+
+def _challenge_edges(table, pool, rng) -> None:
+    """The kernel against its plain version on edge lanes, both forms: n =
+    1, 31 and 33 (a lone lane, a short block, one lane past a block), and
+    a 64-lane batch with table indices outside the table (V, V + 7, -1,
+    2^31 - 1) and digest indices at or above U (U, 255). The kernel reads
+    zeros there, so the plain version runs on tables with a zero row
+    appended and those indices pointed at it."""
+    from hyperdrive_tpu_torch.ops import ed25519_cuda
+    from hyperdrive_tpu_torch.ops import ed25519_wire as wire
+
+    v, u = table.rows.shape[0], 16
+    zrow = torch.zeros((1, 32), dtype=torch.uint8, device="cuda")
+    tz = torch.cat([table.rows, zrow])
+    checked = 0
+    for lanes in (1, 31, 33, 64):
+        idx, r_rows, m_rows, m_idx, m_uniq = _challenge_inputs(max(lanes, 3), table, pool,
+                                                               rng)
+        idx, r_rows, m_rows, m_idx = idx[:lanes], r_rows[:lanes], m_rows[:lanes], m_idx[:lanes]
+        if lanes == 64:
+            idx[3], idx[4], idx[5], idx[6] = v, v + 7, -1, 2**31 - 1
+            m_idx[7], m_idx[8] = u, 255
+        ip = torch.where((idx >= 0) & (idx < v), idx, v).to(torch.int32)
+        mp = torch.where(m_idx < u, m_idx, u).to(torch.uint8)
+        mz = torch.cat([m_uniq, zrow])
+        got = ed25519_cuda.challenge(idx, r_rows, m_rows, table.rows)
+        want = wire.challenge(ip, r_rows, m_rows, tz)
+        gg = ed25519_cuda.challenge_grouped(idx, r_rows, m_idx, m_uniq, table.rows)
+        wg = wire.challenge_grouped(ip, r_rows, mp, mz, tz)
+        if not (torch.equal(got, want) and torch.equal(gg, wg)):
+            raise AssertionError(f"ed25519_challenge differs from plain on the edge lanes "
+                                 f"(n={lanes})")
+        checked += 2 * lanes
+    print(f"kernel ed25519_challenge: edge lanes agree with plain, both forms (n = 1, 31, "
+          f"33; 64 lanes with 4 indices outside the table and 2 digest indices >= U; "
+          f"{checked} lanes)", flush=True)
+
+
+def sass_warp_split(ins, trips: int) -> dict:
+    """The challenge kernel's SASS by warp: the code between EXITs that
+    holds the producer's releases (BAR.ARV) and the round warp's waits
+    (BAR.SYNC), each as (instructions executed with its chunk loop taken
+    ``trips`` times, the loop body's dependent chain per round, the chain
+    after the loop: the feed-forward, reduction and store). The shared
+    prologue counts in the part where the compiler put it."""
+    parts, cur = [], []
+    for item in ins:
+        cur.append(item)
+        if item[0] == "EXIT":
+            parts.append(cur)
+            cur = []
+    parts.append(cur)
+    out = {}
+    for part in parts:
+        role = ("producer" if any(m.startswith("BAR.ARV") for m, _, _ in part)
+                else "rounds" if any(m.startswith("BAR.SYNC") for m, _, _ in part) else None)
+        if role is None:
+            continue
+        loop = sass_loop(part)
+        body = loop[1] - loop[0] if loop else 0
+        out[role] = (len(part) + (trips - 1) * body,
+                     sass_chain(part[loop[0]:loop[1]]) / 16 if loop else 0.0,
+                     sass_chain(part[loop[1]:]) if loop else 0)
+    return out
+
+
+def _challenge_probes(probe, lib, clock_mhz: float) -> dict:
+    """Print the launch floor, the chain probes and the challenge kernel's
+    SASS by warp; returns the diagnostics ``_challenge_alone`` prints."""
+    floors = {}
+    for lanes in (PATH_LANES, SIZES[-1]):
+        blocks = -(-lanes // CHAL_LANES)
+        (dev, by), one, back, host = probe.floor(blocks, CHAL_THREADS)
+        floors[lanes] = dev
+        print(f"floor: empty kernel blocks={blocks} threads={CHAL_THREADS} "
+              f"device_ms={dev:.5f} device_ms_by={by} one_launch_ms={one:.5f} "
+              f"burst_ms={back:.5f} host_ms={host:.5f}", flush=True)
+    chains = probe.chains(clock_mhz)
+    lat = statistics.median(chains[k][0] for k in CHAIN_TYPES)
+    issue = statistics.median(chains[k][2] for k in CHAIN_TYPES)
+    print("latency: dependent cycles " + " ".join(f"{k}={v[0]:.3f}" for k, v in chains.items())
+          + f" median={lat:.3f} (in use: {DEP_LATENCY_CYCLES})", flush=True)
+    print("latency: issue cycles (8 chains, one warp) "
+          + " ".join(f"{k}={v[2]:.3f}" for k, v in chains.items())
+          + f" median={issue:.3f}", flush=True)
+    sass = next(v for k, v in sass_functions(lib).items() if "challenge_kernel" in k)
+    warps = sass_warp_split(sass, CHAL_LOOP_TRIPS)
+    busiest = max(n for n, _, _ in warps.values())
+    rounds = warps["rounds"]
+    print(f"sass: hd_ed25519_challenge_kernel instructions={len(sass)} executed: "
+          + " ".join(f"{k}={v[0]}" for k, v in sorted(warps.items()))
+          + f" round_chain_per_round={rounds[1]:.2f} after_loop_chain={rounds[2]} "
+          f"(in use: ROUND_DEPTH={ROUND_DEPTH} REDUCE_DEPTH={REDUCE_DEPTH}, "
+          f"dependent_instructions={depth_challenge()})", flush=True)
+    return {"floor": floors, "issue_ms": busiest * issue / (clock_mhz * 1e3)}
+
+
+def _challenge_alone(lanes: int, args, call_ms: float, b_ms: float, clock_mhz: float,
+                     diag: dict) -> float:
+    """The grouped challenge kernel's own time: its device time
+    (``device_ms``: the profiler, else queued CUDA events) over 50 direct
+    calls of ``hd_ed25519_challenge`` on pre-made inputs and output (no
+    Python checks, no allocation), beside 100
+    back-to-back wrapper calls and 100 back-to-back direct calls between
+    two CUDA events (host-bound when the host enqueues slower than the card
+    runs), the single wrapper call's time, the throughput bound, the
+    latency bound and, as diagnostics that are not the bound, the busiest
+    warp's issue time and the empty kernel's device time at this grid.
+    Returns the device time."""
     from hyperdrive_tpu_torch.ops import ed25519_cuda
 
     idx, r_rows, m_idx, m_uniq, trows = args
@@ -857,17 +1061,250 @@ def _challenge_alone(lanes: int, args, call_ms: float, b_ms: float, clock_mhz: f
             raise AssertionError("hd_ed25519_challenge launch failed")
 
     direct_ms, direct_host = burst_ms(direct)
+    dev_ms, dev_by = device_ms(direct, "hd_ed25519_challenge_kernel")
     if not torch.equal(out, ed25519_cuda.challenge_grouped(*args)):
         raise AssertionError("direct hd_ed25519_challenge calls != the wrapper's")
     lat = challenge_latency_ms(clock_mhz)
+    floor = diag["floor"].get(lanes)
     print(f"kernel ed25519_challenge alone: form=grouped lanes={lanes} "
+          f"device_ms={dev_ms:.5f} device_ms_by={dev_by} "
           f"wrapper_call_ms={call_ms:.4f} wrapper_burst_ms={wrap_ms:.4f} "
           f"wrapper_host_ms={wrap_host:.4f} direct_burst_ms={direct_ms:.4f} "
           f"direct_host_ms={direct_host:.4f} host_bound={direct_host >= 0.9 * direct_ms} "
           f"bound_ms={b_ms:.6f} latency_bound_ms={lat:.6f} "
           f"dependent_instructions={depth_challenge()} "
-          f"latency_share={lat / direct_ms:.4f}", flush=True)
-    return direct_ms
+          f"latency_share={lat / dev_ms:.4f} issue_bound_ms={diag['issue_ms']:.6f} "
+          f"floor_ms={'not measured' if floor is None else f'{floor:.5f}'}", flush=True)
+    return dev_ms
+
+
+def _chal_semiwire_check(state, rng) -> None:
+    """``chal_semiwire_verify`` (one library call, both kernels) against
+    ``challenge[_grouped]`` then ``semiwire_verify`` at 256 and 4,096
+    lanes, both forms: verdicts and k rows equal, one launch counted under
+    each kernel; then each path's host time a call and back-to-back device
+    time (100 calls)."""
+    from hyperdrive_tpu_torch.ops import ed25519_cuda
+
+    items, table, pool, _ = state
+    arrays = table.arrays()
+    for lanes in (PATH_LANES, SIZES[-1]):
+        pick = rng.integers(0, POOL, lanes)
+        pt = torch.from_numpy(pick).to("cuda")
+        idx, r_rows, s_rows = (pool[i][pt].contiguous() for i in range(3))
+        m = np.stack([np.frombuffer(items[i][1], dtype=np.uint8) for i in pick])
+        m_rows = torch.from_numpy(m).to("cuda")
+        m_uniq = m_rows[:16].contiguous()
+        m_idx = torch.from_numpy((np.arange(lanes) % 16).astype(np.uint8)).to("cuda")
+        k_rows = torch.empty((lanes, 32), dtype=torch.uint8, device="cuda")
+        forms = {
+            "per_lane": (lambda: ed25519_cuda.chal_semiwire_verify(
+                idx, r_rows, s_rows, m_rows, table.rows, *arrays, k_rows),
+                lambda: ed25519_cuda.challenge(idx, r_rows, m_rows, table.rows)),
+            "grouped": (lambda: ed25519_cuda.chal_semiwire_verify(
+                idx, r_rows, s_rows, m_uniq, table.rows, *arrays, k_rows, m_idx=m_idx),
+                lambda: ed25519_cuda.challenge_grouped(idx, r_rows, m_idx, m_uniq,
+                                                       table.rows)),
+        }
+        for form, (combined, chal) in forms.items():
+            ed25519_cuda.reset_stats()
+            ok = combined()
+            launched = (ed25519_cuda.stats["ed25519_challenge"].launches,
+                        ed25519_cuda.stats["ed25519_semiwire"].launches)
+            k = chal()
+            want = ed25519_cuda.semiwire_verify(idx, r_rows, s_rows, k, *arrays)
+            if launched != (1, 1) or not torch.equal(ok, want) or not torch.equal(k_rows, k):
+                raise AssertionError(f"chal_semiwire_verify ({form}, {lanes} lanes) != the "
+                                     f"two launches (launches {launched})")
+
+            def separate(chal=chal):
+                return ed25519_cuda.semiwire_verify(idx, r_rows, s_rows, chal(), *arrays)
+
+            c_ms, c_host = burst_ms(combined)
+            s_ms, s_host = burst_ms(separate)
+            print(f"chal_semiwire: form={form} lanes={lanes} verdicts_equal=True "
+                  f"accepted={int(ok.sum())} combined_host_ms={c_host:.4f} "
+                  f"separate_host_ms={s_host:.4f} combined_burst_ms={c_ms:.4f} "
+                  f"separate_burst_ms={s_ms:.4f}", flush=True)
+
+
+#: The probe unit (``csrc/ed25519_probe.cu``): the launch floor, the
+#: integer latency and issue probes and the stamped challenge kernel.
+PROBE_SOURCES = ("fe25519_w32.cuh", "ed25519_challenge.cu", "ed25519_probe.cu")
+#: (label, op of ``hd_probe_chain_run``, SASS mnemonics counted in its loop).
+PROBE_OPS = (("IADD3", 0, ("IADD3",)), ("IADD3.X", 1, ("IADD3", "IMAD")), ("SHF", 2, ("SHF",)),
+             ("LOP3", 3, ("LOP3",)), ("IMAD", 4, ("IMAD",)),
+             ("LOP3+IMAD", 5, ("LOP3", "IMAD")), ("IMAD.HI", 6, ("IMAD",)))
+PROBE_ITERS = 64
+#: The instructions on the round's dependent chains, whose median latency
+#: and issue interval the bound and the diagnostics use.
+CHAIN_TYPES = ("IADD3", "IADD3.X", "SHF", "LOP3", "IMAD")
+SASS_LINE = re.compile(
+    r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Z0-9_.]*)([^;]*);")
+SASS_REG = re.compile(r"\b(R\d+|P[0-6]|UR\d+|UP[0-6])\b")
+
+
+def sass_functions(lib) -> dict:
+    """``cuobjdump -sass`` of a built library: {function name: [(mnemonic,
+    operands, address), ...]} in program order."""
+    tool = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    text = subprocess.run([tool, "-sass", str(lib)], capture_output=True, text=True,
+                          check=True).stdout
+    out = {}
+    for part in text.split("Function : ")[1:]:
+        name, body = part.split("\n", 1)
+        out[name.strip()] = [(m.group(2), m.group(3).strip(), int(m.group(1), 16))
+                             for m in SASS_LINE.finditer(body)]
+    return out
+
+
+def _clock_region(ins) -> list:
+    """The instructions between the first two reads of the clock."""
+    at = [i for i, (_, ops, _) in enumerate(ins) if "SR_CLOCKLO" in ops]
+    return ins[at[0] + 1: at[1]]
+
+
+def sass_chain(ins) -> int:
+    """The longest chain of register dependences through ``ins`` (straight
+    code), in instructions: an instruction writes its first operand (and the
+    next register with a 64-bit result) and the predicates that follow it
+    (carries out), and reads every other register and predicate it names.
+    Memory, barriers and branches are not links."""
+    last, best = {}, 0
+    for mn, ops, _ in ins:
+        base = mn.split(".")[0]
+        toks = [t.strip() for t in ops.split(",")] if ops else []
+        dests, i = [], 0
+        if base not in ("STS", "STG", "BAR", "BRA", "EXIT", "NOP", "WARPSYNC", "BSSY",
+                        "BSYNC") and toks and re.fullmatch(r"R\d+|P[0-6]|UR\d+", toks[0]):
+            dests.append(toks[0])
+            if (".64" in mn or "WIDE" in mn or base == "CS2R") and toks[0][0] == "R":
+                dests.append(f"R{int(toks[0][1:]) + 1}")
+            i = 1
+            while i < len(toks) and re.fullmatch(r"P[0-6T]", toks[i]):
+                dests += [toks[i]] if toks[i] != "PT" else []
+                i += 1
+        srcs = [r for t in toks[i:] for r in SASS_REG.findall(t)]
+        d = max([last.get(r, 0) for r in srcs] + [0]) + (1 if dests else 0)
+        for r in dests:
+            last[r] = d
+        best = max(best, d)
+    return best
+
+
+def sass_loop(ins):
+    """(start, end) indices of the body of the first loop in ``ins`` (a
+    branch back to an earlier address), or None."""
+    for i, (mn, ops, addr) in enumerate(ins):
+        if mn == "BRA" and ops.startswith("0x") and int(ops.split()[0], 16) < addr:
+            target = int(ops.split()[0], 16)
+            start = next(k for k, (_, _, a) in enumerate(ins) if a == target)
+            return start, i + 1
+    return None
+
+
+class Probe:
+    """The probe library, loaded, with the constant block on device 0."""
+
+    def __init__(self, lib):
+        import ctypes
+
+        from hyperdrive_tpu_torch.ops import ed25519_cuda
+
+        self.path = lib
+        self.lib = ctypes.CDLL(str(lib))
+        vp, ci = ctypes.c_void_p, ctypes.c_int
+        self.lib.hd_probe_set_consts.argtypes = [ci, vp]
+        self.lib.hd_probe_empty_launch.argtypes = [ci, ci, ci, vp]
+        self.lib.hd_probe_chain_run.argtypes = [ci, ci, ci, vp, vp, vp, ci, vp]
+        self.lib.hd_probe_read_stamps.argtypes = [ci, vp]
+        self.lib.hd_ed25519_challenge.argtypes = [ci] + [vp] * 4 + [ci, vp, ci, vp, ci, vp]
+        geo = [ctypes.c_int() for _ in range(3)]
+        self.lib.hd_probe_stamp_geometry(*(ctypes.byref(g) for g in geo))
+        self.geometry = tuple(g.value for g in geo)
+        consts = ed25519_cuda.consts_block_w32()
+        if self.lib.hd_probe_set_consts(0, consts.ctypes.data_as(vp)) != 0:
+            raise AssertionError("probe constant upload failed")
+        self.sass = sass_functions(lib)
+
+    def floor(self, blocks: int, threads: int) -> tuple:
+        """The empty kernel on ``blocks`` x ``threads``: ((device ms a
+        launch, its method) from ``device_ms``, ms of one launch between two
+        CUDA events, back-to-back ms a launch, host ms a launch)."""
+        stream = torch.cuda.current_stream().cuda_stream
+
+        def launch():
+            if self.lib.hd_probe_empty_launch(0, blocks, threads, stream) != 0:
+                raise AssertionError("empty kernel launch failed")
+
+        return (device_ms(launch, "hd_probe_empty"), time_ms(launch, 50),
+                *burst_ms(launch))
+
+    def chains(self, clock_mhz: float) -> dict:
+        """{label: (latency cycles, issue interval cycles)} of each chain
+        probe, from clock64 and the instructions in its timed loop."""
+        rng = np.random.default_rng(SEED + 7)
+        inp = torch.from_numpy(rng.integers(0, 2**31, 32).astype(np.int32)).cuda()
+        out = torch.empty(32, dtype=torch.int32, device="cuda")
+        cyc = torch.zeros(1, dtype=torch.int64, device="cuda")
+        stream = torch.cuda.current_stream().cuda_stream
+        got = {}
+        for label, op, mnems in PROBE_OPS:
+            row = []
+            for chains in (1, 8):
+                name = next(k for k in self.sass
+                            if re.search(rf"hd_probe_chainILi{op}ELi{chains}E", k))
+                loop = _clock_region(self.sass[name])
+                count = sum(1 for m, _, _ in loop if m.split(".")[0] in mnems)
+                for _ in range(2):  # the first run warms the instruction cache
+                    rc = self.lib.hd_probe_chain_run(0, op, chains, inp.data_ptr(),
+                                                     out.data_ptr(), cyc.data_ptr(),
+                                                     PROBE_ITERS, stream)
+                    if rc != 0:
+                        raise AssertionError(f"chain probe {label} failed: {rc}")
+                torch.cuda.synchronize()
+                row.append(int(cyc.item()) / (PROBE_ITERS * count))
+                row.append(count)
+            got[label] = tuple(row)
+        return got
+
+    def stamps(self, args, lanes: int) -> dict:
+        """The stamped challenge kernel once on the grouped ``args`` (after
+        a warm-up launch): per warp the median over blocks of each slot's
+        cycles since entry, and the globaltimer spread of entries and the
+        span from the first entry to the last exit (ns)."""
+        import ctypes
+
+        idx, r_rows, m_idx, m_uniq, trows = args
+        k = torch.empty((lanes, 32), dtype=torch.uint8, device="cuda")
+        stream = torch.cuda.current_stream().cuda_stream
+        nb, nw, ns = self.geometry
+        host = np.zeros(nb * nw * ns, dtype=np.uint64)
+        for _ in range(2):
+            rc = self.lib.hd_ed25519_challenge(
+                0, idx.data_ptr(), r_rows.data_ptr(), m_uniq.data_ptr(), m_idx.data_ptr(),
+                m_uniq.shape[0], trows.data_ptr(), trows.shape[0], k.data_ptr(), lanes,
+                stream)
+            if rc != 0:
+                raise AssertionError(f"stamped challenge launch failed: {rc}")
+            if self.lib.hd_probe_read_stamps(0, host.ctypes.data_as(ctypes.c_void_p)) != 0:
+                raise AssertionError("stamp read failed")
+        from hyperdrive_tpu_torch.ops import ed25519_cuda
+
+        if not torch.equal(k, ed25519_cuda.challenge_grouped(*args)):
+            raise AssertionError("the stamped challenge kernel differs from the kernel")
+        blocks = min(nb, -(-lanes // 32))
+        st = host.reshape(nb, nw, ns)[:blocks].astype(np.int64)
+        per_warp = {}
+        for w in range(nw):
+            if not st[:, w, 0].any():
+                continue
+            rel = st[:, w, :14] - st[:, w, :1]
+            per_warp[w] = {s: int(np.median(rel[:, s])) for s in range(1, 14)
+                           if st[:, w, s].any()}
+        entry, exit_ = st[:, 0, 14], st[:, 0, 15]
+        return {"warps": per_warp, "entry_spread_ns": int(entry.max() - entry.min()),
+                "span_ns": int(exit_.max() - entry.min())}
 
 
 #: The grid at the main path's shape: n replicas x V validators x R slots.
@@ -1103,9 +1540,15 @@ def run_path(label: str, own: tuple, verifier, ref: dict, tally: bool = False,
     for name in ("pack", "pack_wire", "pack_wire_challenge", "group_digests", "index_lanes"):
         if hasattr(bv.host, name):
             setattr(bv.host, name, _timed(spent, depth, "pack", getattr(bv.host, name)))
-    for name in ("_chal", "_chal_grouped"):
-        if hasattr(bv, name):
-            setattr(bv, name, _timed(spent, depth, "chal", getattr(bv, name)))
+    chal_calls: list = []  # library calls of the challenge routes
+    if hasattr(bv, "_chal_semi"):
+        chal_semi = bv._chal_semi
+
+        def chal_counted(*args, **kwargs):
+            chal_calls.append(args[1].shape[0])
+            return chal_semi(*args, **kwargs)
+
+        bv._chal_semi = _timed(spent, depth, "chal", chal_counted)
     bv.verify_signatures = _timed(spent, depth, "verify", bv.verify_signatures)
     # The tally share: the grid calls and the waits for their results.
     patched = [(KeyPair, "sign_digest", "sign")]
@@ -1166,6 +1609,14 @@ def run_path(label: str, own: tuple, verifier, ref: dict, tally: bool = False,
     moved = {k: c for k, c in counts.items() if k not in own and c[0]}
     if moved:
         raise AssertionError(f"{label}: other kernels launched: {moved}")
+    if "ed25519_challenge" in own:
+        # One library call (hd_ed25519_chal_semiwire_verify) a chunk,
+        # which launches both kernels.
+        if not (len(chal_calls) == launches["ed25519_challenge"]
+                == launches["ed25519_semiwire"]):
+            raise AssertionError(f"{label}: {len(chal_calls)} chal_semiwire calls for "
+                                 f"{launches} launches")
+        extra += f" chal_semiwire_calls={len(chal_calls)}"
     if hasattr(bv, "stats"):
         key = "lanes_grouped" if bv.table is not None else "lanes_wire"
         if bv.stats[key] != sim.verified_sigs:
@@ -2525,7 +2976,7 @@ def main() -> int:
     def mark(name):
         marks.append((name, time.perf_counter()))
 
-    phase_card()
+    lib, probe_lib = phase_card()
     phase_native()
     mark("card")
     rows = {"ed25519_verify": phase_verify_kernel(clock, sms)}
@@ -2534,7 +2985,7 @@ def main() -> int:
     print(f"ratio: {PATH_LANES}-lane kernel time over ed25519_verify's in this run: "
           + " ".join(f"{k}={rows[k][PATH_LANES]['ms'] / base:.4f}"
                      for k in ("ed25519_wire", "ed25519_semiwire")), flush=True)
-    rows["ed25519_challenge"] = phase_challenge(state, clock, sms)
+    rows["ed25519_challenge"] = phase_challenge(state, clock, sms, lib, probe_lib)
     mark("kernels")
     phase_votegrid()
     mark("votegrid")

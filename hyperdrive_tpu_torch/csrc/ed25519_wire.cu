@@ -132,6 +132,18 @@ extern "C" int hd_ed25519_wire_verify(int device, const uint8_t* a_rows,
     return (int)cudaGetLastError();
 }
 
+// Enqueue the semiwire kernel on `stream` of the current device (n >= 1).
+static cudaError_t hd_semiwire_enqueue(const int32_t* idx, const uint8_t* r_rows,
+                                       const uint8_t* s_rows, const uint8_t* k_rows,
+                                       const int32_t* tnax, const int32_t* tay,
+                                       const int32_t* tnat, const uint8_t* tvalid,
+                                       int n_table, uint8_t* ok, int n,
+                                       cudaStream_t stream) {
+    hd_ed25519_semiwire_kernel<<<l4_blocks(n), L4_THREADS, 0, stream>>>(
+        idx, r_rows, s_rows, k_rows, tnax, tay, tnat, tvalid, n_table, ok, n);
+    return cudaGetLastError();
+}
+
 // Enqueue one indexed (semiwire) verification of n lanes against a table of
 // n_table slots; as above.
 extern "C" int hd_ed25519_semiwire_verify(int device, const int32_t* idx,
@@ -143,8 +155,6 @@ extern "C" int hd_ed25519_semiwire_verify(int device, const int32_t* idx,
     if (n <= 0) return 0;
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return (int)err;
-    hd_ed25519_semiwire_kernel<<<l4_blocks(n), L4_THREADS, 0,
-                                 (cudaStream_t)stream>>>(
-        idx, r_rows, s_rows, k_rows, tnax, tay, tnat, tvalid, n_table, ok, n);
-    return (int)cudaGetLastError();
+    return (int)hd_semiwire_enqueue(idx, r_rows, s_rows, k_rows, tnax, tay, tnat, tvalid,
+                                    n_table, ok, n, (cudaStream_t)stream);
 }

@@ -25,9 +25,14 @@ package's challenge leg, a device program it wrote in jnp:
   sha512_jax.py:146/:345``) under the challenge legs of
   ``hyperdrive_tpu/ops/ed25519_wire.py`` (``:281/:328``): k =
   SHA-512(R || A || M) mod L, one thread a lane, the preimage gathered in
-  the kernel. Plain versions
+  the kernel; a block serves 32 lanes with two warps, a producer that
+  loads the rows and computes the message schedule into shared memory and
+  a round warp that runs the rounds and the reduction. Plain versions
   :func:`~hyperdrive_tpu_torch.ops.ed25519_wire.challenge` and
   :func:`~hyperdrive_tpu_torch.ops.ed25519_wire.challenge_grouped`.
+
+The challenge routes' host entry, :func:`chal_semiwire_verify`, enqueues
+the challenge kernel and then the semiwire kernel in one library call.
 
 The three verify kernels run on the field of ``csrc/fe25519_w32.cuh`` (8
 x 32-bit limbs in full radix on PTX carry chains: 146 multiply
@@ -82,6 +87,7 @@ __all__ = [
     "semiwire_verify",
     "challenge",
     "challenge_grouped",
+    "chal_semiwire_verify",
     "KernelStats",
 ]
 
@@ -253,6 +259,10 @@ class _Library:
             [ci] + [vp] * 4 + [ci, vp, ci, vp, ci, vp]
         )
         self.lib.hd_ed25519_challenge.restype = ci
+        self.lib.hd_ed25519_chal_semiwire_verify.argtypes = (
+            [ci] + [vp] * 5 + [ci] + [vp] * 5 + [ci, vp, vp, ci, vp]
+        )
+        self.lib.hd_ed25519_chal_semiwire_verify.restype = ci
         self.ready: set = set()
         self._consts = consts_block_w32()
 
@@ -314,6 +324,10 @@ def _rows_device(rows) -> torch.device:
     return r0.device
 
 
+def _index(device: torch.device) -> int:
+    return device.index if device.index is not None else torch.cuda.current_device()
+
+
 def _launch(name: str, device: torch.device, bsz: int, fn, args,
             out_shape=(), out_dtype=torch.bool) -> torch.Tensor:
     """Run one kernel on ``device``'s current stream into a fresh
@@ -325,7 +339,7 @@ def _launch(name: str, device: torch.device, bsz: int, fn, args,
     out = torch.empty((bsz, *out_shape), dtype=out_dtype, device=device)
     if bsz == 0:
         return out
-    index = device.index if device.index is not None else torch.cuda.current_device()
+    index = _index(device)
     lib = _library(index)
     stream = torch.cuda.current_stream(index).cuda_stream
     rc = getattr(lib.lib, fn)(index, *args, out.data_ptr(), bsz, stream)
@@ -361,6 +375,20 @@ def wire_verify(a_rows, r_rows, s_rows, k_rows) -> torch.Tensor:
                    "hd_ed25519_wire_verify", [t.data_ptr() for t in rows])
 
 
+def _check_semiwire(idx, r_rows, s_rows, k_rows, tnax, tay, tnat, tvalid):
+    """Checks the semiwire inputs (int32 [B] idx, uint8 [B, 32] R, s, k
+    rows, int32 [V, 20] table coordinates, bool [V] valid mask) on one
+    device; returns (device, V)."""
+    rows = (r_rows, s_rows, k_rows)
+    device = _rows_device(rows)
+    v = tvalid.shape[0] if tvalid.dim() == 1 else -1  # -1 fails the check
+    _check_like("idx", idx, (r_rows.shape[0],), torch.int32, device)
+    for name, t in (("tnax", tnax), ("tay", tay), ("tnat", tnat)):
+        _check_like(name, t, (v, fe.N_LIMBS), torch.int32, device)
+    _check_like("tvalid", tvalid, (v,), torch.bool, device)
+    return device, v
+
+
 def semiwire_verify(idx, r_rows, s_rows, k_rows,
                     tnax, tay, tnat, tvalid) -> torch.Tensor:
     """bool[B]: the semiwire kernel: -A read from the validator table
@@ -371,13 +399,8 @@ def semiwire_verify(idx, r_rows, s_rows, k_rows,
     host before upload (``ValidatorTable.upload_index``); a lane whose
     index lies outside the table reads nothing and rejects."""
     rows = (r_rows, s_rows, k_rows)
-    device = _rows_device(rows)
+    device, v = _check_semiwire(idx, *rows, tnax, tay, tnat, tvalid)
     bsz = r_rows.shape[0]
-    v = tvalid.shape[0] if tvalid.dim() == 1 else -1  # -1 fails the check
-    _check_like("idx", idx, (bsz,), torch.int32, device)
-    for name, t in (("tnax", tnax), ("tay", tay), ("tnat", tnat)):
-        _check_like(name, t, (v, fe.N_LIMBS), torch.int32, device)
-    _check_like("tvalid", tvalid, (v,), torch.bool, device)
     if device.type == "cpu":
         return wire.semiwire_verify_plain(idx, *rows, tnax, tay, tnat, tvalid)
     ptrs = [t.data_ptr() for t in (idx, *rows, tnax, tay, tnat, tvalid)]
@@ -437,3 +460,61 @@ def challenge_grouped(idx, r_rows, m_idx, m_uniq, trows) -> torch.Tensor:
             m_idx.data_ptr(), m_uniq.shape[0], trows.data_ptr(), trows.shape[0]]
     return _launch("ed25519_challenge", device, r_rows.shape[0],
                    "hd_ed25519_challenge", ptrs, (32,), torch.uint8)
+
+
+def chal_semiwire_verify(idx, r_rows, s_rows, m_rows, trows, tnax, tay, tnat,
+                         tvalid, k_rows, m_idx=None) -> torch.Tensor:
+    """bool[B]: the challenge routes in one host call, :func:`challenge`
+    (``m_idx`` None: per-lane digest rows ``m_rows`` [B, 32]) or
+    :func:`challenge_grouped` (``m_rows`` the [U, 32] digest table that
+    ``m_idx``, uint8 [B], indexes) writing k into ``k_rows``, then
+    :func:`semiwire_verify` on those k rows, verdict for verdict the two
+    calls in turn. ``k_rows`` (uint8 [B, 32], 16-byte aligned) is the
+    caller's scratch, overwritten; the caller reuses it per batch width and
+    stream, and must not enqueue another call on the same buffer from
+    another thread between the two launches of one (one library call
+    enqueues both, so holding a lock around this call suffices). The table
+    tensors share V slots: ``trows`` [V, 32] and the semiwire table.
+
+    On the card: one ctypes call into ``hd_ed25519_chal_semiwire_verify``,
+    which enqueues both kernels on the current stream without
+    synchronizing; one launch counted under each kernel. CPU tensors run
+    the two plain versions in turn (k copied into ``k_rows``) and count
+    nothing."""
+    device = _check_challenge(idx, r_rows, m_rows, trows)
+    _, v = _check_semiwire(idx, r_rows, s_rows, k_rows, tnax, tay, tnat, tvalid)
+    bsz = r_rows.shape[0]
+    _check_like("trows", trows, (v, 32), torch.uint8, device)
+    if m_idx is None:
+        if m_rows.shape[0] != bsz:
+            raise ValueError(f"m_rows: {m_rows.shape[0]} rows for {bsz} lanes")
+    else:
+        _check_like("m_idx", m_idx, (bsz,), torch.uint8, device)
+    if device.type == "cpu":
+        if m_idx is None:
+            k = wire.challenge(idx, r_rows, m_rows, trows)
+        else:
+            k = wire.challenge_grouped(idx, r_rows, m_idx, m_rows, trows)
+        k_rows.copy_(k)
+        return wire.semiwire_verify_plain(idx, r_rows, s_rows, k_rows, tnax, tay, tnat,
+                                          tvalid)
+    if device.type != "cuda":
+        raise ValueError(f"unsupported device {device}")
+    if k_rows.data_ptr() % 16:
+        raise ValueError("k_rows is not 16-byte aligned")
+    ok = torch.empty(bsz, dtype=torch.bool, device=device)
+    if bsz == 0:
+        return ok
+    index = _index(device)
+    lib = _library(index)
+    stream = torch.cuda.current_stream(index).cuda_stream
+    rc = lib.lib.hd_ed25519_chal_semiwire_verify(
+        index, idx.data_ptr(), r_rows.data_ptr(), s_rows.data_ptr(), m_rows.data_ptr(),
+        None if m_idx is None else m_idx.data_ptr(), m_rows.shape[0], trows.data_ptr(),
+        tnax.data_ptr(), tay.data_ptr(), tnat.data_ptr(), tvalid.data_ptr(), v,
+        k_rows.data_ptr(), ok.data_ptr(), bsz, stream)
+    if rc != 0:
+        raise RuntimeError(f"chal_semiwire launch failed: cudaError {rc}")
+    stats["ed25519_challenge"].add(bsz)
+    stats["ed25519_semiwire"].add(bsz)
+    return ok

@@ -552,7 +552,8 @@ class TorchWireVerifier:
       pubkey is in the resident table, every digest is 32 bytes and the
       chunk has at most ``M_GROUP_CAP`` distinct digests (every consensus
       window). The device computes k from the deduped digest table, then
-      the semiwire kernel runs on -A gathered from the table;
+      the semiwire kernel runs on -A gathered from the table (one library
+      call enqueues both, ``ed25519_cuda.chal_semiwire_verify``);
     - **per-lane challenge** (100 B a lane): as grouped, with per-lane
       digest rows, above ``M_GROUP_CAP`` distinct digests;
     - **full wire** (128 B a lane): no table, a digest of another length,
@@ -572,9 +573,12 @@ class TorchWireVerifier:
         self.device = _resolve_device(device)
         self.host = Ed25519WireHost(buckets=buckets)
         self._fn = ed25519_cuda.wire_verify
-        self._semi_fn = ed25519_cuda.semiwire_verify
-        self._chal = ed25519_cuda.challenge
-        self._chal_grouped = ed25519_cuda.challenge_grouped
+        self._chal_semi = ed25519_cuda.chal_semiwire_verify
+        #: k rows of the challenge routes, one buffer per (lanes, stream),
+        #: reused by every launch of that width on that stream; the lock
+        #: keeps one thread's two launches on a buffer together.
+        self._k_scratch: dict = {}
+        self._k_lock = threading.Lock()
         self._check_table(table)
         self.table = table
         #: Epoch table generations: the current and the previous
@@ -654,15 +658,27 @@ class TorchWireVerifier:
     def _device_verify(self, rows):
         return self._fn(*rows)
 
-    def _device_verify_chal(self, rows):
+    def _k_rows(self, lanes: int) -> torch.Tensor:
+        """The k scratch for ``lanes`` on the current stream (caller holds
+        ``_k_lock``)."""
+        stream = (torch.cuda.current_stream(self.device).cuda_stream
+                  if self.device.type == "cuda" else 0)
+        buf = self._k_scratch.get((lanes, stream))
+        if buf is None:
+            buf = torch.empty((lanes, 32), dtype=torch.uint8, device=self.device)
+            self._k_scratch[(lanes, stream)] = buf
+        return buf
+
+    def _device_verify_chal(self, rows, m_idx=None):
         idx, r_rows, s_rows, m_rows = rows
-        k_rows = self._chal(idx, r_rows, m_rows, self.table.rows)
-        return self._semi_fn(idx, r_rows, s_rows, k_rows, *self.table.arrays())
+        with self._k_lock:
+            return self._chal_semi(idx, r_rows, s_rows, m_rows, self.table.rows,
+                                   *self.table.arrays(), self._k_rows(idx.shape[0]),
+                                   m_idx=m_idx)
 
     def _device_verify_chal_grouped(self, rows):
         idx, r_rows, s_rows, m_idx, m_uniq = rows
-        k_rows = self._chal_grouped(idx, r_rows, m_idx, m_uniq, self.table.rows)
-        return self._semi_fn(idx, r_rows, s_rows, k_rows, *self.table.arrays())
+        return self._device_verify_chal((idx, r_rows, s_rows, m_uniq), m_idx)
 
     def warmup(self) -> None:
         """Build the kernels and run every route at every bucket shape
