@@ -74,7 +74,8 @@ Phases, each printing its lines:
    lines that begin ``programs:``;
 5. main path: the signed 256-validator burst network
    (``Simulation(n=256, sign=True, burst=True, dedup_verify=True,
-   small_window_host=False)``) to height 5, five times, every settle
+   small_window_host=False)``, its lockstep windows ingested on the
+   columnar path, the default) to height 5, five times, every settle
    verified on the card: through the packed verifier (``ed25519_verify``),
    through ``TorchWireVerifier`` with a ``ValidatorTable`` of the 256
    validator keys (grouped challenge route, ``ed25519_challenge`` then
@@ -104,7 +105,28 @@ Phases, each printing its lines:
    (no fused settle, no tally launch, no host-routed settle). Then the
    sequential and the pipelined packed run in turns, three pairs each
    way, on lines that begin ``pairs:`` (walls, median, spread);
-7. the deployment path: threaded replicas on a loopback-TCP full mesh,
+7. burst-mode delivery (``phase_burst``, lines ``burst``): (i) the main
+   path on the object path (``columnar_ingest=False``: packed,
+   packed+tally, chal+tally) and per delivery (``shared_superstep=False``,
+   packed), each checked as in phase 5 and printed beside the invariant's
+   15 settle passes, 10 vote-bearing and 2,565 signatures, then the
+   columnar and the object path in turns (``pairs:``); (ii) redundant
+   verification (``dedup_verify=False``: every receiver's copy on the
+   card) on the challenge route (``ValidatorTable``) and the full wire
+   route, each with ``pipeline_verify`` on (replica groups of one bucket,
+   ``verify_signatures_begin(items, repeats=)``) and off, launches, begin
+   calls, wall and verify share; (iii) BASELINE config 3's adversaries at
+   its size (n = 64, seed 1003, replicas 1-21 offline, reorder, 20 s
+   timeouts, 1 ms a delivery), signed and dedup-verified, cut to 2
+   heights, on four legs: ``HostVerifier``, the packed verifier on every
+   settle, the same with device tallies (``CheckedTallyView``), and
+   ``AdaptiveVerifier`` on the packed verifier (calibrated on one
+   512-signature window first), each committing the host leg's digest in
+   its steps, with settles, window p50, launches, wall and the calibration
+   record; (iv) one signed n = 256 window through
+   ``DeviceTallyFlusher.settle_block`` on the card against the object-path
+   flush of the same window (commits, counts, checkpoint bytes);
+8. the deployment path: threaded replicas on a loopback-TCP full mesh,
    one worker process per port (``python -m
    hyperdrive_tpu_torch.harness.deploy ... card``), each process with one
    ``TorchWireVerifier`` (a ``ValidatorTable`` of the network's keys:
@@ -123,7 +145,7 @@ Phases, each printing its lines:
    begin ``deploy``. Before them, ``deploy contention:`` lines: a flush's
    grid call (n = 1, V = 256) and verify call (100 grouped lanes), host
    wall per call from one thread and from 64 threads of this process;
-8. Shamir reconstruct (``ops/shamir.py``, PyTorch ops, no hand-written
+9. Shamir reconstruct (``ops/shamir.py``, PyTorch ops, no hand-written
    kernel): ``BatchReconstructor`` on the card at k = 171 (n = 256, f =
    85) for 16, 64 and 1,024 blocks, every payload equal byte for byte to
    the oracle's ``reconstruct_payload`` (at 1,024 blocks: to the payload,
@@ -132,7 +154,7 @@ Phases, each printing its lines:
    CUDA kernels a call, the bound and its share, the wrapper's and the
    host leg's wall; ``AdaptiveReconstructor``'s calibration record at
    1,024 blocks; on lines that begin ``programs: shamir``;
-9. the RLC batch equation (``rlc_check`` on ``ops/msm.py``, PyTorch ops):
+10. the RLC batch equation (``rlc_check`` on ``ops/msm.py``, PyTorch ops):
    one 64-lane MSM equal to the oracle's point sum; then
    ``TorchBatchVerifier(rlc=True)`` at 64, 256, 1,024 and 4,096 lanes: a
    clean batch accepted by one check with no fallback and no ladder
@@ -141,7 +163,7 @@ Phases, each printing its lines:
    order-8 torsion vector accepted by the RLC and rejected by the ladder;
    ms and CUDA kernels of ``rlc_check`` beside the ladder's time at the
    same lanes; on lines that begin ``programs: rlc``;
-10. config 5 (BASELINE configs[4]) as the JAX package's bench runs it
+11. config 5 (BASELINE configs[4]) as the JAX package's bench runs it
    (n = 256, k = 171, 496-byte payloads, seed 1005, 20 s timeouts,
    burst, 10 heights), signed (every settle on ``ed25519_verify``): the
    host run (``HostVerifier``), a run with
@@ -150,13 +172,13 @@ Phases, each printing its lines:
    on the host leg: no launch); each equal to the host run in digest,
    steps and every replica's reconstructed payloads; heights/s, the
    reconstruct share of wall and its p50, launches; lines ``config5``;
-11. certificates: the main path with ``certificates=True`` through the
+12. certificates: the main path with ``certificates=True`` through the
    packed verifier with ``rlc=False`` and ``rlc=True``: digest
    ``215413db54656240`` in 656,640 steps, chain digests equal across
    replicas and to a host run's, every certificate re-verified and
    round-tripped through its codec, the RLC run's checks, fallbacks and
    wall; lines ``certs``;
-12. the execution layer (``exec/``, ``ops/ledger.py``, ``ops/merkle.py``,
+13. the execution layer (``exec/``, ``ops/ledger.py``, ``ops/merkle.py``,
    PyTorch ops, no hand-written kernel) at the JAX package's documented
    sizes: one Merkleized apply step at 65,536 accounts and 16,384
    (incremental tree update) and 65,536 txs (full rebuild), every output
@@ -172,7 +194,7 @@ Phases, each printing its lines:
    equal across the three and the JAX package's digest, fewer
    ``ed25519_verify`` launches fused, and the blocks' signature rows
    verified by ``ed25519_verify``; lines ``exec``;
-13. BLS12-381 (``phase_bls``): ``fp381.mul`` (PyTorch ops) on 4,096 products
+14. BLS12-381 (``phase_bls``): ``fp381.mul`` (PyTorch ops) on 4,096 products
    against Python ints; the ``g1_aggregate`` kernel (``csrc/g1_aggregate.cu``,
    built in phase 1 beside the ed25519 library, one nvcc a unit, both
    started together) against its plain version ``aggregate_kernel`` at the
@@ -199,8 +221,8 @@ Phases, each printing its lines:
    ``bls``, ``kernel g1_aggregate`` and ``programs: bls``, after the
    card's name and power limit.
 
-Each path of phases 5, 6, 10, 11, 12 and 13 is driven with the kernel counts
-set to 0 just before it and read just after.
+Each path of phases 5, 6, 7, 11, 12, 13 and 14 is driven with the kernel
+counts set to 0 just before it and read just after.
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``. Any failed check raises, so the script
@@ -210,6 +232,7 @@ exits non-zero; without CUDA it exits non-zero before printing a result.
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import json
 import math
 import os
@@ -1488,7 +1511,7 @@ def _timed(spent, depth, key, fn):
 
 
 def run_path(label: str, own: tuple, verifier, ref: dict, tally: bool = False,
-             pipe: bool = False) -> dict:
+             pipe: bool = False, prefix: str = "main", **sim_kw) -> dict:
     """One n=256 network run with ``verifier`` on every settle; checks it
     against the host-verifier result ``ref`` (digest, steps, heights) and
     the kernel counts (each kernel of ``own`` at least once per
@@ -1505,8 +1528,10 @@ def run_path(label: str, own: tuple, verifier, ref: dict, tally: bool = False,
     checked the challenge kernel at, each own kernel must have
     launched once for every chunk of every queue launch, and a tallied
     run dispatches on the host counters (no fused settle, no tally
-    launch, no host-routed settle; the grid is never read). Returns each
-    own kernel's launches."""
+    launch, no host-routed settle; the grid is never read). ``sim_kw``
+    overrides the network's knobs (``dedup_verify``, ``columnar_ingest``,
+    ``shared_superstep``, ``pipeline_verify``); the line begins with
+    ``prefix``. Returns each own kernel's launches."""
     from hyperdrive_tpu_torch.crypto.keys import KeyPair
     from hyperdrive_tpu_torch.harness import Simulation
     from hyperdrive_tpu_torch.ops import bucketing, ed25519_cuda
@@ -1518,10 +1543,12 @@ def run_path(label: str, own: tuple, verifier, ref: dict, tally: bool = False,
         views.append(votegrid.CheckedTallyView(view, proc))
         return views[-1]
 
+    knobs = dict(dict(dedup_verify=True), **sim_kw)
     sim = Simulation(n=N_VALIDATORS, target_height=HEIGHT, seed=1, sign=True,
-                     burst=True, dedup_verify=True, small_window_host=False,
+                     burst=True, small_window_host=False,
                      batch_verifier=verifier, pipeline_heights=pipe,
-                     **(dict(device_tally=True, tally_check=check) if tally else {}))
+                     **(dict(device_tally=True, tally_check=check) if tally else {}),
+                     **knobs)
     bv = sim.batch_verifier
     bv.warmup()
     torch.cuda.synchronize()
@@ -1550,8 +1577,22 @@ def run_path(label: str, own: tuple, verifier, ref: dict, tally: bool = False,
 
         bv._chal_semi = _timed(spent, depth, "chal", chal_counted)
     bv.verify_signatures = _timed(spent, depth, "verify", bv.verify_signatures)
-    # The tally share: the grid calls and the waits for their results.
+    begin_calls: list = []  # verify_signatures_begin calls (items, repeats)
     patched = [(KeyPair, "sign_digest", "sign")]
+    if hasattr(bv, "verify_signatures_begin"):
+        from hyperdrive_tpu_torch.ops.ed25519_wire import PendingVerify
+
+        begin = bv.verify_signatures_begin
+
+        def begin_counted(items, repeats=1):
+            begin_calls.append((len(items), repeats))
+            return begin(items, repeats=repeats)
+
+        # The redundant settle enqueues through begin and waits in mask():
+        # both are the verify share.
+        bv.verify_signatures_begin = _timed(spent, depth, "verify", begin_counted)
+        patched.append((PendingVerify, "mask", "verify"))
+    # The tally share: the grid calls and the waits for their results.
     if tally:
         for name in ("update_and_tally", "fused_update_and_tally"):
             setattr(sim.vote_grid, name,
@@ -1609,6 +1650,11 @@ def run_path(label: str, own: tuple, verifier, ref: dict, tally: bool = False,
     moved = {k: c for k, c in counts.items() if k not in own and c[0]}
     if moved:
         raise AssertionError(f"{label}: other kernels launched: {moved}")
+    if begin_calls:
+        # verify_signatures calls begin once itself: the rest came from the
+        # redundant settle's replica groups.
+        extra += (f" verify_calls={len(calls)} begin_calls={len(begin_calls)}"
+                  f" begin_repeats_max={max(r for _, r in begin_calls)}")
     if "ed25519_challenge" in own:
         # One library call (hd_ed25519_chal_semiwire_verify) a chunk,
         # which launches both kernels.
@@ -1640,7 +1686,9 @@ def run_path(label: str, own: tuple, verifier, ref: dict, tally: bool = False,
                   f" tally_hits={hits}")
     shares = " ".join(f"{k}_share={spent.get(k, 0.0) / wall:.3f}"
                       for k in ("sign", "pack", "chal", "verify", "tally"))
-    print(f"main {label}: n={N_VALIDATORS} height={HEIGHT} completed={res.completed} "
+    knob_text = "".join(f" {k}={v}" for k, v in sim_kw.items())
+    print(f"{prefix} {label}:{knob_text} n={N_VALIDATORS} height={HEIGHT} "
+          f"completed={res.completed} "
           f"steps={res.steps} wall_s={wall:.2f} heights_per_s={HEIGHT / wall:.3f} "
           f"verified_sigs={sim.verified_sigs} "
           f"verified_sigs_per_s={sim.verified_sigs / wall:.0f} "
@@ -1678,7 +1726,7 @@ def run_python_host(ref: dict) -> None:
                              f"{proc.stderr[-4000:]}")
 
 
-def phase_main_path() -> dict:
+def phase_main_path() -> tuple:
     from hyperdrive_tpu_torch.crypto.keys import KeyRing
     from hyperdrive_tpu_torch.harness import Simulation
     from hyperdrive_tpu_torch.ops.ed25519 import TorchBatchVerifier
@@ -1718,40 +1766,315 @@ def phase_main_path() -> dict:
              TorchBatchVerifier(buckets=PIPE_BUCKETS, device="cuda"), ref, tally=True,
              pipe=True)
     phase_pairs(ref)
-    return launches
+    return launches, ref
 
 
-def phase_pairs(ref: dict, pairs: int = 3) -> None:
-    """Wall of the sequential and the pipelined packed network in turns
-    (sequential, pipelined, pipelined, sequential; ``pairs`` times), each
-    run checked for the host digest: the two differ in launches and
-    syncs, so their walls are compared only within one call."""
+def phase_pairs(ref: dict, legs=None, pairs: int = 3) -> None:
+    """Wall of two variants of the packed network in turns (a, b, b, a;
+    ``pairs`` times), each run checked for the host digest: walls are
+    compared only within one call. ``legs``: two (label, verifier,
+    Simulation options) triples; by default the sequential and the
+    pipelined run, which differ in launches and syncs."""
     from hyperdrive_tpu_torch.harness import Simulation
     from hyperdrive_tpu_torch.ops.ed25519 import TorchBatchVerifier
 
-    walls: dict = {False: [], True: []}
-    verifiers = {False: TorchBatchVerifier(device="cuda"),
-                 True: TorchBatchVerifier(buckets=PIPE_BUCKETS, device="cuda")}
-    for bv in verifiers.values():
+    if legs is None:
+        legs = (("packed", TorchBatchVerifier(device="cuda"), {}),
+                ("packed+pipe", TorchBatchVerifier(buckets=PIPE_BUCKETS, device="cuda"),
+                 dict(pipeline_heights=True)))
+    walls: dict = {label: [] for label, _, _ in legs}
+    for _, bv, _ in legs:
         bv.warmup()
     for _ in range(pairs):
-        for pipe in (False, True, True, False):
+        for label, bv, kw in (legs[0], legs[1], legs[1], legs[0]):
             sim = Simulation(n=N_VALIDATORS, target_height=HEIGHT, seed=1, sign=True,
                              burst=True, dedup_verify=True, small_window_host=False,
-                             batch_verifier=verifiers[pipe], pipeline_heights=pipe)
+                             batch_verifier=bv, **kw)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             res = sim.run()
             torch.cuda.synchronize()
-            walls[pipe].append(time.perf_counter() - t0)
+            walls[label].append(time.perf_counter() - t0)
             if res.commit_digest(up_to=HEIGHT) != ref["digest"]:
-                raise AssertionError(f"pairs: digest differs (pipelined={pipe})")
-    for pipe, label in ((False, "packed"), (True, "packed+pipe")):
-        w = sorted(walls[pipe])
+                raise AssertionError(f"pairs: digest differs ({label})")
+    for label, _, kw in legs:
+        w = sorted(walls[label])
         q1, med, q3 = np.percentile(w, [25, 50, 75])
-        print(f"pairs: {label} runs={len(w)} wall_s={[round(x, 4) for x in walls[pipe]]} "
+        knobs = "".join(f" {k}={v}" for k, v in kw.items())
+        print(f"pairs: {label}:{knobs} runs={len(w)} "
+              f"wall_s={[round(x, 4) for x in walls[label]]} "
               f"median_s={med:.4f} iqr_s={q3 - q1:.4f} heights_per_s={HEIGHT / med:.3f}",
               flush=True)
+
+
+# ------------------------------------------------- burst-mode delivery
+
+#: BASELINE config 3 at its published size (``benches/run_all.py``
+#: ``config_3``: 64 replicas, seed 1003, replicas 1..21 offline, 20 s
+#: timeouts, 1 ms a delivery, adversarial reorder), signed with dedup
+#: verification as config 8(a) runs its adversarial leg; cut to 2 heights.
+ADV = dict(n=64, target_height=2, seed=1003, reorder=True, offline=set(range(1, 22)),
+           timeout=20.0, delivery_cost=0.001, sign=True, burst=True, dedup_verify=True)
+ADV_HEIGHTS = 2
+#: The adversarial legs' AdaptiveVerifier calibrates on one window this
+#: large (its ``calibrate_at`` is 384; no settle window of the run is).
+ADV_CALIBRATE = 512
+#: The main path's settle passes, vote-bearing settles and verified
+#: signatures, equal on every route and in the host run.
+MAIN_SETTLES = (15, 10, 2565)
+
+
+def _adversarial_leg(label: str, verifier, ref, **extra) -> dict:
+    """One leg of the n = 64 adversarial run: commits, steps and heights
+    equal to the host leg's ``ref`` (None for the host leg itself); the
+    kernel counts read around the run; returns the leg's result."""
+    from hyperdrive_tpu_torch.harness import Simulation
+    from hyperdrive_tpu_torch.ops import ed25519_cuda
+
+    sim = Simulation(**ADV, batch_verifier=verifier, device="cuda", **extra)
+    bv = sim.batch_verifier
+    sizes: list = []
+    inner = bv.verify_signatures
+
+    def recorded(items):
+        sizes.append(len(items))
+        return inner(items)
+
+    bv.verify_signatures = recorded
+    torch.cuda.synchronize()
+    ed25519_cuda.reset_stats()
+    t0 = time.perf_counter()
+    res = sim.run(max_steps=50_000_000)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: v.launches for k, v in ed25519_cuda.stats.items() if v.launches}
+    res.assert_safety()
+    got = (res.commit_digest(up_to=ADV_HEIGHTS), res.steps, res.heights)
+    if not res.completed:
+        raise AssertionError(f"burst adversarial {label}: stalled at {set(res.heights)}")
+    if ref is not None and got != ref:
+        raise AssertionError(f"burst adversarial {label}: digest, steps or heights "
+                             f"differ from the host leg")
+    return dict(sim=sim, res=res, wall=wall, launches=launches, sizes=sizes, got=got)
+
+
+def _adversarial_line(label: str, leg: dict, extra: str = "") -> None:
+    sim, res, sizes = leg["sim"], leg["res"], leg["sizes"]
+    print(f"burst adversarial {label}: n={ADV['n']} heights={ADV_HEIGHTS} "
+          f"online={ADV['n'] - len(ADV['offline'])} steps={res.steps} "
+          f"wall_s={leg['wall']:.3f} heights_per_s={ADV_HEIGHTS / leg['wall']:.4f} "
+          f"settles={sim.settle_passes} vote_settles={sim.vote_settles} "
+          f"verify_calls={len(sizes)} window_p50={statistics.median(sizes)} "
+          f"window_max={max(sizes)} verified_sigs={sim.verified_sigs} "
+          f"launches={leg['launches']} host_routed_settles={sim.host_routed_settles}"
+          f"{extra} digest={leg['got'][0][:16]} matches_host=True", flush=True)
+
+
+def phase_adversarial() -> None:
+    """(iii) of the burst phase: the n = 64 adversarial network, per-delivery
+    superstep (reorder), every settle through one verify call, on four
+    legs: HostVerifier; the packed verifier with small_window_host=False
+    (one ``ed25519_verify`` launch a settle); the same with
+    ``device_tally=True`` and ``CheckedTallyView`` (two launches a settle:
+    verify, then ``update_and_tally``); ``AdaptiveVerifier`` whose device
+    leg is the packed verifier on the card, calibrated on one
+    ``ADV_CALIBRATE``-signature window before the run (its cross-check
+    against the host leg included), then routing each window by the
+    crossover it measured. Every leg commits the host leg's digest in its
+    steps."""
+    from hyperdrive_tpu_torch.crypto.keys import KeyRing
+    from hyperdrive_tpu_torch.ops import votegrid
+    from hyperdrive_tpu_torch.ops.ed25519 import TorchBatchVerifier
+    from hyperdrive_tpu_torch.verifier import AdaptiveVerifier, HostVerifier
+
+    host = _adversarial_leg("host", HostVerifier(), None)
+    if host["launches"]:
+        raise AssertionError(f"burst adversarial host: kernels launched: {host['launches']}")
+    _adversarial_line("host", host)
+    ref = host["got"]
+
+    packed = TorchBatchVerifier(device="cuda")
+    packed.warmup()
+    leg = _adversarial_leg("packed", packed, ref, small_window_host=False)
+    if leg["launches"] != {"ed25519_verify": len(leg["sizes"])}:
+        raise AssertionError(f"burst adversarial packed: {leg['launches']} for "
+                             f"{len(leg['sizes'])} verify calls")
+    _adversarial_line("packed", leg)
+
+    views = []
+
+    def check(view, proc):
+        views.append(votegrid.CheckedTallyView(view, proc))
+        return views[-1]
+
+    leg = _adversarial_leg("packed+tally", packed, ref, small_window_host=False,
+                           device_tally=True, tally_check=check)
+    sim = leg["sim"]
+    hits = sum(v.hits for v in views)
+    if leg["launches"] != {"ed25519_verify": len(leg["sizes"])}:
+        raise AssertionError(f"burst adversarial packed+tally: {leg['launches']}")
+    if not (hits and sim.tally_launches == sim.settle_passes and not sim.fused_settles):
+        raise AssertionError(f"burst adversarial packed+tally: {hits} checked counts, "
+                             f"{sim.tally_launches} tally launches for "
+                             f"{sim.settle_passes} settles, {sim.fused_settles} fused")
+    _adversarial_line("packed+tally", leg,
+                      f" tally_launches={sim.tally_launches} tally_hits={hits}")
+
+    av = AdaptiveVerifier(device=TorchBatchVerifier(device="cuda"))
+    av.device.warmup()
+    ring = KeyRing.deterministic(ADV["n"], namespace=b"sim-%d" % ADV["seed"])
+    cal = []
+    for j in range(ADV_CALIBRATE):
+        d = hashlib.sha256(b"calibrate-%d" % j).digest()
+        sig = ring[j % ADV["n"]].sign_digest(d)
+        cal.append((ring.signatories[j % ADV["n"]], d, bytes(64) if j % 37 == 5 else sig))
+    mask = [bool(b) for b in av.verify_signatures(cal)]
+    if not av.calibrated or mask != [j % 37 != 5 for j in range(ADV_CALIBRATE)]:
+        raise AssertionError("burst adversarial adaptive: calibration failed")
+    host_calls = [0]
+    host_verify = av.host.verify_signatures
+
+    def host_counted(items):
+        host_calls[0] += 1
+        return host_verify(items)
+
+    av.host.verify_signatures = host_counted
+    leg = _adversarial_leg("adaptive", av, ref)
+    device_windows = sum(1 for n in leg["sizes"] if n >= av.crossover)
+    if (leg["launches"].get("ed25519_verify", 0) != device_windows
+            or set(leg["launches"]) - {"ed25519_verify"}
+            or host_calls[0] != len(leg["sizes"]) - device_windows):
+        raise AssertionError(f"burst adversarial adaptive: {leg['launches']} launches, "
+                             f"{host_calls[0]} host windows, crossover {av.crossover}")
+    rates = {k: float(f"{v:.6g}") for k, v in av.rates.items()}
+    _adversarial_line("adaptive", leg,
+                      f" crossover={av.crossover} device_windows={device_windows} "
+                      f"host_windows={host_calls[0]} rates={json.dumps(rates)}")
+
+
+def phase_settle_block() -> None:
+    """(iv) of the burst phase: one signed n = 256 window (the height-1
+    propose, every prevote and precommit, three prevotes forged) through
+    ``DeviceTallyFlusher.settle_block`` on the card (one ``ed25519_verify``
+    launch, the grid on the card), against the same window inserted into
+    the replica's queue and flushed on the object path with the host
+    verifier: equal commits, tally counts and checkpoint bytes."""
+    from hyperdrive_tpu_torch import batch, messages
+    from hyperdrive_tpu_torch.crypto.keys import KeyRing
+    from hyperdrive_tpu_torch.ops import ed25519_cuda, votegrid
+    from hyperdrive_tpu_torch.ops.ed25519 import TorchBatchVerifier
+    from hyperdrive_tpu_torch.replica import Replica, ReplicaOptions
+    from hyperdrive_tpu_torch.tallyflush import DeviceTallyFlusher
+    from hyperdrive_tpu_torch.testutil import CommitterCallback
+    from hyperdrive_tpu_torch.types import INVALID_ROUND
+    from hyperdrive_tpu_torch.utils.checkpoint import checkpoint_bytes
+    from hyperdrive_tpu_torch.verifier import HostVerifier
+
+    ring = KeyRing.deterministic(N_VALIDATORS, namespace=b"sim-1")
+    sigs = ring.signatories
+    value = hashlib.sha256(b"settle-block").digest()
+    window = [ring[1].sign_message(messages.Propose(
+        height=1, round=0, valid_round=INVALID_ROUND, value=value, sender=sigs[1]))]
+    forged = {7, 100, 200}
+    for kind in (messages.Prevote, messages.Precommit):
+        for i in range(N_VALIDATORS):
+            m = ring[i].sign_message(kind(height=1, round=0, value=value, sender=sigs[i]))
+            if kind is messages.Prevote and i in forged:
+                m = m.with_signature(bytes(64))
+            window.append(m)
+
+    def replica(verifier):
+        commits: dict = {}
+        views: list = []
+
+        def check(view, proc):
+            views.append(votegrid.CheckedTallyView(view, proc))
+            return views[-1]
+
+        fl = DeviceTallyFlusher(verifier, sigs, tally_check=check, device="cuda")
+        rep = Replica(ReplicaOptions(), whoami=sigs[0], signatories=list(sigs), timer=None,
+                      proposer=None, validator=None,
+                      committer=CommitterCallback(on_commit=lambda h, v: (
+                          commits.__setitem__(h, v), (0, None))[1]),
+                      catcher=None, broadcaster=None, flusher=fl)
+        rep.start()
+        return rep, fl, commits, views
+
+    bv = TorchBatchVerifier(device="cuda")
+    bv.warmup()
+    rep, fl, commits, views = replica(bv)
+    obj, obj_fl, obj_commits, obj_views = replica(HostVerifier())
+    block = batch.MessageBlock.from_messages(window)
+    torch.cuda.synchronize()
+    ed25519_cuda.reset_stats()
+    t0 = time.perf_counter()
+    fl.settle_block(rep, block)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: v.launches for k, v in ed25519_cuda.stats.items() if v.launches}
+    for m in window:
+        getattr(obj.mq, f"insert_{type(m).__name__.lower()}")(m)
+    t0 = time.perf_counter()
+    obj_fl.flush(obj)
+    obj_wall = time.perf_counter() - t0
+    keys = ("matching", "nil", "total", "l28")
+    got = [{k: v.view.counts[k].tolist() for k in keys} for v in views]
+    want = [{k: v.view.counts[k].tolist() for k in keys} for v in obj_views]
+    if launches != {"ed25519_verify": 1}:
+        raise AssertionError(f"burst settle_block: launches {launches}")
+    if commits != obj_commits or commits != {1: value} or got != want:
+        raise AssertionError("burst settle_block: commits or counts differ from the "
+                             "object path")
+    if checkpoint_bytes(rep.proc) != checkpoint_bytes(obj.proc):
+        raise AssertionError("burst settle_block: checkpoint bytes differ")
+    if not sum(v.hits for v in views):
+        raise AssertionError("burst settle_block: the device counts were never consulted")
+    print(f"burst settle_block: n={N_VALIDATORS} rows={len(block)} forged={len(forged)} "
+          f"launches={launches} fastpath_rows={fl.fastpath_rows} tally_launches="
+          f"{fl.launches} commits={sorted(commits)} wall_ms={wall * 1e3:.2f} "
+          f"object_path_wall_ms={obj_wall * 1e3:.2f} counts_equal=True "
+          f"checkpoint_equal=True", flush=True)
+
+
+def phase_burst(ref: dict) -> None:
+    """The burst phase: (i) the main path on its other delivery routes,
+    (ii) the redundant settle with and without ``pipeline_verify``, (iii)
+    the n = 64 adversarial network, (iv) ``settle_block`` on the card.
+    Each path is driven with the kernel counts set to 0 just before it and
+    read just after. ``ref`` is the main path's host run."""
+    from hyperdrive_tpu_torch.crypto.keys import KeyRing
+    from hyperdrive_tpu_torch.ops.ed25519 import TorchBatchVerifier
+    from hyperdrive_tpu_torch.ops.ed25519_wire import TorchWireVerifier, ValidatorTable
+
+    if ref["digest"][:16] != MAIN_DIGEST or ref["steps"] != MAIN_STEPS:
+        raise AssertionError("burst: the main path's host run moved off the invariant")
+    print(f"burst: invariant digest={MAIN_DIGEST} steps={MAIN_STEPS} "
+          f"settles/vote_settles/verified_sigs={'/'.join(map(str, MAIN_SETTLES))}",
+          flush=True)
+    ring = KeyRing.deterministic(N_VALIDATORS, namespace=b"sim-1")
+    table = ValidatorTable(ring.signatories, device="cuda")
+    packed = ("ed25519_verify",)
+    chal = ("ed25519_challenge", "ed25519_semiwire")
+    # (i) the main path on the object path and per delivery.
+    run_path("packed", packed, TorchBatchVerifier(device="cuda"), ref, prefix="burst",
+             columnar_ingest=False)
+    run_path("packed", packed, TorchBatchVerifier(device="cuda"), ref, prefix="burst",
+             shared_superstep=False)
+    run_path("packed+tally", packed, TorchBatchVerifier(device="cuda"), ref, tally=True,
+             prefix="burst", columnar_ingest=False)
+    run_path("chal+tally", chal, TorchWireVerifier(device="cuda", table=table), ref,
+             tally=True, prefix="burst", columnar_ingest=False)
+    # The main path's columnar settle against the object path, in turns.
+    phase_pairs(ref, legs=(("packed (columnar)", TorchBatchVerifier(device="cuda"), {}),
+                           ("packed (objects)", TorchBatchVerifier(device="cuda"),
+                            dict(columnar_ingest=False))))
+    # (ii) redundant verification: every receiver's copy on the card.
+    for label, own, table_ in (("chal", chal, table), ("wire", ("ed25519_wire",), None)):
+        for pv in (True, False):
+            run_path(label, own, TorchWireVerifier(device="cuda", table=table_), ref,
+                     prefix="burst", dedup_verify=False, pipeline_verify=pv)
+    phase_adversarial()
+    phase_settle_block()
 
 
 #: The deployment runs: (label, processes, replicas per process, heights,
@@ -2989,8 +3312,10 @@ def main() -> int:
     mark("kernels")
     phase_votegrid()
     mark("votegrid")
-    launches = phase_main_path()
+    launches, ref = phase_main_path()
     mark("main")
+    phase_burst(ref)
+    mark("burst")
     phase_deploy()
     mark("deploy")
     phase_shamir()

@@ -5,19 +5,35 @@ Port of the part of the JAX package's ``harness/sim.py`` that runs the
 signed, burst-mode, dedup-verified network (the "256 replicas, Ed25519
 batch-verify offload" deployment):
 
-- One global queue of ``(to, msg)`` records. In shared-superstep mode a
-  broadcast is ONE entry (``to = -1``: every live replica); timeouts are
-  addressed to their owner. Timeouts run on a :class:`VirtualClock`: when
-  the network drains, the clock jumps to the next deadline.
-- Each superstep takes the whole pending queue, appends every broadcast
-  once to a shared lane, then settles: the lane becomes per-replica
-  windows (:meth:`Simulation._shared_windows`), ALL windows are
-  signature-checked in one ``batch_verifier`` call per settle pass, each
-  replica runs its rule cascade on the survivors, and the pass repeats
-  until the network is quiescent.
+- One global queue of ``(to, msg)`` records. In shared-superstep mode
+  (the default without a per-delivery adversary) a broadcast is ONE entry
+  (``to = -1``: every live replica); otherwise it is one entry per
+  recipient. Timeouts are addressed to their owner and run on a
+  :class:`VirtualClock`: when the network drains, the clock jumps to the
+  next deadline.
+- Each superstep takes the whole pending queue (shuffled under
+  ``reorder``), applies the kills due by then, and buffers it: in shared
+  mode every broadcast goes once onto a shared lane, which becomes
+  per-replica windows (:meth:`Simulation._shared_windows`); per delivery,
+  each replica buffers its own votes (``handle_burst``, minus the
+  deliveries ``drop_rate`` drops) while timeouts run inline. Then the
+  network settles: ALL windows are signature-checked in one
+  ``batch_verifier`` call per settle pass, each replica runs its rule
+  cascade on the survivors, and the pass repeats until the network is
+  quiescent.
+- With batched ingestion (``batch_ingest``, on in burst mode) every
+  window that IS the shared lockstep list is ingested through ONE
+  :class:`~hyperdrive_tpu_torch.batch.WindowColumns` extraction shared by
+  every replica (``columnar_ingest``, on by default); stragglers take
+  the object path. ``batch_ingest=False`` dispatches message by message.
+- Without dedup or device tallies, ``pipeline_verify`` (on by default)
+  double-buffers a settle pass: its windows are verified in replica
+  groups of about one verify bucket, group g+1's launches enqueued before
+  group g's mask is read (:meth:`Simulation._settle_pipelined`).
 
-Delivery order, the small-window routing rule and the commit bookkeeping
-are the reference's, so the two commit the same chain step for step.
+Delivery order, the adversaries' draws from ``self.rng``, the
+small-window routing rule and the commit bookkeeping are the
+reference's, so the two commit the same chain step for step.
 
 With ``device_tally=True`` the quorum counts come from the device vote
 grid (:class:`~hyperdrive_tpu_torch.ops.votegrid.VoteGrid`, one grid
@@ -73,27 +89,29 @@ every certificate, folded on the host or, with ``"device"``, by the
 ``g1_aggregate`` kernel on ``device``.
 
 Not ported (a later slice of the port), and refused: lock-step delivery
-(``burst=False``), per-delivery adversaries, kills, the sharded grid
-(``tally_mesh``), an injected queue (``devsched=``) and per-replica
-flushers, epochs (with ``EpochCertifier``), chaos, load,
-overlay and the record/replay log (``SimulationResult.record`` is
-always None, so no execution trailer is recorded).
-The tracer, flight recorder, metrics registry and device telemetry are
-dropped (tracing returns in a later slice); the columnar
-window path (``columnar_ingest``) is replaced by the object path with
-batched ingestion, which the reference tests as equivalent row for row.
+(``burst=False``), per-replica verifiers (``verifier_for``), a
+``signatories`` override, the catch-up sweep (``catchup_every``,
+``catchup_lag``), the sharded grid (``tally_mesh``), an injected queue
+(``devsched=``) and per-replica flushers, epochs (with
+``EpochCertifier``), chaos, load, overlay and the record/replay log
+(``SimulationResult.record`` is always None, so no execution trailer is
+recorded). The tracer, flight recorder, metrics registry and device
+telemetry are dropped (tracing returns in a later slice).
 """
 
 from __future__ import annotations
 
 import hashlib
 import heapq
+import random
 import time
 from dataclasses import dataclass, field
-from typing import Optional
+from itertools import repeat
+from typing import Callable, Optional
 
 import numpy as np
 
+from hyperdrive_tpu_torch.batch import MessageBlock, WindowColumns
 from hyperdrive_tpu_torch.messages import Precommit, Prevote, Propose, Timeout
 from hyperdrive_tpu_torch.replica import Replica, ReplicaOptions, merge_drain
 from hyperdrive_tpu_torch.testutil import (
@@ -245,6 +263,24 @@ class Simulation:
     ``config.device`` the executors' tensors live there.
     ``exec_speculate``, ``fused_exec_drain`` and ``dedup_exec`` default
     to ``pipeline_heights``.
+
+    The adversaries, as in the reference: ``reorder`` shuffles every
+    superstep's deliveries (``self.rng.shuffle``); ``drop_rate`` drops
+    each non-timeout delivery with that probability (one
+    ``self.rng.random()`` a delivery); ``kill_at_step`` ``{replica:
+    step}`` kills at the first superstep boundary at or past the step;
+    ``offline`` replicas never start; ``byzantine_proposer`` ``{replica:
+    fn(height, round) -> value}`` and ``byzantine_validator`` ``{replica:
+    fn(height, round, value) -> bool}`` replace those replicas' proposer
+    and validator; ``delivery_cost`` charges that many virtual seconds a
+    delivery. ``self.rng`` is ``random.Random(seed)``.
+
+    Differential knobs: ``shared_superstep`` (None = on without
+    ``reorder``/``drop_rate``; False forces the per-delivery path,
+    which gives the same trajectory), ``batch_ingest`` (None = on;
+    False dispatches message by message), ``columnar_ingest`` (None =
+    ``batch_ingest``; False keeps the object path), ``pipeline_verify``
+    (None = on; False verifies each settle pass in one call).
     """
 
     def __init__(
@@ -255,11 +291,22 @@ class Simulation:
         timeout: float = 1.0,
         timeout_scaling: float = 0.5,
         max_capacity: int = 1000,
+        reorder: bool = False,
+        drop_rate: float = 0.0,
+        kill_at_step: Optional[dict[int, int]] = None,
+        offline: Optional[set[int]] = None,
+        byzantine_proposer: Optional[dict[int, Callable]] = None,
+        byzantine_validator: Optional[dict[int, Callable]] = None,
         sign: bool = False,
+        delivery_cost: float = 0.0,
         burst: bool = False,
         dedup_verify: bool = False,
         batch_verifier=None,
+        batch_ingest: Optional[bool] = None,
+        shared_superstep: Optional[bool] = None,
         small_window_host: Optional[bool] = None,
+        columnar_ingest: Optional[bool] = None,
+        pipeline_verify: Optional[bool] = None,
         device_tally: bool = False,
         tally_check=None,
         fused_min_window: int = 0,
@@ -283,6 +330,47 @@ class Simulation:
                 f"Simulation options {sorted(unported)} are not ported to "
                 "the PyTorch package yet (a later slice of the port)"
             )
+        #: The adversaries' one random stream: ``reorder`` shuffles each
+        #: superstep, ``drop_rate`` draws once per non-timeout delivery,
+        #: in the reference's order (one extra draw moves every
+        #: trajectory).
+        self.rng = random.Random(seed)
+        self.reorder = reorder
+        self.drop_rate = drop_rate
+        #: Virtual seconds charged per delivered message (0 = free).
+        self.delivery_cost = delivery_cost
+        self.kill_at_step = dict(kill_at_step or {})
+        self.offline = set(offline or ())
+        #: Shared-superstep mode: with no per-delivery adversary every live
+        #: replica receives the same broadcast sequence, so a broadcast is
+        #: ONE queue entry and the settle sorts and verifies it once.
+        self._shared_mode = (
+            burst and not reorder and drop_rate == 0.0
+            if shared_superstep is None
+            else bool(shared_superstep)
+        )
+        if self._shared_mode and not (burst and not reorder and drop_rate == 0.0):
+            raise ValueError(
+                "shared_superstep=True requires burst mode with no "
+                "per-delivery adversary (reorder/drop_rate)"
+            )
+        #: Burst mode ingests a window at a time (one rule cascade a
+        #: window); False dispatches message by message.
+        self.batch_ingest = burst if batch_ingest is None else batch_ingest
+        if self.batch_ingest and not burst:
+            raise ValueError("batch_ingest requires burst=True")
+        #: Columnar settle: lockstep windows ingest through ONE
+        #: WindowColumns extraction shared by every replica.
+        self.columnar_ingest = (
+            self.batch_ingest if columnar_ingest is None else bool(columnar_ingest)
+        )
+        if self.columnar_ingest and not self.batch_ingest:
+            raise ValueError("columnar_ingest requires batched ingestion")
+        #: Double-buffered redundant settle (no dedup, no device tally):
+        #: replica groups, group g+1 enqueued before group g's mask is read.
+        self._pipeline_verify = (
+            True if pipeline_verify is None else bool(pipeline_verify)
+        )
         #: Chained height pipelining through the device-work queue: None or
         #: False = off (the sequential trajectory, the differential
         #: baseline).
@@ -307,7 +395,7 @@ class Simulation:
                     "committed height's propose logs at commit time — "
                     "run the payload path sequentially"
                 )
-        if device_tally and not burst:
+        if device_tally and not (burst and self.batch_ingest):
             raise ValueError(
                 "device_tally requires burst=True with batched ingestion"
             )
@@ -380,8 +468,10 @@ class Simulation:
         self._order_pos = {s: v for v, s in enumerate(self.signatories)}
         self._shared: list = []
         self.commits: list[dict[Height, Value]] = [dict() for _ in range(n)]
-        self.alive = [True] * n
-        self._pending_replicas = set(range(n))
+        self.alive = [i not in self.offline for i in range(n)]
+        # A replica leaves the pending set when it commits the target
+        # height or dies.
+        self._pending_replicas = {i for i in range(n) if self.alive[i]}
         self.caught: list[tuple[str, int]] = []
         #: Settle accounting: passes, passes whose windows carried votes,
         #: and signatures handed to a verifier (after dedup).
@@ -450,8 +540,13 @@ class Simulation:
         self._init_execution(
             execution, exec_speculate, fused_exec_drain, dedup_exec, device
         )
+        byz_prop = byzantine_proposer or {}
+        byz_val = byzantine_validator or {}
         self.replicas: list[Replica] = [
-            self._build_replica(i, timeout, timeout_scaling, max_capacity)
+            self._build_replica(
+                i, timeout, timeout_scaling, max_capacity,
+                byz_prop.get(i), byz_val.get(i),
+            )
             for i in range(n)
         ]
         #: Device-resident quorum tallies: behavior-neutral by construction
@@ -482,11 +577,13 @@ class Simulation:
             self._route_hist: list = []
             self._route_hyst_thresh = -(-95 * self._route_hyst_n // 100)
             self._sender_pos = {s: v for v, s in enumerate(self.signatories)}
-            #: Fused verify + merge + tally: available when the verifier
-            #: exposes its batch kernel and its packer, and the run dedups
-            #: verification (shared verdicts = shared merge).
+            #: Fused verify + merge + tally: available in shared-superstep
+            #: mode when the verifier exposes its batch kernel and its
+            #: packer, and the run dedups verification (shared verdicts =
+            #: shared merge).
             self._fused_ok = (
-                dedup_verify
+                self._shared_mode
+                and dedup_verify
                 and hasattr(bv, "fused_inner")
                 and hasattr(getattr(bv, "host", None), "pack")
             )
@@ -515,15 +612,25 @@ class Simulation:
             b"value-%d-%d-%d" % (self.seed, height, round_)
         ).digest()
 
-    def _build_replica(self, i, timeout, scaling, capacity) -> Replica:
+    def _build_replica(self, i, timeout, scaling, capacity, byz_proposer,
+                       byz_validator) -> Replica:
         keypair = self.ring[i] if self.ring is not None else None
+        recipients = range(self.n)
 
-        def bcast(msg):
-            # ONE queue entry per broadcast (to=-1: all live replicas); the
-            # sender attaches its detached signature on the outbound edge.
-            if keypair is not None:
-                msg = keypair.sign_message(msg)
-            self.queue.append((-1, msg))
+        if self._shared_mode:
+            def bcast(msg):
+                # ONE queue entry per broadcast (to=-1: all live replicas);
+                # the sender attaches its detached signature on the
+                # outbound edge.
+                if keypair is not None:
+                    msg = keypair.sign_message(msg)
+                self.queue.append((-1, msg))
+        else:
+            def bcast(msg):
+                # One delivery per recipient, self included.
+                if keypair is not None:
+                    msg = keypair.sign_message(msg)
+                self.queue.extend(zip(recipients, repeat(msg, self.n)))
 
         timer = VirtualTimer(
             _OwnedClock(self.clock, i),
@@ -532,17 +639,23 @@ class Simulation:
             timeout_scaling=scaling,
         )
         caught = self.caught
-        proposer = MockProposer(fn=self._default_value)
-        validator = MockValidator(ok=True)
+        proposer = MockProposer(fn=byz_proposer or self._default_value)
+        validator = (
+            MockValidator(fn=byz_validator)
+            if byz_validator
+            else MockValidator(ok=True)
+        )
         if self.payload_bytes:
-            proposer = _PayloadProposer(self, self._default_value)
-            validator = _PayloadValidator(self)
+            proposer = _PayloadProposer(self, byz_proposer or self._default_value)
+            if not byz_validator:
+                validator = _PayloadValidator(self)
         if self._execution is not None:
             # The proposed value commits to the height's deterministic tx
             # block (round-independent: retries re-propose the same
             # block), and honest validators accept ONLY that value.
-            proposer = MockProposer(fn=self._exec_value)
-            validator = MockValidator(fn=self._exec_valid)
+            proposer = MockProposer(fn=byz_proposer or self._exec_value)
+            if not byz_validator:
+                validator = MockValidator(fn=self._exec_valid)
         certifier = None
         if self.certificates_on:
             from hyperdrive_tpu_torch.certificates import Certifier
@@ -568,7 +681,8 @@ class Simulation:
             self.certifiers.append(certifier)
         return Replica(
             ReplicaOptions(
-                max_capacity=capacity, external_flush=True, batch_ingest=True
+                max_capacity=capacity, external_flush=True,
+                batch_ingest=self.batch_ingest,
             ),
             self.signatories[i],
             list(self.signatories),
@@ -958,18 +1072,23 @@ class Simulation:
         return not self._pending_replicas
 
     def run(self, max_steps: int = 2_000_000) -> SimulationResult:
-        """Start every replica and drive the network to the target height."""
-        for r in self.replicas:
-            r.start()
+        """Start every live replica and drive the network to the target
+        height."""
+        for i, r in enumerate(self.replicas):
+            if self.alive[i]:
+                r.start()
         return self._run_burst(max_steps)
 
     def _run_burst(self, max_steps: int) -> SimulationResult:
         """Superstep delivery: buffer every pending message, then settle
         the whole network through aggregated verification. Steps count
-        deliveries (a broadcast is ``n`` of them), as in the reference."""
+        deliveries (a broadcast is ``n`` of them), as in the reference;
+        reorder, drops and kills apply per superstep and per delivery as
+        there."""
         steps = 0
         n = self.n
         replicas = self.replicas
+        alive = self.alive
         sched = self._sched
         while steps < max_steps and not self._completed():
             if self.clock.pending() > 65536:
@@ -992,16 +1111,75 @@ class Simulation:
             batch = self.queue[self._qhead :]
             self.queue = []
             self._qhead = 0
-            shared = self._shared
+            if self.reorder:
+                self.rng.shuffle(batch)
+
+            # Kills apply at superstep boundaries: a replica alive for any
+            # part of a superstep settles the whole superstep.
+            if self.kill_at_step:
+                for victim, at in list(self.kill_at_step.items()):
+                    if steps >= at:
+                        if alive[victim]:
+                            alive[victim] = False
+                            self._pending_replicas.discard(victim)
+                        del self.kill_at_step[victim]
+
+            cost = self.delivery_cost
+            if self._shared_mode:
+                # A (-1, msg) entry is one broadcast to every live replica:
+                # steps and delivery cost count per delivery, the message
+                # goes ONCE onto the shared lane (_settle filters and
+                # inserts it per replica).
+                nlive = sum(alive)
+                shared = self._shared
+                for to, msg in batch:
+                    if to < 0:
+                        steps += n
+                        if not nlive:
+                            continue
+                        if cost:
+                            self.clock.now += cost * nlive
+                        shared.append(msg)
+                        continue
+                    steps += 1
+                    if not alive[to]:
+                        continue
+                    if cost:
+                        self.clock.now += cost
+                    replicas[to].handle(msg)
+                self._shared = []
+                self._settle(shared)
+                continue
+
+            # Per delivery: group VOTE deliveries per replica (buffering is
+            # state-invisible until the settle), but run timeouts inline at
+            # their delivery point, after flushing that replica's votes so
+            # far to keep its per-message order.
+            per_replica: dict[int, list] = {}
+            drop_rate = self.drop_rate
             for to, msg in batch:
-                if to < 0:
-                    steps += n
-                    shared.append(msg)
-                    continue
                 steps += 1
-                replicas[to].handle(msg)
-            self._shared = []
-            self._settle(shared)
+                if drop_rate and not isinstance(msg, Timeout):
+                    if self.rng.random() < drop_rate:
+                        continue
+                if not alive[to]:
+                    continue
+                if cost:
+                    self.clock.now += cost
+                t = type(msg)
+                if t is Propose or t is Prevote or t is Precommit:
+                    lst = per_replica.get(to)
+                    if lst is None:
+                        lst = per_replica[to] = []
+                    lst.append(msg)
+                else:
+                    lst = per_replica.pop(to, None)
+                    if lst:
+                        replicas[to].handle_burst(lst)
+                    replicas[to].handle(msg)
+            for to, msgs in per_replica.items():
+                replicas[to].handle_burst(msgs)
+            self._settle()
 
         if sched is not None:
             # No command may be dropped: the final drain resolves every
@@ -1022,9 +1200,17 @@ class Simulation:
         )
 
     def _prune_clock(self) -> None:
-        """Drop timeouts for heights every replica has already left (they
-        would fire as no-ops: the Process height-guards every timeout)."""
-        min_h = min(r.proc.current_height for r in self.replicas)
+        """Drop timeouts for heights every live replica has already left
+        (they would fire as no-ops: the Process height-guards every
+        timeout)."""
+        alive_heights = [
+            r.proc.current_height
+            for i, r in enumerate(self.replicas)
+            if self.alive[i]
+        ]
+        if not alive_heights:
+            return
+        min_h = min(alive_heights)
         self.clock.prune(
             lambda ev: ev.height >= min_h if isinstance(ev, Timeout) else True
         )
@@ -1045,6 +1231,8 @@ class Simulation:
             else:
                 windows = []
                 for i, r in enumerate(self.replicas):
+                    if not self.alive[i]:
+                        continue
                     w = r.drain_pending()
                     if w:
                         windows.append((i, w))
@@ -1060,8 +1248,16 @@ class Simulation:
             if self.device_tally:
                 self._settle_tallied(windows, shared_window)
                 continue
+            if (
+                self._pipeline_verify
+                and not self.dedup_verify
+                and self.batch_verifier is not None
+                and len(windows) > 1
+            ):
+                self._settle_pipelined(windows, shared_window)
+                continue
             keeps = self._verify_windows(windows, shared_window)
-            self._dispatch_windows(windows, keeps)
+            self._dispatch_windows(windows, keeps, shared_window)
 
     def _settle_tallied(self, windows, shared_window) -> None:
         """One device-tally settle pass, routed: a lockstep pass (every
@@ -1091,7 +1287,7 @@ class Simulation:
             # grid (reset defers to the height's first vote-bearing
             # settle) and cascade on the host fallback.
             keeps = self._verify_windows(windows, shared_window)
-            self._dispatch_windows(windows, keeps)
+            self._dispatch_windows(windows, keeps, shared_window)
             return
         if self._fused_min_window and not (
             # A single window never holds the same object twice, so any
@@ -1116,7 +1312,7 @@ class Simulation:
                 keeps = self._verify_windows(
                     windows, shared_window, force_host=True
                 )
-                self._dispatch_windows(windows, keeps)
+                self._dispatch_windows(windows, keeps, shared_window)
                 return
         keeps = self._verify_windows(windows, shared_window)
         self._reengage_grid()
@@ -1139,7 +1335,7 @@ class Simulation:
         self._note_route(True)
         self.host_routed_settles += 1
         keeps = self._verify_windows(windows, shared_window, force_host=True)
-        self._dispatch_windows(windows, keeps)
+        self._dispatch_windows(windows, keeps, shared_window)
 
     def _note_route(self, host_routed: bool) -> None:
         """Feed the router hysteresis: one observation per routed settle.
@@ -1169,6 +1365,8 @@ class Simulation:
             return
         all_slots = self.vote_grid.all_slots()
         for i, r in enumerate(self.replicas):
+            if not self.alive[i]:
+                continue
             self._grid_height[i] = r.proc.current_height
             self._grid_dirty[i] = set(all_slots)
         self._grid_engaged = True
@@ -1219,6 +1417,8 @@ class Simulation:
         windows: list[tuple[int, list]] = []
         shared_capped: dict = {}  # cur -> capped shared list (lockstep case)
         for i, r in enumerate(self.replicas):
+            if not self.alive[i]:
+                continue
             cur = r.proc.current_height
             plain = not r._lane and not r.mq.has_eligible(cur)
             if plain and hmin == hmax == cur:
@@ -1254,9 +1454,92 @@ class Simulation:
                 windows.append((i, w))
         return shared, windows
 
-    def _dispatch_windows(self, windows, keeps) -> None:
+    def _dispatch_windows(self, windows, keeps, shared_window) -> None:
+        """Plain (host-cascade) dispatch of a settle pass's windows, on the
+        columnar path for every window that IS the shared lockstep list:
+        one WindowColumns extraction serves all of them. Stragglers keep
+        the object path."""
+        cols = None
         for (i, w), keep in zip(windows, keeps):
-            self.replicas[i].dispatch_window(w, keep)
+            if self.columnar_ingest and w is shared_window:
+                if cols is None:
+                    cols = WindowColumns.from_messages(shared_window)
+                self.replicas[i].dispatch_window_cols(cols, keep)
+            else:
+                self.replicas[i].dispatch_window(w, keep)
+
+    def _settle_pipelined(self, windows, shared_window) -> None:
+        """Double-buffered redundant settle: verify + dispatch with the
+        windows chunked into replica groups, group g+1's verify launches
+        enqueued BEFORE group g's mask is read, so the device work runs
+        under group g's host insert + cascade.
+
+        Shared lockstep windows pack once for the whole pass:
+        ``verify_signatures_begin(items, repeats=len(group))`` re-launches
+        the packed rows once per receiver copy (every copy is verified on
+        the device; no lane is re-packed or re-shipped). A verifier
+        without ``verify_signatures_begin`` verifies group by group, with
+        the same verdicts and no overlap.
+        """
+        from hyperdrive_tpu_torch.ops.bucketing import launch_target
+
+        begin = getattr(self.batch_verifier, "verify_signatures_begin", None)
+        buckets = getattr(
+            getattr(self.batch_verifier, "host", None), "buckets", None
+        )
+        # Group so one launch carries about one verify bucket of lanes:
+        # finer groups pay launch overhead, coarser ones leave nothing in
+        # flight to hide behind the cascade.
+        target = launch_target(buckets)
+        per_win = max(len(w) for _, w in windows)
+        gsize = max(1, target // max(per_win, 1))
+        groups = [windows[a : a + gsize] for a in range(0, len(windows), gsize)]
+        shared_items = None
+        cols = None
+
+        def launch(group):
+            nonlocal shared_items
+            if shared_window is not None and all(
+                w is shared_window for _, w in group
+            ):
+                if shared_items is None:
+                    shared_items = [
+                        (m.sender, m.digest(), m.signature) for m in shared_window
+                    ]
+                if begin is not None:
+                    self.verified_sigs += len(shared_items) * len(group)
+                    return begin(shared_items, repeats=len(group)), None
+                return self._verify_items(shared_items * len(group)), None
+            items = []
+            bounds = []
+            for _, w in group:
+                start = len(items)
+                items.extend((m.sender, m.digest(), m.signature) for m in w)
+                bounds.append((start, len(items)))
+            if begin is not None:
+                self.verified_sigs += len(items)
+                return begin(items), bounds
+            return self._verify_items(items), bounds
+
+        inflight = launch(groups[0])
+        for gi, group in enumerate(groups):
+            nxt = launch(groups[gi + 1]) if gi + 1 < len(groups) else None
+            handle, bounds = inflight
+            mask = handle.mask() if hasattr(handle, "mask") else handle
+            mask = mask.tolist() if hasattr(mask, "tolist") else list(mask)
+            if bounds is None:
+                m = len(mask) // len(group)
+                keeps = [mask[j * m : (j + 1) * m] for j in range(len(group))]
+            else:
+                keeps = [mask[a:b] for a, b in bounds]
+            for (i, w), keep in zip(group, keeps):
+                if self.columnar_ingest and w is shared_window:
+                    if cols is None:
+                        cols = WindowColumns.from_messages(shared_window)
+                    self.replicas[i].dispatch_window_cols(cols, keep)
+                else:
+                    self.replicas[i].dispatch_window(w, keep)
+            inflight = nxt
 
     def _verify_windows(self, windows, shared_window=None,
                         force_host: bool = False) -> list:
@@ -1434,7 +1717,7 @@ class Simulation:
         # Dispatch immediately — THIS is the pipeline: the network
         # progresses on the speculative verdicts while the launch is in
         # flight. Commits raised by the cascade gate in _on_commit.
-        self._dispatch_windows(windows, keeps)
+        self._dispatch_windows(windows, keeps, shared_window)
 
         # A gated commit that would complete the run must not wait for the
         # depth trigger: drain now so run() terminates promptly instead of
@@ -1569,9 +1852,9 @@ class Simulation:
         tally launch for the whole network, then run each replica's rule
         cascade against its :class:`TallyView` slice. The counts are
         exactly equal to the host counters wherever the view answers, so
-        runs are bit-identical to host-tally mode."""
-        from hyperdrive_tpu_torch.ops.tally import pack_value
-
+        runs are bit-identical to host-tally mode. Windows that ARE the
+        shared lockstep list insert through one shared WindowColumns
+        extraction."""
         R = self.vote_grid.R
         # Resets before the insert phase: inserts never change heights,
         # and the insert hooks' dirty marks for the NEW height must
@@ -1600,11 +1883,20 @@ class Simulation:
                 accepted.append((i, plane, msg))
             return on_accepted
 
-        plans = [
-            (i, self.replicas[i].ingest_insert_window(
-                w, keep, make_hook(i, self._grid_dirty[i])))
-            for (i, w), keep in zip(windows, keeps)
-        ]
+        plans = []
+        cols = None
+        for (i, w), keep in zip(windows, keeps):
+            hook = make_hook(i, self._grid_dirty[i])
+            if self.columnar_ingest and w is shared_window:
+                if cols is None:
+                    cols = WindowColumns.from_messages(shared_window)
+                plans.append(
+                    (i, self.replicas[i].ingest_insert_window_cols(cols, keep, hook))
+                )
+            else:
+                plans.append(
+                    (i, self.replicas[i].ingest_insert_window(w, keep, hook))
+                )
         # Matching targets are each replica's post-insert proposal value
         # per round slot; the L28 lane carries the cross-round
         # (valid_round, current proposal value) query.
@@ -1615,11 +1907,16 @@ class Simulation:
             if v is not None:
                 l28_vals[i] = v
 
-        words = np.zeros((len(accepted), 8), dtype=np.int32)
-        idx = np.zeros((len(accepted), 4), dtype=np.int32)
-        for j, (i, plane, m) in enumerate(accepted):
-            words[j] = pack_value(m.value)
-            idx[j] = (i, plane, m.round, sender_pos[m.sender])
+        if accepted:
+            block = MessageBlock.from_messages([m for _, _, m in accepted])
+            words = np.ascontiguousarray(block.rows["value"]).view("<i4")
+            idx = np.array(
+                [(i, plane, m.round, sender_pos[m.sender]) for i, plane, m in accepted],
+                dtype=np.int32,
+            )
+        else:
+            words = np.zeros((0, 8), dtype=np.int32)
+            idx = np.zeros((0, 4), dtype=np.int32)
         counts = self.vote_grid.update_and_tally(
             idx, words, reset, targets, tvalid, l28_slot, l28_target, fs
         )
@@ -1729,8 +2026,16 @@ class Simulation:
         self.fused_settles += 1
         keep = (fused_out.mask() & prevalid)[:nitems].tolist()
         counts = fused_out.counts()
+        # Every window IS the shared list (fused eligibility), so one
+        # columnar extraction serves all n lockstep inserts.
+        cols = WindowColumns.from_messages(shared) if self.columnar_ingest else None
         plans = [
-            (i, self.replicas[i].ingest_insert_window(w, keep))
+            (
+                i,
+                self.replicas[i].ingest_insert_window_cols(cols, keep)
+                if cols is not None and w is shared
+                else self.replicas[i].ingest_insert_window(w, keep),
+            )
             for i, w in windows
         ]
         self._cascade(plans, counts, {i: h for i, _ in windows}, tmaps,

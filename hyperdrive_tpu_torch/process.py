@@ -31,10 +31,9 @@ Rule map (paper label -> method):
 - L55      _try_skip_to_future_round
 - L57/61/65  on_timeout_propose / on_timeout_prevote / on_timeout_precommit
 
-Port copy of ``hyperdrive_tpu/process.py`` for the PyTorch package: the ``@wire_codec`` lint decorator,
-the flight-recorder hook (``obs`` and every ``obs.emit`` site) and the
-columnar ``ingest_insert_cols`` (the columnar settle path is not ported
-yet) are removed.
+Port copy of ``hyperdrive_tpu/process.py`` for the PyTorch package: the
+``@wire_codec`` lint decorator and the flight-recorder hook (``obs`` and
+every ``obs.emit`` site) are removed.
 Everything else is unchanged.
 """
 
@@ -370,6 +369,151 @@ class Process:
                 # trace set; invalidate so the next vote re-fetches.
                 last_rnd = None
         return (commit_rounds, vote_rounds)
+
+    def ingest_insert_cols(self, cols, keep=None, allowed=None,
+                           on_accepted=None):
+        """Columnar insert phase: the settle fast path over a
+        :class:`~hyperdrive_tpu_torch.batch.WindowColumns` view.
+
+        Semantically identical to :meth:`ingest_insert` over the filtered
+        window ``[cols.msg(i) for i surviving keep/allowed]`` (property-
+        tested: equal logs, once-flags, locks, and catcher calls) — but the
+        per-message attribute extraction and type dispatch were paid once
+        when ``cols`` was built, the keep-mask and whitelist filters fuse
+        into the loop (no intermediate window copy per replica), and the
+        round-log views are fetched once per (kind, height, round) run.
+        Message objects are touched only for rows the automaton keeps
+        (log insertion) or reports (equivocation evidence); on a wire-built
+        view (``WindowColumns.from_block``) every other row skips object
+        materialization entirely.
+
+        Returns ``(plan, ingested)`` where ``plan`` feeds
+        :meth:`ingest_cascade` and ``ingested`` counts the rows that
+        survived the keep/allowed filters (the replica's accept
+        accounting).
+        """
+        commit_rounds = set()
+        vote_rounds = set()
+        vr_add = vote_rounds.add
+        cr_add = commit_rounds.add
+        st = self.state
+        cur_h = st.current_height
+        catcher = self.catcher
+        traces = st.trace_logs
+        hc = self.host_counts
+        senders = cols.senders
+        values = cols.values
+        msg_at = cols.msg
+        # Accepted/equivocating rows read the message LIST directly — on
+        # the from_messages path every slot is populated, so the common
+        # case is a plain index instead of a bound-method call; only
+        # wire-built views (None slots) fall back to lazy materialization.
+        mlist = cols.msgs
+        KP = cols.KIND_PROPOSE
+        ingested = 0
+        for kind, h, rnd, start, end in cols.runs:
+            if kind == KP:
+                for i in range(start, end):
+                    if keep is not None and not keep[i]:
+                        continue
+                    if allowed is not None and senders[i] not in allowed:
+                        continue
+                    ingested += 1
+                    m = msg_at(i)
+                    if self._insert_propose(m):
+                        vote_rounds.add(rnd)
+                        commit_rounds.add(rnd)
+                continue
+            is_pc = kind == cols.KIND_PRECOMMIT
+            if h != cur_h:
+                # Wrong-height rows still count as delivered (they passed
+                # the keep/allowed filters — the object path counts them
+                # in its filtered window before the height check drops
+                # them), but never touch state or materialize objects.
+                if keep is None and allowed is None:
+                    ingested += end - start
+                else:
+                    for i in range(start, end):
+                        if (keep is None or keep[i]) and (
+                            allowed is None or senders[i] in allowed
+                        ):
+                            ingested += 1
+                continue
+            # Round-log views fetch lazily on the first surviving row:
+            # a fully filtered-out run must not create empty log dicts
+            # the object path would never have created (checkpoint bytes
+            # and state-parity both see the difference).
+            votes = vget = cget = tadd = counts = trace = None
+            n0 = 0
+            for i in range(start, end):
+                if keep is not None and not keep[i]:
+                    continue
+                sender = senders[i]
+                if allowed is not None and sender not in allowed:
+                    continue
+                ingested += 1
+                if votes is None:
+                    if is_pc:
+                        votes = st.precommit_logs.get(rnd)
+                        if votes is None:
+                            votes = st.precommit_logs[rnd] = {}
+                        if hc:
+                            counts = st.precommit_counts.get(rnd)
+                            if counts is None:
+                                counts = st.precommit_counts[rnd] = {}
+                        else:
+                            st.precommit_counts.pop(rnd, None)
+                    else:
+                        votes = st.prevote_logs.get(rnd)
+                        if votes is None:
+                            votes = st.prevote_logs[rnd] = {}
+                        if hc:
+                            counts = st.prevote_counts.get(rnd)
+                            if counts is None:
+                                counts = st.prevote_counts[rnd] = {}
+                        else:
+                            st.prevote_counts.pop(rnd, None)
+                    trace = traces.get(rnd)
+                    if trace is None:
+                        trace = traces[rnd] = set()
+                    # Bind the per-run view methods once: the row loop
+                    # below is the engine's hottest host code, and a
+                    # LOAD_METHOD per row costs as much as the dict op.
+                    vget = votes.get
+                    tadd = trace.add
+                    if hc:
+                        cget = counts.get
+                    n0 = len(votes)
+                existing = vget(sender)
+                if existing is not None:
+                    m = mlist[i]
+                    if m is None:
+                        m = msg_at(i)
+                    if m != existing and catcher is not None:
+                        if is_pc:
+                            catcher.catch_double_precommit(m, existing)
+                        else:
+                            catcher.catch_double_prevote(m, existing)
+                    continue
+                m = mlist[i]
+                if m is None:
+                    m = msg_at(i)
+                votes[sender] = m
+                if hc:
+                    v = values[i]
+                    counts[v] = cget(v, 0) + 1
+                tadd(sender)
+                if on_accepted is not None:
+                    on_accepted(m, is_pc)
+            # The round sets are run-constant: one membership add when any
+            # row of the run was accepted (every accepted row grows the
+            # votes dict, so the length delta is the acceptance signal)
+            # instead of a set.add per row.
+            if votes is not None and len(votes) != n0:
+                vr_add(rnd)
+                if is_pc:
+                    cr_add(rnd)
+        return (commit_rounds, vote_rounds), ingested
 
     def ingest_cascade(self, plan, tallies=None) -> None:
         """Rule phase of the batched driving mode. With ``tallies`` (a

@@ -12,7 +12,9 @@ Two driving modes:
 - **Synchronous** (:meth:`Replica.handle`, and the two-phase external
   flush ``drain_pending``/``dispatch_window`` with
   ``ingest_insert_window``/``ingest_cascade_window`` for device tallies,
-  which the simulator's settle layer drives);
+  which the simulator's settle layer drives; ``dispatch_window_cols`` and
+  ``ingest_insert_window_cols`` take the columnar path over one shared
+  :class:`~hyperdrive_tpu_torch.batch.WindowColumns` view);
 - **Threaded** (:meth:`Replica.run`): a background thread drains a
   ``queue.Queue`` inbox until a stop event fires (the reference's
   ``Replica.Run``, replica/replica.go:88-151), fed by
@@ -31,9 +33,7 @@ hooks (``utils.trace``, ``utils.log``, ``obs.recorder``,
 that only fed them; the epoch stale-key filter and the admission gate
 (neither exists in this package yet). A ``certifier``
 (:class:`~hyperdrive_tpu_torch.certificates.Certifier`) goes to the
-Process, which mints a certificate at every commit. Not ported yet, and
-refused with ``NotImplementedError``: the columnar settle path
-(``dispatch_window_cols``).
+Process, which mints a certificate at every commit.
 """
 
 from __future__ import annotations
@@ -68,9 +68,6 @@ from hyperdrive_tpu_torch.types import (
 from hyperdrive_tpu_torch.utils.checkpoint import restore_bytes
 
 __all__ = ["Replica", "ReplicaOptions", "ResetHeight", "merge_drain"]
-
-#: Named in every refusal of a reference feature this package lacks.
-_LATER = "not ported to the PyTorch package yet (a later slice of the port)"
 
 
 def merge_drain(backlog: list, fresh: list, order_of) -> list:
@@ -440,8 +437,24 @@ class Replica:
         device tally counts installed."""
         self.proc.ingest_cascade(plan, tallies)
 
+    def ingest_insert_window_cols(self, cols, keep=None, on_accepted=None):
+        """Columnar phase 2a: insert a :class:`~hyperdrive_tpu_torch.batch.
+        WindowColumns` view with the keep-mask and whitelist filters fused
+        into the loop: no per-replica window copy, no per-replica
+        attribute extraction (it was paid once when ``cols`` was built).
+        Filtering and insertion match :meth:`ingest_insert_window` row for
+        row."""
+        plan, _ = self.proc.ingest_insert_cols(
+            cols, keep, self.procs_allowed, on_accepted
+        )
+        return plan
+
     def dispatch_window_cols(self, cols, keep=None) -> None:
-        raise NotImplementedError(f"the columnar settle path is {_LATER}")
+        """Columnar phase 2: insert + cascade over a WindowColumns view
+        (the batched-ingest analogue of :meth:`dispatch_window`; callers
+        use it only when ``opts.batch_ingest`` is set: the per-message
+        path has no columnar equivalent)."""
+        self.proc.ingest_cascade(self.ingest_insert_window_cols(cols, keep))
 
     # -------------------------------------------------------- threaded driving
 

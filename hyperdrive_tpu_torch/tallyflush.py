@@ -26,22 +26,23 @@ the host counters elsewhere; they are equal by contract, which
 
 Port copy of ``hyperdrive_tpu/tallyflush.py``: the blocking
 :meth:`~DeviceTallyFlusher.flush`, its double-buffered split through
-``verify_signatures_begin``, the queue mode (``queue=``), ``warmup``,
-``reset`` and ``_settle``. Differences: the grid lives on an explicit
-``device`` (by default the verifier's, else the card; without CUDA it
-raises unless the caller passes ``device="cpu"``); on the card each
-flusher runs its launches on a CUDA stream of its own, so a replica
-thread waits only for its own work, never for the launches of the
-replicas that share its verifier; the scatter words come from
-:func:`~hyperdrive_tpu_torch.ops.tally.pack_value` per accepted row where
-the reference builds a ``batch.MessageBlock``; queue-mode commands carry
-no ``generation`` (the port's ``DeviceWorkQueue.submit`` has none, since
-epochs are not ported). Dropped, as the port's conventions say: the
-metrics recorder (``obs``), the ``@async_scope`` and ``device_fetch``
-analysis hooks, and the sanitizer's default ``tally_check``
+``verify_signatures_begin``, the queue mode (``queue=``), the wire-facing
+columnar :meth:`~DeviceTallyFlusher.settle_block` (a
+:class:`~hyperdrive_tpu_torch.batch.MessageBlock` window straight into
+the columnar insert), ``warmup``, ``reset`` and ``_settle``, whose
+scatter words come from a ``MessageBlock`` of the accepted votes as in
+the reference. Differences: the grid lives on an explicit ``device`` (by
+default the verifier's, else the card; without CUDA it raises unless the
+caller passes ``device="cpu"``); on the card each flusher runs its
+launches on a CUDA stream of its own, so a replica thread waits only for
+its own work, never for the launches of the replicas that share its
+verifier; queue-mode commands carry no ``generation`` (the port's
+``DeviceWorkQueue.submit`` has none, since epochs are not ported).
+Dropped, as the port's conventions say: the metrics recorder (``obs``),
+the ``@async_scope`` and ``device_fetch`` analysis hooks, and the
+sanitizer's default ``tally_check``
 (``analysis.sanitizer.maybe_tally_check``). Refused with
-``NotImplementedError``: :meth:`~DeviceTallyFlusher.settle_block` (the
-columnar path) and :meth:`~DeviceTallyFlusher.rotate_validators`
+``NotImplementedError``: :meth:`~DeviceTallyFlusher.rotate_validators`
 (epochs).
 
 A ``certifier`` (:class:`~hyperdrive_tpu_torch.certificates.Certifier`,
@@ -57,6 +58,7 @@ import time
 import numpy as np
 import torch
 
+from hyperdrive_tpu_torch.batch import MessageBlock
 from hyperdrive_tpu_torch.ops.tally import pack_value
 from hyperdrive_tpu_torch.ops.votegrid import TallyView, VoteGrid
 
@@ -126,6 +128,9 @@ class DeviceTallyFlusher:
         #: insert. Needs a verifier with ``verify_signatures_begin``;
         #: others keep the single-launch schedule. 0 disables splitting.
         self.pipeline_split = int(pipeline_split)
+        #: Rows ingested through the columnar path (the wire-facing
+        #: :meth:`settle_block` entry).
+        self.fastpath_rows = 0
         #: Async device-work queue
         #: (:class:`~hyperdrive_tpu_torch.devsched.DeviceWorkQueue`). When
         #: set, :meth:`flush` stops blocking per window: each drained
@@ -176,7 +181,35 @@ class DeviceTallyFlusher:
         raise NotImplementedError(f"epoch rotation of the grid is {_LATER}")
 
     def settle_block(self, replica, block) -> None:
-        raise NotImplementedError(f"the columnar settle path is {_LATER}")
+        """Wire-facing columnar settle: one verified + tallied pass over a
+        :class:`~hyperdrive_tpu_torch.batch.MessageBlock` window straight
+        off the transport. Rows flow into the automaton through the
+        columnar path (:meth:`~hyperdrive_tpu_torch.replica.Replica.
+        ingest_insert_window_cols`): message objects materialize only for
+        rows the automaton accepts or that trip a catcher, never for
+        verify-rejected or duplicate rows. Bypasses the replica's queue:
+        the caller owns windowing (this is the window). A verifier on the
+        card launches its kernel here or raises."""
+        cols = block.columns()
+        items = block.verify_items()
+        begin = getattr(self.verifier, "verify_signatures_begin", None)
+        with torch.cuda.stream(self._stream):
+            t0 = time.perf_counter()
+            if begin is not None:
+                pending = begin(items)
+                resolve = lambda: [bool(b) for b in pending.mask()]  # noqa: E731
+            elif hasattr(self.verifier, "verify_signatures"):
+                mask = self.verifier.verify_signatures(items)
+                resolve = lambda: [bool(b) for b in mask]  # noqa: E731
+            else:
+                # Transport-trusting verifier (NullVerifier): accept whatever
+                # carries a signature. Unsigned rows still drop: a wire row
+                # without a signature is a framing defect, not a trust call.
+                keep = [bool(sig) for _, _, sig in items]
+                resolve = lambda: keep  # noqa: E731
+            self.verify_seconds += time.perf_counter() - t0
+            self.fastpath_rows += cols.n
+            self._settle(replica, [(None, cols, resolve)])
 
     def _flush_async(self, replica) -> None:
         """The queue schedule: drain windows now, settle at the queue's
@@ -207,7 +240,7 @@ class DeviceTallyFlusher:
                 # verdicts are verify_batch's.
                 keep = [bool(ok) for ok in f.result()]
                 with torch.cuda.stream(self._stream):
-                    self._settle(replica, [(window, lambda k=keep: k)])
+                    self._settle(replica, [(window, None, lambda k=keep: k)])
 
             fut.add_done_callback(settle)
 
@@ -253,6 +286,7 @@ class DeviceTallyFlusher:
                         [
                             (
                                 h,
+                                None,
                                 lambda p=p, h=h: [
                                     bool(ok) and bool(m.signature)
                                     for ok, m in zip(p.mask(), h)
@@ -265,13 +299,14 @@ class DeviceTallyFlusher:
                     t0 = time.perf_counter()
                     keep = self.verifier.verify_batch(window)
                     self.verify_seconds += time.perf_counter() - t0
-                    self._settle(replica, [(window, lambda k=keep: k)])
+                    self._settle(replica, [(window, None, lambda k=keep: k)])
 
     def _settle(self, replica, parts) -> None:
         """Insert every part (resolving each part's verify mask just before
         its insert: the double-buffer overlap point), union the insert
         plans, then run ONE tally launch + cascade. ``parts``: ``(window,
-        resolve_keep)`` pairs."""
+        cols, resolve_keep)`` triples; exactly one of ``window`` (message
+        list) and ``cols`` (WindowColumns) is set."""
         grid = self.grid
         R = grid.R
         proc = replica.proc
@@ -300,15 +335,22 @@ class DeviceTallyFlusher:
                 # poison the round for this height.
                 dirty.add((plane, rnd))
                 return
-            accepted.append((plane, msg, v))
+            accepted.append((plane, msg))
 
         commit_rounds: set = set()
         vote_rounds: set = set()
-        for window, resolve in parts:
+        for window, cols, resolve in parts:
             t0 = time.perf_counter()
             keep = resolve()
             self.verify_seconds += time.perf_counter() - t0
-            part_plan = replica.ingest_insert_window(window, keep, on_accepted)
+            if cols is not None:
+                part_plan = replica.ingest_insert_window_cols(
+                    cols, keep, on_accepted
+                )
+            else:
+                part_plan = replica.ingest_insert_window(
+                    window, keep, on_accepted
+                )
             commit_rounds |= part_plan[0]
             vote_rounds |= part_plan[1]
         plan = (commit_rounds, vote_rounds)
@@ -334,11 +376,16 @@ class DeviceTallyFlusher:
             l28_target[0] = pack_value(cur.value)
             l28_val = cur.value
 
-        idx = np.zeros((len(accepted), 4), dtype=np.int32)
-        words = np.zeros((len(accepted), 8), dtype=np.int32)
-        for j, (plane, m, v) in enumerate(accepted):
-            idx[j] = (0, plane, m.round, v)
-            words[j] = pack_value(m.value)
+        if accepted:
+            block = MessageBlock.from_messages([m for _, m in accepted])
+            words = np.ascontiguousarray(block.rows["value"]).view("<i4")
+            idx = np.array(
+                [(0, plane, m.round, self._pos[m.sender]) for plane, m in accepted],
+                dtype=np.int32,
+            )
+        else:
+            words = np.zeros((0, 8), dtype=np.int32)
+            idx = np.zeros((0, 4), dtype=np.int32)
         t0 = time.perf_counter()
         counts = grid.update_and_tally(
             idx, words, reset, targets, tvalid, l28_slot, l28_target,

@@ -17,6 +17,7 @@ import numpy as np
 import pytest
 import torch
 
+from hyperdrive_tpu import batch as ref_batch
 from hyperdrive_tpu import messages as ref_messages
 from hyperdrive_tpu.crypto.keys import KeyRing as RefKeyRing
 from hyperdrive_tpu.devsched import DeviceWorkQueue as RefDeviceWorkQueue
@@ -31,6 +32,7 @@ from hyperdrive_tpu.testutil import MockValidator as RefMockValidator
 from hyperdrive_tpu.utils.checkpoint import checkpoint_bytes as ref_checkpoint_bytes
 from hyperdrive_tpu.verifier import HostVerifier as RefHostVerifier
 from hyperdrive_tpu.verifier import NullVerifier as RefNullVerifier
+from hyperdrive_tpu_torch import batch as port_batch
 from hyperdrive_tpu_torch import messages
 from hyperdrive_tpu_torch.certificates import Certifier
 from hyperdrive_tpu_torch.crypto.keys import KeyRing
@@ -368,10 +370,37 @@ def test_queue_flusher_reset_cancels_inflight_futures():
     assert fl.queue.drain() == 0 and fl.dispatched == 0 and not commits
 
 
+def _settle_block_run(pkg, batch, columnar):
+    """Three heights of signed windows, one window a height: through
+    ``settle_block`` (``columnar``) or inserted into the queue and
+    flushed (the object path)."""
+    run = _Run(pkg)
+    run.rep.start()
+    script = _script(pkg, 3, signature=b"\x01" * 64)
+    for h in range(1, 4):
+        window = [m for m in script if m.height == h]
+        if columnar:
+            run.fl.settle_block(run.rep, batch.MessageBlock.from_messages(window))
+        else:
+            for m in window:
+                getattr(run.rep.mq, f"insert_{type(m).__name__.lower()}")(m)
+            run.fl.flush(run.rep)
+    return run
+
+
 def test_unported_flusher_features_refuse():
+    # settle_block is ported: a MessageBlock window straight into the
+    # columnar insert equals the JAX package's settle_block and the
+    # object-path flush of the same window.
+    got = _settle_block_run(PORT, port_batch, True)
+    want = _settle_block_run(JAX, ref_batch, True)
+    obj = _settle_block_run(PORT, port_batch, False)
+    assert set(got.commits) == {1, 2, 3} and got.commits == obj.commits
+    _same(got, want)
+    assert got.fl.fastpath_rows == want.fl.fastpath_rows > 0
+    assert checkpoint_bytes(got.rep.proc) == checkpoint_bytes(obj.rep.proc)
+    assert checkpoint_bytes(got.rep.proc) == ref_checkpoint_bytes(want.rep.proc)
     fl = DeviceTallyFlusher(NullVerifier(), SIGS, device="cpu")
-    with pytest.raises(NotImplementedError):
-        fl.settle_block(None, None)
     with pytest.raises(NotImplementedError):
         fl.rotate_validators(SIGS)
     # Certificates are ported: a Certifier binds to the flusher and rides
