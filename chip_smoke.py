@@ -126,7 +126,30 @@ Phases, each printing its lines:
    record; (iv) one signed n = 256 window through
    ``DeviceTallyFlusher.settle_block`` on the card against the object-path
    flush of the same window (commits, counts, checkpoint bytes);
-8. the deployment path: threaded replicas on a loopback-TCP full mesh,
+8. lock-step delivery (``phase_lockstep``, lines ``lockstep``):
+   ``Simulation(burst=False)``, one message at a time, on BASELINE config
+   2's network (n = 16, seed 1002, 20 s timeouts, 1 ms a delivery, cut to
+   20 heights) and config 3's (n = 64, seed 1003, replicas 1-21 offline,
+   reorder, cut to 2 heights), every leg on the JAX package's commit
+   digest and steps: unsigned (its dump equal to the JAX package's bytes
+   by SHA-256 prefix and size); signed with a ``HostVerifier`` a replica;
+   with a card ``TorchBatchVerifier`` a replica (``verifier_for``, one
+   ``ed25519_verify`` launch a flushed window); with ``QueueFlusher``
+   replicas sharing one card verifier behind a ``DeviceWorkQueue`` at
+   depths 8 and 64 (``devsched=``, ``flusher_for=``: one launch a drain,
+   the JAX run's queue launches); with ``DeviceTallyFlusher`` replicas on
+   one ``TorchWireVerifier`` with the ring's ``ValidatorTable`` behind the
+   queue (``ed25519_challenge`` and ``ed25519_semiwire`` once a queue
+   launch, a grid call a window); config 3 unsigned (dump against the
+   JAX bytes) and signed on the shared card verifier at depth 64. Each
+   line: wall, steps, digest, launches of each kernel, the queue's
+   submitted / launches / coalesced. Then the config-2 queue leg's and
+   the n = 256 main path's records dumped, loaded and replayed on the
+   card (``Simulation.replay``: a shared card verifier a replica; the
+   packed batch verifier on the main path's supersteps) to the live
+   runs' commits, and the main path with ``record=False`` against the
+   default in turns (``pairs:``);
+9. the deployment path: threaded replicas on a loopback-TCP full mesh,
    one worker process per port (``python -m
    hyperdrive_tpu_torch.harness.deploy ... card``), each process with one
    ``TorchWireVerifier`` (a ``ValidatorTable`` of the network's keys:
@@ -145,7 +168,7 @@ Phases, each printing its lines:
    begin ``deploy``. Before them, ``deploy contention:`` lines: a flush's
    grid call (n = 1, V = 256) and verify call (100 grouped lanes), host
    wall per call from one thread and from 64 threads of this process;
-9. Shamir reconstruct (``ops/shamir.py``, PyTorch ops, no hand-written
+10. Shamir reconstruct (``ops/shamir.py``, PyTorch ops, no hand-written
    kernel): ``BatchReconstructor`` on the card at k = 171 (n = 256, f =
    85) for 16, 64 and 1,024 blocks, every payload equal byte for byte to
    the oracle's ``reconstruct_payload`` (at 1,024 blocks: to the payload,
@@ -154,7 +177,7 @@ Phases, each printing its lines:
    CUDA kernels a call, the bound and its share, the wrapper's and the
    host leg's wall; ``AdaptiveReconstructor``'s calibration record at
    1,024 blocks; on lines that begin ``programs: shamir``;
-10. the RLC batch equation (``rlc_check`` on ``ops/msm.py``, PyTorch ops):
+11. the RLC batch equation (``rlc_check`` on ``ops/msm.py``, PyTorch ops):
    one 64-lane MSM equal to the oracle's point sum; then
    ``TorchBatchVerifier(rlc=True)`` at 64, 256, 1,024 and 4,096 lanes: a
    clean batch accepted by one check with no fallback and no ladder
@@ -163,7 +186,7 @@ Phases, each printing its lines:
    order-8 torsion vector accepted by the RLC and rejected by the ladder;
    ms and CUDA kernels of ``rlc_check`` beside the ladder's time at the
    same lanes; on lines that begin ``programs: rlc``;
-11. config 5 (BASELINE configs[4]) as the JAX package's bench runs it
+12. config 5 (BASELINE configs[4]) as the JAX package's bench runs it
    (n = 256, k = 171, 496-byte payloads, seed 1005, 20 s timeouts,
    burst, 10 heights), signed (every settle on ``ed25519_verify``): the
    host run (``HostVerifier``), a run with
@@ -172,13 +195,13 @@ Phases, each printing its lines:
    on the host leg: no launch); each equal to the host run in digest,
    steps and every replica's reconstructed payloads; heights/s, the
    reconstruct share of wall and its p50, launches; lines ``config5``;
-12. certificates: the main path with ``certificates=True`` through the
+13. certificates: the main path with ``certificates=True`` through the
    packed verifier with ``rlc=False`` and ``rlc=True``: digest
    ``215413db54656240`` in 656,640 steps, chain digests equal across
    replicas and to a host run's, every certificate re-verified and
    round-tripped through its codec, the RLC run's checks, fallbacks and
    wall; lines ``certs``;
-13. the execution layer (``exec/``, ``ops/ledger.py``, ``ops/merkle.py``,
+14. the execution layer (``exec/``, ``ops/ledger.py``, ``ops/merkle.py``,
    PyTorch ops, no hand-written kernel) at the JAX package's documented
    sizes: one Merkleized apply step at 65,536 accounts and 16,384
    (incremental tree update) and 65,536 txs (full rebuild), every output
@@ -194,7 +217,7 @@ Phases, each printing its lines:
    equal across the three and the JAX package's digest, fewer
    ``ed25519_verify`` launches fused, and the blocks' signature rows
    verified by ``ed25519_verify``; lines ``exec``;
-14. BLS12-381 (``phase_bls``): ``fp381.mul`` (PyTorch ops) on 4,096 products
+15. BLS12-381 (``phase_bls``): ``fp381.mul`` (PyTorch ops) on 4,096 products
    against Python ints; the ``g1_aggregate`` kernel (``csrc/g1_aggregate.cu``,
    built in phase 1 beside the ed25519 library, one nvcc a unit, both
    started together) against its plain version ``aggregate_kernel`` at the
@@ -221,8 +244,8 @@ Phases, each printing its lines:
    ``bls``, ``kernel g1_aggregate`` and ``programs: bls``, after the
    card's name and power limit.
 
-Each path of phases 5, 6, 7, 11, 12, 13 and 14 is driven with the kernel
-counts set to 0 just before it and read just after.
+Each path of phases 5, 6, 7, 8, 12, 13, 14 and 15 is driven with the
+kernel counts set to 0 just before it and read just after.
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``. Any failed check raises, so the script
@@ -2077,6 +2100,289 @@ def phase_burst(ref: dict) -> None:
     phase_settle_block()
 
 
+# ------------------------------------------------- lock-step delivery
+
+#: BASELINE config 2's network as ``benches/run_all.py`` runs it (16
+#: replicas, seed 1002, 20 s timeouts, 1 ms a delivery), lock-step, cut
+#: from 1,000 heights to 20; config 3's (64 replicas, seed 1003, replicas
+#: 1-21 offline, reorder), lock-step, cut from 20 heights to 2.
+LOCK2 = dict(n=16, target_height=20, seed=1002, timeout=20.0, delivery_cost=0.001)
+LOCK3 = dict(n=64, target_height=2, seed=1003, offline=set(range(1, 22)), reorder=True,
+             timeout=20.0, delivery_cost=0.001)
+#: What the JAX package's lock-step runs of those networks give (commit
+#: digest, steps; the unsigned dump's SHA-256 prefix and bytes): a queue
+#: that drains at depth 64 moves config 2 to 10,496 steps and config 3 to
+#: 240,347, on the same chain.
+LOCK2_DIGEST, LOCK2_STEPS, LOCK2_DEEP_STEPS = "43d6ecfa0a44321d", 10_480, 10_496
+LOCK2_DUMP = ("c436b3d9b3d06ea6", 937_123)
+LOCK3_DIGEST, LOCK3_STEPS, LOCK3_DEEP_STEPS = "4d1df1abe052651e", 240_367, 240_347
+LOCK3_DUMP = ("7c5dd3ebfebc6de7", 14_241_505)
+#: Queue launches of the shared-verifier legs on config 2 (JAX runs).
+LOCK2_QUEUE_LAUNCHES = {8: 1_120, 64: 160}
+#: Heights of the lock-step execution leg (config 2's network with leg B's
+#: ledger, below), cut from leg B's 5 to keep the phase short.
+LOCK_EXEC_HEIGHTS = 3
+
+
+def _dump_check(label: str, record, tmp: str, want=None) -> tuple:
+    """Dump ``record``, load it back, return (loaded record, SHA-256 prefix,
+    bytes, dump s, load s); with ``want`` the prefix and size must match."""
+    from hyperdrive_tpu_torch.harness import ScenarioRecord
+
+    path = os.path.join(tmp, label.replace(" ", "_") + ".bin")
+    t0 = time.perf_counter()
+    record.dump(path)
+    t1 = time.perf_counter()
+    with open(path, "rb") as fh:
+        data = fh.read()
+    rec = ScenarioRecord.load(path)
+    t2 = time.perf_counter()
+    os.remove(path)
+    sha = hashlib.sha256(data).hexdigest()[:16]
+    if want is not None and (sha, len(data)) != want:
+        raise AssertionError(f"lockstep {label}: dump {sha} of {len(data)} bytes, "
+                             f"want {want[0]} of {want[1]}")
+    if len(rec.messages) != len(record.messages) or rec.bursts != record.bursts:
+        raise AssertionError(f"lockstep {label}: the loaded record differs")
+    return rec, sha, len(data), t1 - t0, t2 - t1
+
+
+def _lockstep_leg(label: str, kw: dict, want: tuple, own: tuple = (), queue=None,
+                  warm=(), extra_line: str = "", **sim_kw) -> dict:
+    """One lock-step run: the kernel counts set to 0 just before it and read
+    just after; commits, steps and digest checked against ``want``
+    (digest prefix, steps); each kernel of ``own`` launched, no other;
+    one line with wall, steps, digest, launches and the queue's counts."""
+    from hyperdrive_tpu_torch.harness import Simulation
+    from hyperdrive_tpu_torch.ops import ed25519_cuda
+
+    sim = Simulation(**kw, **sim_kw)
+    for r in sim.replicas:
+        f = r.flusher
+        if f is not None and hasattr(f, "warmup"):
+            f.warmup()
+    for v in warm:
+        v.warmup()
+    torch.cuda.synchronize()
+    ed25519_cuda.reset_stats()
+    t0 = time.perf_counter()
+    res = sim.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: v.launches for k, v in ed25519_cuda.stats.items() if v.launches}
+    res.assert_safety()
+    digest = res.commit_digest()[:16]
+    if not res.completed or (digest, res.steps) != want:
+        raise AssertionError(f"lockstep {label}: digest {digest} in {res.steps} steps "
+                             f"(completed={res.completed}), want {want[0]} in {want[1]}")
+    if set(launches) != set(own) or not all(launches.values()):
+        raise AssertionError(f"lockstep {label}: launched {launches}, want {own}")
+    q = queue
+    qtext = (f" queue_submitted={q.submitted} queue_launches={q.launches} "
+             f"queue_coalesced={q.coalesced}" if q is not None else "")
+    if q is not None and (q.depth or not q.launches < q.submitted):
+        raise AssertionError(f"lockstep {label}:{qtext} depth={q.depth}: nothing coalesced")
+    print(f"lockstep {label}: n={kw['n']} heights={kw['target_height']} steps={res.steps} "
+          f"wall_s={wall:.3f} heights_per_s={kw['target_height'] / wall:.3f} "
+          f"launches={launches}{qtext}{extra_line} digest={digest}", flush=True)
+    return dict(sim=sim, res=res, wall=wall, launches=launches)
+
+
+def phase_lockstep(ref: dict) -> None:
+    """Lock-step delivery (``Simulation(burst=False)``, one message at a
+    time) on BASELINE config 2's and config 3's networks: unsigned; signed
+    with a ``HostVerifier`` a replica (``device="cpu"``); with a card
+    ``TorchBatchVerifier`` a replica (the default); with ``QueueFlusher``
+    replicas on one shared
+    card verifier behind a ``DeviceWorkQueue`` (``devsched=``,
+    ``flusher_for=``); with ``DeviceTallyFlusher`` replicas on one
+    ``TorchWireVerifier`` with a ``ValidatorTable`` (rows 3 and 4 and a
+    vote grid a replica); with execution (``sign_txs``, speculated on an
+    injected queue, the blocks verified by the queue's exec launcher on its
+    default card verifier) against the same run on the CPU. Records: the
+    unsigned dumps against the JAX
+    package's bytes, the config-2 queue leg and the n = 256 main path
+    dumped, loaded and replayed on the card to the same commits; the main
+    path with ``record=False`` against the default in turns. Each path is
+    driven with the kernel counts set to 0 just before it and read just
+    after. ``ref`` is the main path's host run."""
+    import tempfile
+
+    from hyperdrive_tpu_torch.crypto.keys import KeyRing
+    from hyperdrive_tpu_torch.devsched import DeviceWorkQueue, QueueFlusher
+    from hyperdrive_tpu_torch.exec import ExecutionConfig
+    from hyperdrive_tpu_torch.harness import Simulation
+    from hyperdrive_tpu_torch.ops import ed25519_cuda
+    from hyperdrive_tpu_torch.ops.ed25519 import TorchBatchVerifier
+    from hyperdrive_tpu_torch.ops.ed25519_wire import TorchWireVerifier, ValidatorTable
+    from hyperdrive_tpu_torch.tallyflush import DeviceTallyFlusher
+    from hyperdrive_tpu_torch.verifier import NullVerifier
+
+    build = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "hyperdrive_tpu_torch", "_build")
+    os.makedirs(build, exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="lockstep-", dir=build)
+    packed = ("ed25519_verify",)
+    want2 = (LOCK2_DIGEST, LOCK2_STEPS)
+    try:
+        # Config 2: unsigned, its dump against the JAX package's bytes.
+        leg = _lockstep_leg("config2 unsigned", LOCK2, want2)
+        _, sha, size, dump_s, load_s = _dump_check("config2 unsigned", leg["res"].record,
+                                                   tmp, LOCK2_DUMP)
+        print(f"lockstep config2 unsigned dump: bytes={size} sha256={sha} "
+              f"dump_s={dump_s:.3f} load_s={load_s:.3f} equals_jax=True", flush=True)
+        signed = dict(LOCK2, sign=True)
+        leg = _lockstep_leg("config2 host", signed, want2, device="cpu")
+        if not all(type(r.verifier).__name__ == "HostVerifier" for r in leg["sim"].replicas):
+            raise AssertionError("lockstep config2 host: not a HostVerifier a replica")
+        # The default on the card: a TorchBatchVerifier a replica, one
+        # launch a flushed window.
+        calls = []
+        inner = TorchBatchVerifier.verify_signatures
+
+        def counted(self, items):
+            calls.append(len(items))
+            return inner(self, items)
+
+        TorchBatchVerifier.verify_signatures = counted
+        try:
+            leg = _lockstep_leg("config2 card per replica", signed, want2, packed)
+        finally:
+            TorchBatchVerifier.verify_signatures = inner
+        mine = [r.verifier for r in leg["sim"].replicas]
+        if (len({id(v) for v in mine}) != LOCK2["n"]
+                or not all(type(v) is TorchBatchVerifier for v in mine)
+                or leg["launches"] != {"ed25519_verify": len(calls)}):
+            raise AssertionError(f"lockstep config2 card per replica: {leg['launches']} "
+                                 f"for {len(calls)} verify calls")
+        print(f"lockstep config2 card per replica: verifiers={len(mine)} "
+              f"verify_calls={len(calls)} window_max={max(calls)}", flush=True)
+        # One card verifier shared by every replica's QueueFlusher: the
+        # queue coalesces their windows into one launch a drain.
+        shared = TorchBatchVerifier(device="cuda")
+        queue_rec = None
+        for depth in (8, 64):
+            q = DeviceWorkQueue(max_depth=depth)
+            leg = _lockstep_leg(
+                f"config2 queue depth={depth}", signed,
+                (LOCK2_DIGEST, LOCK2_STEPS if depth == 8 else LOCK2_DEEP_STEPS), packed, q,
+                warm=(shared,), devsched=q,
+                flusher_for=lambda i, v, q=q: QueueFlusher(shared, q))
+            if (q.launches != LOCK2_QUEUE_LAUNCHES[depth]
+                    or leg["launches"]["ed25519_verify"] != q.launches):
+                raise AssertionError(f"lockstep config2 queue depth={depth}: "
+                                     f"{leg['launches']} for {q.launches} queue launches")
+            if depth == 8:
+                queue_rec = leg
+        # Rows 3 and 4 and the vote grid: a DeviceTallyFlusher a replica on
+        # one TorchWireVerifier with the ring's table, behind the queue.
+        ring = KeyRing.deterministic(LOCK2["n"], namespace=b"sim-%d" % LOCK2["seed"])
+        wire = TorchWireVerifier(device="cuda",
+                                 table=ValidatorTable(ring.signatories, device="cuda"))
+        q = DeviceWorkQueue(max_depth=8)
+        leg = _lockstep_leg(
+            "config2 tally queue depth=8", signed, want2,
+            ("ed25519_challenge", "ed25519_semiwire"), q, devsched=q,
+            flusher_for=lambda i, v: DeviceTallyFlusher(wire, v, queue=q))
+        grid = sum(r.flusher.launches for r in leg["sim"].replicas)
+        la = leg["launches"]
+        if not (la["ed25519_challenge"] == la["ed25519_semiwire"] == q.launches and grid):
+            raise AssertionError(f"lockstep config2 tally: {la}, {q.launches} queue "
+                                 f"launches, {grid} grid calls")
+        print(f"lockstep config2 tally queue depth=8: grid_calls={grid} "
+              f"lanes_grouped={wire.stats['lanes_grouped']}", flush=True)
+
+        # Execution under lock-step: sign_txs blocks applied at propose time
+        # on an injected queue, their signatures verified by the queue's
+        # exec launcher on its default card verifier (row 1); against the
+        # same run on the CPU, where that launcher is a HostVerifier.
+        def exec_run(dev):
+            q, nv = DeviceWorkQueue(max_depth=8), NullVerifier()
+            return q, dict(LOCK2, target_height=LOCK_EXEC_HEIGHTS, device=dev,
+                           exec_speculate=True, execution=ExecutionConfig(**EXEC_LEG_B),
+                           devsched=q, flusher_for=lambda i, v: QueueFlusher(nv, q))
+
+        host = Simulation(**exec_run("cpu")[1]).run()
+        host.assert_safety()
+        if not host.completed:
+            raise AssertionError("lockstep config2 exec: the CPU run did not complete")
+        q, ekw = exec_run("cuda")
+        leg = _lockstep_leg("config2 exec speculate", ekw,
+                            (host.commit_digest()[:16], host.steps), packed, q)
+        kind = type(leg["sim"]._exec_launcher.verifier)
+        if kind is not TorchBatchVerifier or leg["res"].commits != host.commits:
+            raise AssertionError(f"lockstep config2 exec: {kind.__name__}, commits "
+                                 f"equal {leg['res'].commits == host.commits}")
+
+        # Config 3: unsigned (its dump against the JAX bytes), then signed
+        # on the shared card verifier behind a depth-64 queue. The signed
+        # sequential host leg is left out: ~240,000 deliveries verified one
+        # window at a time on the host (about 56 s on the JAX package).
+        leg = _lockstep_leg("config3 unsigned", LOCK3, (LOCK3_DIGEST, LOCK3_STEPS))
+        _, sha, size, dump_s, load_s = _dump_check("config3 unsigned", leg["res"].record,
+                                                   tmp, LOCK3_DUMP)
+        print(f"lockstep config3 unsigned dump: bytes={size} sha256={sha} "
+              f"dump_s={dump_s:.3f} load_s={load_s:.3f} equals_jax=True", flush=True)
+        q = DeviceWorkQueue(max_depth=64)
+        leg = _lockstep_leg(
+            "config3 queue depth=64", dict(LOCK3, sign=True),
+            (LOCK3_DIGEST, LOCK3_DEEP_STEPS), packed, q, devsched=q,
+            flusher_for=lambda i, v: QueueFlusher(shared, q))
+        if leg["launches"]["ed25519_verify"] != q.launches:
+            raise AssertionError(f"lockstep config3 queue: {leg['launches']} for "
+                                 f"{q.launches} queue launches")
+
+        # Replays on the card: the config-2 queue leg through the shared
+        # card verifier a replica, the main path through the packed batch
+        # verifier, each to the live run's commits.
+        rec, sha, size, dump_s, load_s = _dump_check("config2 queue",
+                                                     queue_rec["res"].record, tmp)
+        ed25519_cuda.reset_stats()
+        t0 = time.perf_counter()
+        rep = Simulation.replay(rec, sign=True, verifier_for=lambda i: shared)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launched = {k: v.launches for k, v in ed25519_cuda.stats.items() if v.launches}
+        if rep.commits != queue_rec["res"].commits or set(launched) != set(packed):
+            raise AssertionError(f"lockstep replay config2 queue: commits differ or "
+                                 f"launched {launched}")
+        print(f"lockstep replay config2 queue: deliveries={len(rec.messages)} bytes={size} "
+              f"dump_s={dump_s:.3f} load_s={load_s:.3f} replay_s={wall:.3f} "
+              f"launches={launched} same_commits=True", flush=True)
+        bv = TorchBatchVerifier(device="cuda")
+        bv.warmup()
+        main_kw = dict(n=N_VALIDATORS, target_height=HEIGHT, seed=1, sign=True, burst=True,
+                       dedup_verify=True, small_window_host=False, batch_verifier=bv)
+        live = Simulation(**main_kw).run()
+        if live.commit_digest(up_to=HEIGHT) != ref["digest"] or live.steps != MAIN_STEPS:
+            raise AssertionError("lockstep replay main: the live run left the invariant")
+        rec, sha, size, dump_s, load_s = _dump_check("main path", live.record, tmp)
+        ed25519_cuda.reset_stats()
+        t0 = time.perf_counter()
+        rep = Simulation.replay(rec, sign=True, batch_verifier=bv, dedup_verify=True,
+                                small_window_host=False)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launched = {k: v.launches for k, v in ed25519_cuda.stats.items() if v.launches}
+        if rep.commits != live.commits or set(launched) != set(packed):
+            raise AssertionError(f"lockstep replay main: commits differ or launched "
+                                 f"{launched}")
+        print(f"lockstep replay main: n={N_VALIDATORS} deliveries={len(rec.messages)} "
+              f"bursts={len(rec.bursts)} bytes={size} sha256={sha} dump_s={dump_s:.3f} "
+              f"load_s={load_s:.3f} replay_s={wall:.3f} settles={rep.sim.settle_passes} "
+              f"launches={launched} digest={rep.commit_digest(up_to=HEIGHT)[:16]} "
+              f"same_commits=True", flush=True)
+    finally:
+        for name in os.listdir(tmp):
+            os.remove(os.path.join(tmp, name))
+        os.rmdir(tmp)
+    # Recording is on by default, as in the reference: its cost on the
+    # main path, in turns.
+    phase_pairs(ref, legs=(("packed (recorded)", TorchBatchVerifier(device="cuda"), {}),
+                           ("packed (record=False)", TorchBatchVerifier(device="cuda"),
+                            dict(record=False))))
+
+
 #: The deployment runs: (label, processes, replicas per process, heights,
 #: seconds until an unfinished run fails, worker options).
 DEPLOY_RUNS = (
@@ -3316,6 +3622,8 @@ def main() -> int:
     mark("main")
     phase_burst(ref)
     mark("burst")
+    phase_lockstep(ref)
+    mark("lockstep")
     phase_deploy()
     mark("deploy")
     phase_shamir()

@@ -11,8 +11,9 @@ propose/prevote while height h's verification is still in flight, with
 commit finalization gated on the future's resolution.
 
 :class:`~hyperdrive_tpu_torch.devsched.flusher.QueueFlusher` puts the
-queue behind a replica's own flush seam. Not ported yet: the
-``__main__`` CLI.
+queue behind a replica's own flush seam (lock-step runs:
+``Simulation(devsched=q, flusher_for=...)``).
+``python -m hyperdrive_tpu_torch.devsched parity`` is the parity smoke.
 """
 
 from hyperdrive_tpu_torch.devsched.flusher import QueueFlusher

@@ -1,9 +1,27 @@
-"""The simulator, burst mode: virtual time, signed votes, settle windows
-verified in one batched launch.
+"""The simulator: virtual time, seeded adversaries, signed votes,
+record/replay, and settle windows verified in one batched launch.
 
-Port of the part of the JAX package's ``harness/sim.py`` that runs the
-signed, burst-mode, dedup-verified network (the "256 replicas, Ed25519
-batch-verify offload" deployment):
+Port of the JAX package's ``harness/sim.py``. Two delivery modes:
+
+- **Lock-step** (``burst=False``, the default, as in the reference): one
+  global queue of ``(to, msg)`` records, a broadcast one record per
+  recipient (the sender included), delivered one message at a time
+  (:meth:`Simulation._run_delivery`): the serialized interleaving of the
+  Go reference's ``replica_test.go``. Every delivery flushes its replica,
+  through the replica's own verifier (``verifier_for``; with
+  ``sign=True`` and no override every replica gets one of its own on
+  ``device``: a ``TorchBatchVerifier`` on the card, the reference's
+  ``HostVerifier`` with ``device="cpu"``) or through a queue-backed
+  flusher (``flusher_for``, e.g.
+  :class:`~hyperdrive_tpu_torch.devsched.QueueFlusher`) submitting to an
+  injected :class:`~hyperdrive_tpu_torch.devsched.DeviceWorkQueue`
+  (``devsched=``). The loop drains that queue before it lets virtual time
+  jump to a timeout, so no timeout fires over a settle in flight.
+- **Burst** (``burst=True``): supersteps settled through aggregated
+  verification, as below.
+
+Burst mode runs the signed, dedup-verified network (the "256 replicas,
+Ed25519 batch-verify offload" deployment):
 
 - One global queue of ``(to, msg)`` records. In shared-superstep mode
   (the default without a per-delivery adversary) a broadcast is ONE entry
@@ -88,14 +106,33 @@ implies ``certificates`` and adds the 48-byte BLS aggregate signature to
 every certificate, folded on the host or, with ``"device"``, by the
 ``g1_aggregate`` kernel on ``device``.
 
-Not ported (a later slice of the port), and refused: lock-step delivery
-(``burst=False``), per-replica verifiers (``verifier_for``), a
-``signatories`` override, the catch-up sweep (``catchup_every``,
-``catchup_lag``), the sharded grid (``tally_mesh``), an injected queue
-(``devsched=``) and per-replica flushers, epochs (with
-``EpochCertifier``), chaos, load, overlay and the record/replay log
-(``SimulationResult.record`` is always None, so no execution trailer is
-recorded). The tracer, flight recorder, metrics registry and device
+Every run is recorded unless ``record=False``: each delivered ``(to,
+msg)`` in delivery order, the superstep sizes of a burst run, and the
+epoch and execution trailers, in a :class:`ScenarioRecord` whose v7 wire
+format is the reference's byte for byte. :meth:`Simulation.replay`
+re-delivers a record (a dump of this package or of the JAX package)
+message for message. ``ScenarioRecord.load`` reads through a plain
+:class:`~hyperdrive_tpu_torch.codec.Reader` with a 1 GiB budget: the
+reference's wire-audit hooks (``wire_codec``, ``wire_entry``,
+``maybe_wire_reader``) are dropped with the other analysis hooks.
+
+With ``epochs=EpochConfig(...)`` (lock-step and unsigned, as in the
+reference) heights partition into epochs: every boundary commit elects
+the next committee and rotates keys (:mod:`hyperdrive_tpu_torch.epochs`),
+the committing replica takes the new whitelist, quorum, proposer
+schedule and identity at the commit seam, and retired identities enter
+one stale-vote map that every replica shares (``Replica.retired``). With
+``certificates=True`` every certifier is an
+:class:`~hyperdrive_tpu_torch.epochs.EpochCertifier` that mints the
+epoch proofs.
+
+Not ported (a later slice of the port), and refused: the sharded grid
+(``tally_mesh``), the flight recorder (``observe``, ``obs_capacity``),
+chaos, load and overlay; and, with epochs, execution (stake-driven
+elections) and BLS certificates (the committee keyring's epoch branch).
+The laggard catch-up sweep (``catchup_every``, ``catchup_lag``) runs
+only under chaos or overlay, so it comes with them and is refused too.
+The tracer, metrics registry and device
 telemetry are dropped (tracing returns in a later slice).
 """
 
@@ -112,8 +149,17 @@ from typing import Callable, Optional
 import numpy as np
 
 from hyperdrive_tpu_torch.batch import MessageBlock, WindowColumns
-from hyperdrive_tpu_torch.messages import Precommit, Prevote, Propose, Timeout
+from hyperdrive_tpu_torch.codec import Reader, SerdeError, Writer
+from hyperdrive_tpu_torch.messages import (
+    Precommit,
+    Prevote,
+    Propose,
+    Timeout,
+    marshal_message,
+    unmarshal_message,
+)
 from hyperdrive_tpu_torch.replica import Replica, ReplicaOptions, merge_drain
+from hyperdrive_tpu_torch.scheduler import RoundRobin
 from hyperdrive_tpu_torch.testutil import (
     BroadcasterCallbacks,
     CatcherCallbacks,
@@ -124,7 +170,7 @@ from hyperdrive_tpu_torch.testutil import (
 from hyperdrive_tpu_torch.timer import VirtualTimer
 from hyperdrive_tpu_torch.types import Height, Value
 
-__all__ = ["VirtualClock", "SimulationResult", "Simulation"]
+__all__ = ["VirtualClock", "ScenarioRecord", "SimulationResult", "Simulation"]
 
 
 class VirtualClock:
@@ -161,6 +207,250 @@ class VirtualClock:
         return dropped
 
 
+@dataclass
+class ScenarioRecord:
+    """A reproducible account of one simulated run (the Go reference's
+    ``Scenario``, ``replica_test.go:850-860``)."""
+
+    seed: int
+    n: int
+    f: int
+    target_height: Height
+    signatories: list[bytes] = field(default_factory=list)
+    #: Every delivered (to, message) in delivery order.
+    messages: list[tuple[int, object]] = field(default_factory=list)
+    #: A burst run's delivered-message count per superstep, so replay
+    #: reproduces the window boundaries (empty = a lock-step run).
+    bursts: list[int] = field(default_factory=list)
+    #: Whether burst windows went through batched ingestion or per-message
+    #: dispatch: replay must match, or timeout schedules and evidence can
+    #: diverge from the recorded run.
+    batch_ingest: bool = True
+    #: Chaos lifecycle operations ``(kind, pos, replica, aux)``: kind one
+    #: of OP_CRASH / OP_RESTORE / OP_RESYNC, ``pos`` the delivered-message
+    #: count when the op fired, ``aux`` the resync height (0 for a crash).
+    #: Chaos is not ported: this package round-trips the trailer but
+    #: refuses to replay a record that has one.
+    lifecycle: list[tuple[int, int, int, int]] = field(default_factory=list)
+    #: ``(epoch_length, committee_size, rekey_per_epoch, seed, stakes)``
+    #: of an epoch run, or None: replay rebuilds the same EpochSchedule.
+    epochs: "tuple | None" = None
+    #: ``ExecutionConfig.as_ints()`` of an execution run, or None: blocks,
+    #: masks and chained roots are functions of these ints and the
+    #: committed heights, so replay re-derives the ledger.
+    execution: "tuple | None" = None
+
+    OP_CRASH = 0
+    OP_RESTORE = 1
+    OP_RESYNC = 2
+
+    #: Format magic and version. v3 appends the burst sizes, v4 the
+    #: batch_ingest flag (older dumps load as per-message dispatch), v5 the
+    #: lifecycle ops, v6 the epoch trailer, v7 the execution trailer.
+    MAGIC = 0x48594456  # "HYDV"
+    VERSION = 7
+
+    def marshal(self, w: Writer) -> None:
+        w.u32(self.MAGIC)
+        w.u32(self.VERSION)
+        w.u64(self.seed)
+        w.u32(self.n)
+        w.u32(self.f)
+        w.i64(self.target_height)
+        w.u32(len(self.signatories))
+        for s in self.signatories:
+            w.bytes32(s)
+        w.u32(len(self.messages))
+        for to, msg in self.messages:
+            w.u32(to)
+            marshal_message(msg, w)
+        w.u32(len(self.bursts))
+        for b in self.bursts:
+            w.u32(b)
+        w.bool(self.batch_ingest)
+        w.u32(len(self.lifecycle))
+        for kind, pos, replica, aux in self.lifecycle:
+            w.u32(kind)
+            w.u32(pos)
+            w.u32(replica)
+            w.i64(aux)
+        w.bool(self.epochs is not None)
+        if self.epochs is not None:
+            epoch_length, committee, rekey, eseed, stakes = self.epochs
+            w.u32(epoch_length)
+            w.u32(committee)
+            w.u32(rekey)
+            w.u64(eseed)
+            w.u32(len(stakes))
+            for s in stakes:
+                w.u64(s)
+        w.bool(self.execution is not None)
+        if self.execution is not None:
+            # Length-prefixed: a new config int extends the trailer
+            # without a version bump.
+            w.u32(len(self.execution))
+            for v in self.execution:
+                w.u64(int(v))
+
+    @classmethod
+    def unmarshal(cls, r: Reader) -> "ScenarioRecord":
+        magic = r.u32()
+        if magic != cls.MAGIC:
+            raise SerdeError(f"not a scenario dump (magic {magic:#x})")
+        version = r.u32()
+        if version not in (2, 3, 4, 5, 6, cls.VERSION):
+            raise SerdeError(
+                f"scenario dump version {version} unsupported "
+                f"(expected {cls.VERSION})"
+            )
+        rec = cls(seed=r.u64(), n=r.u32(), f=r.u32(), target_height=r.i64())
+        nsigs = r.u32()
+        if nsigs > 1 << 20:
+            raise SerdeError("signatory count too large")
+        rec.signatories = [r.bytes32() for _ in range(nsigs)]
+        nmsgs = r.u32()
+        if nmsgs > 1 << 24:
+            raise SerdeError("message count too large")
+        # Intern equal messages: a live run delivers ONE broadcast object
+        # to every receiver, and the identity-keyed dedup verification
+        # leans on that. Message equality excludes the signature, so the
+        # key carries it: deliveries that differ only in signature stay
+        # distinct objects, or replayed verdicts could flip. (Timeouts
+        # have no signature; their equality covers every field.)
+        interned: dict = {}
+        rec.messages = []
+        for _ in range(nmsgs):
+            to = r.u32()
+            msg = unmarshal_message(r)
+            key = (msg, getattr(msg, "signature", None))
+            rec.messages.append((to, interned.setdefault(key, msg)))
+        if version >= 3:
+            nb = r.u32()
+            if nb > 1 << 24:
+                raise SerdeError("burst count too large")
+            rec.bursts = [r.u32() for _ in range(nb)]
+        rec.batch_ingest = r.bool() if version >= 4 else False
+        if version >= 5:
+            nops = r.u32()
+            if nops > 1 << 20:
+                raise SerdeError("lifecycle op count too large")
+            rec.lifecycle = [
+                (r.u32(), r.u32(), r.u32(), r.i64()) for _ in range(nops)
+            ]
+        if version >= 6 and r.bool():
+            epoch_length = r.u32()
+            committee = r.u32()
+            rekey = r.u32()
+            eseed = r.u64()
+            nstakes = r.u32()
+            if nstakes > 1 << 20:
+                raise SerdeError("stake count too large")
+            rec.epochs = (
+                epoch_length, committee, rekey, eseed,
+                tuple(r.u64() for _ in range(nstakes)),
+            )
+        if version >= 7 and r.bool():
+            nvals = r.u32()
+            if nvals > 64:
+                raise SerdeError("execution trailer too large")
+            rec.execution = tuple(r.u64() for _ in range(nvals))
+        return rec
+
+    def dump(self, path: str) -> None:
+        w = Writer(rem=1 << 30)
+        self.marshal(w)
+        with open(path, "wb") as fh:
+            fh.write(w.data())
+
+    @classmethod
+    def load(cls, path: str) -> "ScenarioRecord":
+        with open(path, "rb") as fh:
+            return cls.unmarshal(Reader(fh.read(), rem=1 << 30))
+
+
+class _Discard:
+    """The message sink of a ``record=False`` run: appends are no-ops, so
+    the delivery loops make one unconditional call either way."""
+
+    __slots__ = ()
+
+    def append(self, item) -> None:
+        pass
+
+    def append_broadcast(self, msg, live) -> None:
+        pass
+
+
+_DISCARD = _Discard()
+
+
+class RecordedMessages:
+    """The delivery log, list-compatible but broadcast-compact.
+
+    A shared-superstep broadcast reaches every live replica: one op
+    ``(msg, live)`` stands for ``len(live)`` deliveries. The flat
+    per-delivery view that replay, serde and equality read is built on
+    first indexed access; a run only appends. ``live`` lists are shared
+    by reference across one superstep's ops and must not be mutated
+    afterwards (the burst loop builds a new list every superstep).
+    """
+
+    __slots__ = ("_ops", "_len", "_flat")
+
+    _TARGETED = None  # the ``live`` of a single (to, msg) delivery
+
+    def __init__(self):
+        self._ops: list = []
+        self._len = 0
+        self._flat = None
+
+    def append(self, item) -> None:
+        """One targeted delivery: item = (to, msg)."""
+        if self._flat is not None:
+            self._flat.append(item)
+        self._ops.append((item, self._TARGETED))
+        self._len += 1
+
+    def append_broadcast(self, msg, live) -> None:
+        """One broadcast delivered to every replica in ``live``, in
+        order, recorded as a single op."""
+        if self._flat is not None:
+            self._flat.extend((i, msg) for i in live)
+        self._ops.append((msg, live))
+        self._len += len(live)
+
+    def _materialize(self) -> list:
+        flat = self._flat
+        if flat is None:
+            flat = []
+            for head, live in self._ops:
+                if live is self._TARGETED:
+                    flat.append(head)
+                else:
+                    flat.extend((i, head) for i in live)
+            self._flat = flat
+        return flat
+
+    def __len__(self) -> int:
+        return self._len
+
+    def __iter__(self):
+        return iter(self._materialize())
+
+    def __getitem__(self, idx):
+        return self._materialize()[idx]
+
+    def __eq__(self, other) -> bool:
+        if isinstance(other, RecordedMessages):
+            other = other._materialize()
+        if isinstance(other, list):
+            return self._materialize() == other
+        return NotImplemented
+
+    def __repr__(self) -> str:
+        return f"RecordedMessages({self._len} deliveries)"
+
+
 class _OwnedClock:
     """Wraps the shared clock so fired timeouts carry their owner index."""
 
@@ -181,11 +471,14 @@ class SimulationResult:
     virtual_time: float
     heights: list[Height]
     commits: list[dict[Height, Value]]
+    #: The run's replay log; None when the run had ``record=False``.
+    record: "ScenarioRecord | None"
     alive: list[bool]
-    #: The replay log; this package does not record runs yet.
-    record: None = field(default=None)
     #: Per-replica certificate chain digests (``certificates=True`` runs).
     cert_digests: "list[str] | None" = None
+    #: The Simulation behind a :meth:`Simulation.replay` result (a live
+    #: ``run()`` caller already holds its own).
+    sim: "Simulation | None" = field(default=None, repr=False, compare=False)
 
     def assert_safety(self) -> None:
         """All replicas must agree byte for byte wherever their commit maps
@@ -215,12 +508,27 @@ class SimulationResult:
 
 
 class Simulation:
-    """Build and run one n-replica burst-mode scenario.
+    """Build and run one n-replica scenario.
 
-    ``sign=True`` gives every replica the deterministic Ed25519 keypair of
-    the reference (``KeyRing.deterministic(n, namespace=b"sim-%d" % seed)``)
-    and signs every broadcast. With ``burst=True`` and no
-    ``batch_verifier``, the settle layer verifies through
+    Delivery is lock-step (``burst=False``, the default) or by superstep
+    (``burst=True``), as the module docstring says. ``sign=True`` gives
+    every replica the deterministic Ed25519 keypair of the reference
+    (``KeyRing.deterministic(n, namespace=b"sim-%d" % seed)``) and signs
+    every broadcast. In lock-step every replica then verifies its own
+    windows: through ``verifier_for(i)`` (anything with ``verify_batch``,
+    e.g. a :class:`~hyperdrive_tpu_torch.ops.ed25519.TorchBatchVerifier`
+    on the card), else through one of its own on ``device``, as the
+    reference gives each its own: a ``TorchBatchVerifier`` on the card
+    (the default), a ``HostVerifier`` with ``device="cpu"``.
+    ``flusher_for(i, committee)`` gives replica ``i`` a flusher
+    instead (``QueueFlusher(verifier, q)``, or a ``DeviceTallyFlusher``
+    with ``queue=q``) on the queue passed as ``devsched=q``; flushers
+    coalesce only when they share one verifier object. ``signatories``
+    overrides the unsigned identities (it must equal the ring's with
+    ``sign=True``; replay passes the recorded ones).
+
+    With ``burst=True`` and no ``batch_verifier``, the settle layer
+    verifies through
     :class:`~hyperdrive_tpu_torch.ops.ed25519.TorchBatchVerifier` on
     ``device`` (the card unless the caller asks for the CPU); pass
     ``batch_verifier=HostVerifier()`` for the host baseline.
@@ -235,7 +543,8 @@ class Simulation:
     ``pipeline_heights=True`` (needs ``burst`` and a batch verifier, or
     ``sign=True``) settles on speculative verdicts and coalesces up to
     ``pipeline_depth`` settles' verification into one launch through
-    ``self._sched``; commits are gated until the covering drain.
+    ``self._sched`` (``devsched=`` if given, else a queue of its own);
+    commits are gated until the covering drain.
 
     ``device_tally=True`` keeps the quorum counts in a
     :class:`~hyperdrive_tpu_torch.ops.votegrid.VoteGrid` on ``device``;
@@ -262,22 +571,30 @@ class Simulation:
     (so it raises without CUDA unless ``device="cpu"``), and with
     ``config.device`` the executors' tensors live there.
     ``exec_speculate``, ``fused_exec_drain`` and ``dedup_exec`` default
-    to ``pipeline_heights``.
+    to ``pipeline_heights``; a lock-step run speculates only with an
+    injected ``devsched``, whose drains resolve the speculation.
 
-    The adversaries, as in the reference: ``reorder`` shuffles every
-    superstep's deliveries (``self.rng.shuffle``); ``drop_rate`` drops
-    each non-timeout delivery with that probability (one
-    ``self.rng.random()`` a delivery); ``kill_at_step`` ``{replica:
-    step}`` kills at the first superstep boundary at or past the step;
-    ``offline`` replicas never start; ``byzantine_proposer`` ``{replica:
-    fn(height, round) -> value}`` and ``byzantine_validator`` ``{replica:
-    fn(height, round, value) -> bool}`` replace those replicas' proposer
-    and validator; ``delivery_cost`` charges that many virtual seconds a
-    delivery. ``self.rng`` is ``random.Random(seed)``.
+    ``epochs`` (an :class:`~hyperdrive_tpu_torch.epochs.EpochConfig`):
+    dynamic validator sets, lock-step and unsigned only. ``record``
+    (default True) keeps the :class:`ScenarioRecord` that
+    ``SimulationResult.record`` returns.
 
-    Differential knobs: ``shared_superstep`` (None = on without
-    ``reorder``/``drop_rate``; False forces the per-delivery path,
-    which gives the same trajectory), ``batch_ingest`` (None = on;
+    The adversaries, as in the reference, all drawing from ``self.rng =
+    random.Random(seed)``: ``reorder`` swaps a random pending delivery to
+    the head of the queue (one ``randrange`` a lock-step delivery) or
+    shuffles every superstep; ``drop_rate`` drops each non-timeout
+    delivery with that probability (one ``self.rng.random()`` a
+    delivery); ``kill_at_step`` ``{replica: step}`` kills at that
+    delivery step (at the first superstep boundary at or past it in
+    burst mode); ``offline`` replicas never start; ``byzantine_proposer``
+    ``{replica: fn(height, round) -> value}`` and ``byzantine_validator``
+    ``{replica: fn(height, round, value) -> bool}`` replace those
+    replicas' proposer and validator; ``delivery_cost`` charges that many
+    virtual seconds a delivery.
+
+    Differential knobs of burst mode: ``shared_superstep`` (None = on
+    without ``reorder``/``drop_rate``; False forces the per-delivery
+    path, which gives the same trajectory), ``batch_ingest`` (None = on;
     False dispatches message by message), ``columnar_ingest`` (None =
     ``batch_ingest``; False keeps the object path), ``pipeline_verify``
     (None = on; False verifies each settle pass in one call).
@@ -297,6 +614,8 @@ class Simulation:
         offline: Optional[set[int]] = None,
         byzantine_proposer: Optional[dict[int, Callable]] = None,
         byzantine_validator: Optional[dict[int, Callable]] = None,
+        verifier_for: Optional[Callable[[int], object]] = None,
+        signatories: Optional[list[bytes]] = None,
         sign: bool = False,
         delivery_cost: float = 0.0,
         burst: bool = False,
@@ -313,11 +632,15 @@ class Simulation:
         route_hysteresis: int = 32,
         pipeline_heights: Optional[bool] = None,
         pipeline_depth: int = 6,
+        devsched=None,
+        flusher_for: Optional[Callable[[int, list], object]] = None,
+        record: bool = True,
         payload_bytes: int = 0,
         dedup_reconstruct: bool = True,
         reconstructor=None,
         certificates: bool = False,
         bls_certificates=False,
+        epochs=None,
         execution=None,
         exec_speculate: Optional[bool] = None,
         fused_exec_drain: Optional[bool] = None,
@@ -328,12 +651,16 @@ class Simulation:
         if unported:
             raise NotImplementedError(
                 f"Simulation options {sorted(unported)} are not ported to "
-                "the PyTorch package yet (a later slice of the port)"
+                "the PyTorch package yet (a later slice of the port): "
+                "tally_mesh needs the multi-device vote grid; observe and "
+                "obs_capacity the flight recorder; chaos, load and overlay "
+                "their subsystems; catchup_every and catchup_lag the "
+                "laggard sweep of chaos and overlay"
             )
-        #: The adversaries' one random stream: ``reorder`` shuffles each
-        #: superstep, ``drop_rate`` draws once per non-timeout delivery,
-        #: in the reference's order (one extra draw moves every
-        #: trajectory).
+        #: The adversaries' one random stream: ``reorder`` draws once a
+        #: lock-step delivery (or shuffles each superstep), ``drop_rate``
+        #: once per non-timeout delivery, in the reference's order (one
+        #: extra draw moves every trajectory).
         self.rng = random.Random(seed)
         self.reorder = reorder
         self.drop_rate = drop_rate
@@ -341,6 +668,7 @@ class Simulation:
         self.delivery_cost = delivery_cost
         self.kill_at_step = dict(kill_at_step or {})
         self.offline = set(offline or ())
+        self.burst = burst
         #: Shared-superstep mode: with no per-delivery adversary every live
         #: replica receives the same broadcast sequence, so a broadcast is
         #: ONE queue entry and the settle sorts and verifies it once.
@@ -380,7 +708,8 @@ class Simulation:
             if not burst:
                 raise ValueError(
                     "pipeline_heights requires burst mode (settles are the "
-                    "unit of pipelining)"
+                    "unit of pipelining; lock-step replicas pipeline "
+                    "through a queue-backed flusher instead)"
                 )
             if batch_verifier is None and not sign:
                 raise ValueError(
@@ -399,10 +728,23 @@ class Simulation:
             raise ValueError(
                 "device_tally requires burst=True with batched ingestion"
             )
-        if not burst:
-            raise NotImplementedError(
-                "lock-step delivery (burst=False) is not ported to the "
-                "PyTorch package yet (a later slice of the port)"
+        if batch_verifier is not None and not burst:
+            raise ValueError("batch_verifier requires burst=True")
+        if burst and verifier_for is not None:
+            raise ValueError(
+                "burst mode verifies at the network settle layer; pass "
+                "batch_verifier instead of per-replica verifier_for"
+            )
+        #: Per-replica flusher factory ``(i, committee) -> flusher`` for
+        #: lock-step pipelining: queue-backed flushers submit through the
+        #: injected ``devsched`` queue, which the delivery loop drains
+        #: whenever the network quiesces.
+        self._flusher_for = flusher_for
+        if flusher_for is not None and burst:
+            raise ValueError(
+                "flusher_for wires per-replica flushers for lock-step "
+                "delivery; burst mode settles through the aggregated "
+                "harness path (use pipeline_heights there)"
             )
         self.n = n
         self.f = n // 3
@@ -411,6 +753,16 @@ class Simulation:
         self.clock = VirtualClock()
         self.queue: list[tuple[int, object]] = []
         self._qhead = 0
+        #: ``record=False`` drops the replay log (at depth it dominates
+        #: memory); the result's ``record`` is then None, so a dump attempt
+        #: fails loudly instead of replaying an empty scenario. Live runs
+        #: log through the broadcast-compact RecordedMessages.
+        self._record_on = record
+        self.record = ScenarioRecord(
+            seed=seed, n=n, f=self.f, target_height=target_height
+        )
+        self.record.messages = RecordedMessages()
+        self.record.batch_ingest = self.batch_ingest
         self.batch_verifier = batch_verifier
         self.dedup_verify = dedup_verify
         self._small_win_host = None
@@ -419,16 +771,32 @@ class Simulation:
             from hyperdrive_tpu_torch.crypto.keys import KeyRing
 
             self.ring = KeyRing.deterministic(n, namespace=b"sim-%d" % seed)
+            if signatories is not None and signatories != self.ring.signatories:
+                raise ValueError(
+                    "sign=True derives identities from the keyring; a "
+                    "signatories override that differs from the ring's "
+                    "public keys would make every signature verification "
+                    "fail (replay a signed dump with the same seed instead)"
+                )
             self.signatories = self.ring.signatories
-            if self.batch_verifier is None:
-                from hyperdrive_tpu_torch.ops.ed25519 import TorchBatchVerifier
+            if burst:
+                if self.batch_verifier is None:
+                    from hyperdrive_tpu_torch.ops.ed25519 import TorchBatchVerifier
 
-                self.batch_verifier = TorchBatchVerifier(device=device)
+                    self.batch_verifier = TorchBatchVerifier(device=device)
+            elif verifier_for is None and flusher_for is None:
+                # Every replica verifies its own windows, as in the
+                # reference, on ``device``: a flusher, when given, owns
+                # the flush and needs none.
+                verifier_for = lambda i: _lockstep_verifier(device)  # noqa: E731
         else:
-            self.signatories = [
+            self.signatories = signatories or [
                 hashlib.sha256(b"sim-replica-%d-%d" % (seed, i)).digest()
                 for i in range(n)
             ]
+        self._init_epochs(epochs, signatories, sign, burst, payload_bytes,
+                          execution, bls_certificates)
+        self.record.signatories = list(self.signatories)
         bv = self.batch_verifier
         if small_window_host is True and bv is None:
             raise ValueError(
@@ -442,13 +810,16 @@ class Simulation:
             from hyperdrive_tpu_torch.verifier import HostVerifier
 
             self._small_win_host = HostVerifier()
-        #: The async device-work queue of a pipelined run (None otherwise);
-        #: its drains finalize the gated commits (_on_sched_drain).
-        self._sched = None
-        if self._pipeline_heights:
+        #: The async device-work queue: injected (``devsched=``, the queue
+        #: lock-step flushers submit through, drained by the delivery loop
+        #: before any timeout fires), or a pipelined burst run's own, or
+        #: None. Its drains finalize the gated commits (_on_sched_drain).
+        self._sched = devsched
+        if self._sched is None and self._pipeline_heights:
             from hyperdrive_tpu_torch.devsched import DeviceWorkQueue
 
             self._sched = DeviceWorkQueue(max_depth=self._pipeline_depth)
+        if self._sched is not None:
             self._sched.on_drain = self._on_sched_drain
         #: Commit finalizations gated on in-flight speculation: (replica,
         #: height, value, covering future) in commit order, flushed by
@@ -546,9 +917,17 @@ class Simulation:
             self._build_replica(
                 i, timeout, timeout_scaling, max_capacity,
                 byz_prop.get(i), byz_val.get(i),
+                verifier_for(i) if verifier_for else None,
             )
             for i in range(n)
         ]
+        if self.epoch_schedule is not None:
+            # One retired-identity map for the network: "identity X is
+            # stale from height H" is a fact of the key history, not of a
+            # replica's own progress, so a laggard still finishing the
+            # boundary height keeps accepting the old key below H.
+            for r in self.replicas:
+                r.retired = self._retired
         #: Device-resident quorum tallies: behavior-neutral by construction
         #: (counts equal the host counters wherever a TallyView answers).
         self.device_tally = device_tally
@@ -613,7 +992,7 @@ class Simulation:
         ).digest()
 
     def _build_replica(self, i, timeout, scaling, capacity, byz_proposer,
-                       byz_validator) -> Replica:
+                       byz_validator, verifier) -> Replica:
         keypair = self.ring[i] if self.ring is not None else None
         recipients = range(self.n)
 
@@ -669,23 +1048,40 @@ class Simulation:
                 bls_keyring = self._bls_committee_keyring()
                 if self._bls_device is not None:
                     bls_agg_fn = self._bls_device_aggregate
-            certifier = Certifier(
-                list(self.signatories),
-                self.f,
-                transcript_source=lambda: getattr(
-                    self.batch_verifier, "last_transcript", b""
-                ),
-                bls_keyring=bls_keyring,
-                bls_aggregate_fn=bls_agg_fn,
+            transcript_source = lambda: getattr(  # noqa: E731
+                self.batch_verifier, "last_transcript", b""
             )
+            if self.epoch_schedule is not None:
+                from hyperdrive_tpu_torch.epochs import EpochCertifier
+
+                certifier = EpochCertifier(
+                    self.epoch_schedule, transcript_source=transcript_source,
+                )
+            else:
+                certifier = Certifier(
+                    list(self.signatories),
+                    self.f,
+                    transcript_source=transcript_source,
+                    bls_keyring=bls_keyring,
+                    bls_aggregate_fn=bls_agg_fn,
+                )
             self.certifiers.append(certifier)
+        # Epoch mode: consensus runs under epoch 0's elected committee
+        # (its whitelist, quorum and proposer order) while the replica
+        # keeps its pool identity; a non-member follows the commits, and
+        # everyone's whitelist filters its votes.
+        committee = (
+            list(self.epoch_schedule.signatories(0))
+            if self.epoch_schedule is not None
+            else list(self.signatories)
+        )
         return Replica(
             ReplicaOptions(
-                max_capacity=capacity, external_flush=True,
+                max_capacity=capacity, external_flush=self.burst,
                 batch_ingest=self.batch_ingest,
             ),
             self.signatories[i],
-            list(self.signatories),
+            committee,
             timer,
             proposer,
             validator,
@@ -698,6 +1094,12 @@ class Simulation:
             ),
             BroadcasterCallbacks(
                 on_propose=bcast, on_prevote=bcast, on_precommit=bcast
+            ),
+            verifier=verifier,
+            flusher=(
+                self._flusher_for(i, committee)
+                if self._flusher_for is not None
+                else None
             ),
             certifier=certifier,
         )
@@ -747,7 +1149,125 @@ class Simulation:
             self._reconstruct_commit(i, height, value)
         if height >= self.target_height:
             self._pending_replicas.discard(i)
+        if (
+            self.epoch_schedule is not None
+            and self.epoch_schedule.is_boundary(height)
+        ):
+            return self._epoch_advance(i, height, value)
         return (0, None)
+
+    # ------------------------------------------------------------- epochs
+
+    def _init_epochs(self, epochs, signatories, sign, burst, payload_bytes,
+                     execution, bls_certificates) -> None:
+        """Dynamic validator sets: the schedule, the generation-0 pool
+        identities (``self.signatories``, what records carry), each
+        replica's CURRENT identity (``_identity``; rekeys replace it) and
+        the retired-identity map (identity -> first height its votes are
+        stale), which every replica shares."""
+        self.epoch_schedule = None
+        self.epoch = 0
+        if epochs is None:
+            return
+        if burst:
+            raise ValueError(
+                "epochs advance on lock-step boundary commits; use "
+                "burst=False (the settle layer rotates per-launch table "
+                "generations instead)"
+            )
+        if sign:
+            raise ValueError(
+                "epochs derive identities per (index, generation); the "
+                "deterministic keyring has no generation axis — run epoch "
+                "scenarios unsigned"
+            )
+        if payload_bytes:
+            raise ValueError(
+                "payload reconstruction pins k = 2f+1 at construction; "
+                "epoch-rotated thresholds are not supported on the "
+                "payload path"
+            )
+        if execution is not None or bls_certificates:
+            raise NotImplementedError(
+                "epochs with execution (stake-driven elections) or with BLS "
+                "certificates (the committee keyring's epoch branch) are "
+                "not ported to the PyTorch package yet (a later slice of "
+                "the port)"
+            )
+        from hyperdrive_tpu_torch.epochs import EpochSchedule, default_signatory
+
+        n = self.n
+        stakes = tuple(epochs.stakes) or (1,) * n
+        if len(stakes) != n:
+            raise ValueError(
+                f"epochs.stakes has {len(stakes)} entries for {n} replicas"
+            )
+        ns = b"sim-%d" % self.seed
+
+        def sig_fn(idx, gen):
+            return default_signatory(idx, gen, namespace=ns)
+
+        self.epoch_schedule = EpochSchedule(
+            stakes,
+            epochs.committee_size or n,
+            epochs.epoch_length,
+            epochs.seed or self.seed,
+            rekey_per_epoch=epochs.rekey_per_epoch,
+            signatory_fn=sig_fn,
+        )
+        derived = [sig_fn(i, 0) for i in range(n)]
+        if signatories is not None and list(signatories) != derived:
+            raise ValueError(
+                "epochs derive identities from the schedule's signatory "
+                "function; a signatories override that differs would "
+                "desynchronize elections (replay an epoch dump with the "
+                "same seed instead)"
+            )
+        self.signatories = derived
+        self._identity = list(derived)
+        self._retired: dict = {}
+        self.record.epochs = (
+            int(epochs.epoch_length),
+            int(epochs.committee_size or n),
+            int(epochs.rekey_per_epoch),
+            int(epochs.seed or self.seed),
+            stakes,
+        )
+
+    def _epoch_advance(self, i: int, height: Height, value: Value):
+        """Replica ``i`` committed an epoch boundary: fetch (or compute)
+        the deterministic transition, install its network-level effects
+        once (the first committer; a different value at the same boundary
+        trips the schedule's fork check), and hand the Process its
+        next-height committee: the returned ``(f, scheduler)`` flows
+        through the commit seam into ``start_round(0)`` of ``height + 1``."""
+        tr = self.epoch_schedule.transition_at(height, value)
+        if tr.epoch > self.epoch:
+            self._epoch_install(tr, height)
+        r = self.replicas[i]
+        sigs = list(tr.signatories)
+        r.procs_allowed = set(sigs)
+        for s in sigs:
+            r.mq.order_of(s)
+        # The replica's own identity may have rotated in this transition.
+        r.proc.whoami = self._identity[i]
+        if self.certifiers and self.certifiers[i].epoch != tr.epoch:
+            # EpochCertifier.observe_commit normally rotated itself at this
+            # boundary already.
+            self.certifiers[i].rotate_to(tr.epoch)
+        return len(sigs) // 3, RoundRobin(sigs)
+
+    def _epoch_install(self, tr, height: Height) -> None:
+        """One-time effects of a transition: rotated identities become
+        current (the pool member signs with the new key from ``height +
+        1``), and retired identities enter the shared stale-vote map."""
+        new_by_index = {v.index: v.signatory for v in tr.committee}
+        for idx, old in zip(tr.rekeyed, tr.retired):
+            fresh = new_by_index[idx]
+            self._identity[idx] = fresh
+            self._order_pos[fresh] = idx
+            self._retired[old] = height + 1
+        self.epoch = tr.epoch
 
     def _on_sched_drain(self, resolved: int) -> None:
         """Queue drain hook: every in-flight speculative settle just
@@ -831,6 +1351,7 @@ class Simulation:
                 )
             cfg = dataclasses.replace(cfg, stake_accounts=n)
         self._execution = cfg
+        self.record.execution = cfg.as_ints()
         self._exec_source = BlockSource(cfg)
         kwargs = dict(source=self._exec_source, masks=self._exec_masks)
         exec_cls = HostLedgerExecutor
@@ -862,7 +1383,7 @@ class Simulation:
         elif exec_speculate and self._sched is None:
             raise ValueError(
                 "exec_speculate resolves speculation at queue drains — "
-                "pass pipeline_heights=True"
+                "wire a devsched (pipeline_heights=True or devsched=)"
             )
         self._exec_speculate = bool(exec_speculate)
         if cfg.sign_txs and self._sched is not None:
@@ -875,17 +1396,27 @@ class Simulation:
                 fused_exec_drain = self._pipeline_heights
             self._exec_fused = bool(fused_exec_drain)
             if self._exec_fused:
+                if self.batch_verifier is None:
+                    raise ValueError(
+                        "fused_exec_drain coalesces exec rows into the vote "
+                        "verify launch: it needs a batch_verifier (burst mode)"
+                    )
                 self._exec_launcher = self._sched.verify_launcher(
                     self.batch_verifier
                 )
             else:
                 from hyperdrive_tpu_torch.exec.ledger import ExecApplyLauncher
 
-                self._exec_launcher = ExecApplyLauncher(self.batch_verifier)
+                # A lock-step run has no batch verifier: the blocks' own
+                # launcher verifies on ``device``.
+                bv = self.batch_verifier
+                if bv is None:
+                    bv = _lockstep_verifier(dev)
+                self._exec_launcher = ExecApplyLauncher(bv)
         elif fused_exec_drain:
             raise ValueError(
                 "fused_exec_drain requires sign_txs execution and a devsched "
-                "queue (pipeline_heights=True)"
+                "queue"
             )
         if cfg.sign_txs and self._exec_launcher is None:
             # Sequential sign_txs: each committed height's block is
@@ -1071,25 +1602,111 @@ class Simulation:
     def _completed(self) -> bool:
         return not self._pending_replicas
 
-    def run(self, max_steps: int = 2_000_000) -> SimulationResult:
-        """Start every live replica and drive the network to the target
-        height."""
-        for i, r in enumerate(self.replicas):
-            if self.alive[i]:
-                r.start()
-        return self._run_burst(max_steps)
+    def run(self, max_steps: int = 2_000_000, start: bool = True) -> SimulationResult:
+        """Drive the network to the target height. ``start=False`` resumes
+        a network whose replicas are already mid-protocol: they are not
+        (re)started, so nobody re-proposes or re-arms round timers."""
+        if start:
+            for i, r in enumerate(self.replicas):
+                if self.alive[i]:
+                    r.start()
+        res = self._run_delivery(max_steps)
+        if self.certifiers:
+            res.cert_digests = [c.chain_digest() for c in self.certifiers]
+        return res
+
+    def _result(self, steps: int) -> SimulationResult:
+        return SimulationResult(
+            completed=self._completed(),
+            steps=steps,
+            virtual_time=self.clock.now,
+            heights=[r.current_height() for r in self.replicas],
+            commits=self.commits,
+            record=self.record if self._record_on else None,
+            alive=self.alive,
+        )
+
+    def _run_delivery(self, max_steps: int) -> SimulationResult:
+        """The delivery loop behind :meth:`run`: lock-step here, one
+        message at a time, or :meth:`_run_burst`. The adversaries act in
+        the reference's order: the reorder swap (one ``randrange``), the
+        drop draw, the kills due by this step, the liveness gate, the
+        delivery cost."""
+        if self.burst:
+            return self._run_burst(max_steps)
+        steps = 0
+        record_messages = self.record.messages if self._record_on else _DISCARD
+        sched = self._sched
+        queue = self.queue
+        replicas = self.replicas
+        alive = self.alive
+        while steps < max_steps and not self._completed():
+            if self._qhead >= len(queue):
+                # Resolve in-flight device work (queue-backed flushers)
+                # before advancing virtual time: a timeout must not fire
+                # over a settle still in flight, and the drain's cascade
+                # may broadcast, refilling the queue.
+                if sched is not None and sched.depth and sched.drain():
+                    continue
+                # The network drained: advance virtual time to the next
+                # timeout.
+                if self.clock.pending() == 0:
+                    break  # genuine stall
+                if self.clock.pending() > 65536:
+                    self._prune_clock()
+                    if self.clock.pending() == 0:
+                        break
+                event, owner = self.clock.fire_next()
+                queue.append((owner, event))
+                continue
+
+            if self.reorder:
+                # Swap a random remaining entry to the head: O(1), and the
+                # chosen order is recorded, so replay is exact.
+                idx = self.rng.randrange(self._qhead, len(queue))
+                queue[self._qhead], queue[idx] = queue[idx], queue[self._qhead]
+            to, msg = queue[self._qhead]
+            self._qhead += 1
+            if self._qhead > 8192 and self._qhead * 2 > len(queue):
+                del queue[: self._qhead]
+                self._qhead = 0
+            steps += 1
+
+            if self.drop_rate and not isinstance(msg, Timeout):
+                if self.rng.random() < self.drop_rate:
+                    continue
+            if self.kill_at_step:
+                for victim, at in list(self.kill_at_step.items()):
+                    if steps >= at:
+                        if alive[victim]:
+                            alive[victim] = False
+                            self._pending_replicas.discard(victim)
+                        del self.kill_at_step[victim]  # fired: stop rescanning
+            if not alive[to]:
+                continue
+            if self.delivery_cost:
+                self.clock.now += self.delivery_cost
+            record_messages.append((to, msg))
+            replicas[to].handle(msg)
+
+        if sched is not None:
+            sched.drain()
+        return self._result(steps)
 
     def _run_burst(self, max_steps: int) -> SimulationResult:
         """Superstep delivery: buffer every pending message, then settle
         the whole network through aggregated verification. Steps count
         deliveries (a broadcast is ``n`` of them), as in the reference;
         reorder, drops and kills apply per superstep and per delivery as
-        there."""
+        there. The record holds each superstep's deliveries in order and
+        its size."""
         steps = 0
         n = self.n
         replicas = self.replicas
         alive = self.alive
         sched = self._sched
+        record_messages = self.record.messages if self._record_on else _DISCARD
+        bursts = self.record.bursts if self._record_on else _DISCARD
         while steps < max_steps and not self._completed():
             if self.clock.pending() > 65536:
                 self._prune_clock()
@@ -1125,12 +1742,16 @@ class Simulation:
                         del self.kill_at_step[victim]
 
             cost = self.delivery_cost
+            delivered = 0
             if self._shared_mode:
                 # A (-1, msg) entry is one broadcast to every live replica:
-                # steps and delivery cost count per delivery, the message
+                # steps, delivery cost and the record count per delivery
+                # (broadcast-major, ascending replica order), the message
                 # goes ONCE onto the shared lane (_settle filters and
-                # inserts it per replica).
-                nlive = sum(alive)
+                # inserts it per replica). ``live`` is a new list every
+                # superstep: the record's ops share it.
+                live = [i for i in range(n) if alive[i]]
+                nlive = len(live)
                 shared = self._shared
                 for to, msg in batch:
                     if to < 0:
@@ -1139,6 +1760,8 @@ class Simulation:
                             continue
                         if cost:
                             self.clock.now += cost * nlive
+                        record_messages.append_broadcast(msg, live)
+                        delivered += nlive
                         shared.append(msg)
                         continue
                     steps += 1
@@ -1146,7 +1769,10 @@ class Simulation:
                         continue
                     if cost:
                         self.clock.now += cost
+                    record_messages.append((to, msg))
                     replicas[to].handle(msg)
+                    delivered += 1
+                bursts.append(delivered)
                 self._shared = []
                 self._settle(shared)
                 continue
@@ -1166,6 +1792,8 @@ class Simulation:
                     continue
                 if cost:
                     self.clock.now += cost
+                record_messages.append((to, msg))
+                delivered += 1
                 t = type(msg)
                 if t is Propose or t is Prevote or t is Precommit:
                     lst = per_replica.get(to)
@@ -1179,6 +1807,7 @@ class Simulation:
                     replicas[to].handle(msg)
             for to, msgs in per_replica.items():
                 replicas[to].handle_burst(msgs)
+            bursts.append(delivered)
             self._settle()
 
         if sched is not None:
@@ -1186,18 +1815,7 @@ class Simulation:
             # outstanding speculation (raising on a mismatch) and finalizes
             # the gated commits the result reports.
             sched.drain()
-        return SimulationResult(
-            completed=self._completed(),
-            steps=steps,
-            virtual_time=self.clock.now,
-            heights=[r.current_height() for r in self.replicas],
-            commits=self.commits,
-            alive=self.alive,
-            cert_digests=(
-                [c.chain_digest() for c in self.certifiers]
-                if self.certifiers else None
-            ),
-        )
+        return self._result(steps)
 
     def _prune_clock(self) -> None:
         """Drop timeouts for heights every live replica has already left
@@ -2043,6 +2661,83 @@ class Simulation:
         return True
 
 
+    # -------------------------------------------------------------- replay
+
+    @classmethod
+    def replay(cls, record: ScenarioRecord, **kwargs) -> SimulationResult:
+        """Re-deliver a recorded interleaving message for message (the Go
+        reference's ``replay()``, ``replica_test.go:325-370``).
+
+        The replayed network uses the recorded signatories and delivers
+        only the recorded messages: no clock, no adversary. A burst record
+        (non-empty ``bursts``) replays superstep for superstep, each
+        recorded burst buffered, then settled (pass ``batch_verifier=`` to
+        verify during replay). The epoch and execution trailers rebuild
+        the run's ``EpochConfig`` and ``ExecutionConfig`` unless ``kwargs``
+        names them. A record with chaos lifecycle operations raises:
+        chaos is not ported."""
+        if record.lifecycle:
+            raise NotImplementedError(
+                f"record carries {len(record.lifecycle)} chaos lifecycle "
+                "operations; chaos (crash/restore/resync replay) is not "
+                "ported to the PyTorch package yet (a later slice of the "
+                "port)"
+            )
+        if record.epochs is not None and "epochs" not in kwargs:
+            from hyperdrive_tpu_torch.epochs import EpochConfig
+
+            epoch_length, committee, rekey, eseed, stakes = record.epochs
+            kwargs["epochs"] = EpochConfig(
+                epoch_length=epoch_length,
+                committee_size=committee,
+                rekey_per_epoch=rekey,
+                seed=eseed,
+                stakes=stakes,
+            )
+        if record.execution is not None and "execution" not in kwargs:
+            from hyperdrive_tpu_torch.exec import ExecutionConfig
+
+            # The ledger trajectory is a function of the config ints and
+            # the committed heights the message stream reproduces.
+            kwargs["execution"] = ExecutionConfig.from_ints(record.execution)
+        sim = cls(
+            n=record.n,
+            target_height=record.target_height,
+            seed=record.seed,
+            signatories=list(record.signatories),
+            burst=bool(record.bursts),
+            batch_ingest=record.batch_ingest if record.bursts else None,
+            **kwargs,
+        )
+        for i, r in enumerate(sim.replicas):
+            if sim.alive[i]:
+                r.start()
+        sim.queue.clear()
+        sim._qhead = 0
+        steps = 0
+        if record.bursts:
+            idx = 0
+            for b in record.bursts:
+                for to, msg in record.messages[idx : idx + b]:
+                    if sim.alive[to]:
+                        sim.replicas[to].handle(msg)
+                        steps += 1
+                idx += b
+                sim.queue.clear()  # replay ignores re-broadcasts
+                sim._qhead = 0
+                sim._settle()
+        else:
+            for to, msg in record.messages:
+                if not sim.alive[to]:
+                    continue
+                sim.replicas[to].handle(msg)
+                steps += 1
+        res = sim._result(steps)
+        res.record = record
+        res.sim = sim
+        return res
+
+
 class _PayloadProposer:
     """Proposer for the MPC payload path: values as usual, with the
     value-keyed share bundle attached via the Process's duck-typed
@@ -2076,3 +2771,19 @@ class _PayloadValidator:
 
     def valid_propose(self, propose):
         return propose.payload == self._sim._bundle_for_value(propose.value)
+
+
+def _lockstep_verifier(device):
+    """A lock-step verifier on ``device``: a ``TorchBatchVerifier`` on the
+    card (raises without CUDA), the reference's ``HostVerifier`` on the
+    CPU."""
+    from hyperdrive_tpu_torch.ops.merkle import resolve_device
+
+    dev = resolve_device(device)
+    if dev.type == "cpu":
+        from hyperdrive_tpu_torch.verifier import HostVerifier
+
+        return HostVerifier()
+    from hyperdrive_tpu_torch.ops.ed25519 import TorchBatchVerifier
+
+    return TorchBatchVerifier(device=dev)

@@ -30,8 +30,9 @@ Port copy of ``hyperdrive_tpu/replica.py``, plus :func:`merge_drain`.
 Removed: the tracer, logger, metrics recorder (``obs``) and sanitizer
 hooks (``utils.trace``, ``utils.log``, ``obs.recorder``,
 ``analysis.sanitizer``, ``@hot_path``) and the committer/catcher wrappers
-that only fed them; the epoch stale-key filter and the admission gate
-(neither exists in this package yet). A ``certifier``
+that only fed them, the stale-vote warning log line, and the admission
+gate (``load/`` is not ported yet). The epoch stale-key filter
+(``retired``, ``stale_votes``) is the reference's. A ``certifier``
 (:class:`~hyperdrive_tpu_torch.certificates.Certifier`) goes to the
 Process, which mints a certificate at every commit.
 """
@@ -204,6 +205,15 @@ class Replica:
         # limits.
         self._lane: list = []
         self._lane_counts: dict = {}
+        #: Retired identities (epoch key rotation): signatory -> first
+        #: height at which votes under it are stale. A height, not a
+        #: blanket ban: the retiring boundary's own height legitimately
+        #: carries old-key votes, and a laggard still finishing it must
+        #: keep accepting them. The simulator shares one dict across its
+        #: replicas. Empty = one truthiness check a vote.
+        self.retired: dict = {}
+        #: Stale-generation votes rejected.
+        self.stale_votes = 0
 
     # ------------------------------------------------------------ sync driving
 
@@ -272,10 +282,18 @@ class Replica:
         cap = self.opts.max_capacity
         cur = self.proc.current_height
         dh = self.did_handle_message
+        retired = self.retired
         for msg in msgs:
             t = type(msg)
             if t is Prevote or t is Precommit or t is Propose:
                 h = msg.height
+                if retired:
+                    bad_from = retired.get(msg.sender)
+                    if bad_from is not None and h >= bad_from:
+                        self.stale_votes += 1
+                        if dh is not None:
+                            dh()
+                        continue
                 if h >= cur:
                     if h == cur:
                         c = counts.get(msg.sender, 0)
@@ -333,13 +351,21 @@ class Replica:
                 self.did_handle_message()
 
     def _buffer_vote(self, msg) -> None:
-        """Height-filter + buffer one vote: below-height drops, the
-        current-height fast lane in ``external_flush`` mode, the sorted
-        queue otherwise. :meth:`handle_burst` inlines the same rule."""
+        """Height-filter + buffer one vote: below-height and stale-key
+        drops, the current-height fast lane in ``external_flush`` mode, the
+        sorted queue otherwise. :meth:`handle_burst` inlines the same
+        rule."""
         h = msg.height
         cur = self.proc.current_height
         if h < cur:
             return
+        if self.retired:
+            bad_from = self.retired.get(msg.sender)
+            if bad_from is not None and h >= bad_from:
+                # Signed under a retired key generation at a height where
+                # the rotation binds: dropped before it can buffer.
+                self.stale_votes += 1
+                return
         if h == cur and self.opts.external_flush:
             c = self._lane_counts.get(msg.sender, 0)
             if c < self.opts.max_capacity:

@@ -247,16 +247,24 @@ def test_knobs_take_the_reference_defaults_and_errors():
             Simulation(n=4, target_height=1, **kw)
         with pytest.raises(ValueError):
             RefSimulation(n=4, target_height=1, **kw)
-    for kw in (dict(burst=False), dict(verifier_for=lambda i: None),
-               dict(signatories=[b"\x01" * 32] * 4), dict(record=False),
-               dict(tally_mesh=object()), dict(devsched=object()),
-               dict(flusher_for=lambda i, s: None), dict(observe=True),
-               dict(obs_capacity=16), dict(chaos=object()), dict(epochs=object()),
-               dict(catchup_every=4), dict(catchup_lag=2), dict(load=object()),
-               dict(overlay=object())):
+    # Lock-step delivery and its knobs are ported (the lock-step tests
+    # hold them to the JAX runs); in burst mode the per-replica seams and
+    # epochs raise the reference's ValueError.
+    for kw in (dict(verifier_for=lambda i: None), dict(flusher_for=lambda i, s: None),
+               dict(epochs=object())):
+        with pytest.raises(ValueError):
+            Simulation(n=4, target_height=1, burst=True, **kw)
+        with pytest.raises(ValueError):
+            RefSimulation(n=4, target_height=1, burst=True, **kw)
+    for kw in (dict(burst=False), dict(signatories=[b"\x01" * 32] * 4),
+               dict(record=False)):
         kw.setdefault("burst", True)
+        Simulation(n=4, target_height=1, **kw)
+    for kw in (dict(tally_mesh=object()), dict(observe=True), dict(obs_capacity=16),
+               dict(chaos=object()), dict(load=object()), dict(overlay=object()),
+               dict(catchup_every=4), dict(catchup_lag=2)):
         with pytest.raises(NotImplementedError):
-            Simulation(n=4, target_height=1, **kw)
+            Simulation(n=4, target_height=1, burst=True, **kw)
 
 
 def _items(n_items):

@@ -19,8 +19,8 @@
   ``Simulation(bls_certificates=True | "device")`` commits the JAX sim's
   digest and certificate chains (both sides in burst mode, the port's
   only delivery);
-- what stays unported (epochs, and with them epoch certifiers) is
-  refused.
+- what stays unported (BLS certificates in an epoch run, whose
+  committee keyring has an epoch branch) is refused.
 
 Bytes, digests and verdicts: every comparison is exact.
 """
@@ -200,10 +200,13 @@ def test_transcript_widening_chain_order_reset_and_rotation():
 
 
 def test_unported_bls_parts_refuse():
-    # BLS certificates are ported; epochs (and EpochCertifier) are not.
-    with pytest.raises(NotImplementedError):
-        Simulation(n=4, target_height=1, burst=True, certificates=True,
-                   epochs=object())
+    # BLS certificates and epochs (with EpochCertifier) are ported; BLS
+    # certificates in an epoch run are not.
+    from hyperdrive_tpu_torch.epochs import EpochConfig
+
+    with pytest.raises(NotImplementedError, match="BLS"):
+        Simulation(n=8, target_height=1, bls_certificates=True,
+                   epochs=EpochConfig(epoch_length=2, committee_size=6))
 
 
 # ------------------------------------------------------------ BLS aggregate

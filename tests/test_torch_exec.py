@@ -494,9 +494,12 @@ def test_fused_drain_issues_fewer_launches_than_two_kind():
 
 
 @pytest.mark.parametrize("opts,error", [
-    (dict(epochs=object()), NotImplementedError),
+    # Stake-driven epochs (lock-step, unsigned) are not ported.
+    (dict(epochs=object(), burst=False, sign=False, batch_verifier=None),
+     NotImplementedError),
     (dict(load=object()), NotImplementedError),
-    (dict(burst=False), NotImplementedError),
+    # Execution runs under lock-step delivery; a batch verifier does not.
+    (dict(burst=False), ValueError),
     (dict(payload_bytes=31), ValueError),
     (dict(exec_speculate=True), ValueError),
     (dict(fused_exec_drain=True, pipeline_heights=True), ValueError),

@@ -82,10 +82,10 @@ def test_host_baseline_and_default_routing_match_reference(seed, monkeypatch):
 def test_unported_options_are_refused():
     with pytest.raises(NotImplementedError):
         Simulation(n=4, target_height=1, burst=True, tally_mesh=object())
-    with pytest.raises(NotImplementedError, match="devsched"):
-        Simulation(n=4, target_height=1, burst=True, devsched=object())
+    with pytest.raises(NotImplementedError, match="observe"):
+        Simulation(n=4, target_height=1, burst=True, observe=True)
     with pytest.raises(NotImplementedError):
-        Simulation(n=4, target_height=1, burst=False)
+        Simulation(n=4, target_height=1, burst=False, chaos=object())
     with pytest.raises(ValueError):
         Simulation(n=4, target_height=1, burst=True, small_window_host=True)
     # Unsigned burst mode runs with no verifier at all.
