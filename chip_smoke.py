@@ -149,7 +149,30 @@ Phases, each printing its lines:
    packed batch verifier on the main path's supersteps) to the live
    runs' commits, and the main path with ``record=False`` against the
    default in turns (``pairs:``);
-9. the deployment path: threaded replicas on a loopback-TCP full mesh,
+9. the aggregation overlay and table generations (``phase_overlay``, lines
+   ``overlay`` and ``generations``): the overlay bench's network (seed 29,
+   2 heights, 1 ms a delivery), every leg on the all-to-all chain in the
+   JAX run's steps, frames, garbage frames and verify rows: n = 256
+   unsigned beside its all-to-all run; n = 256 signed, each vote verified
+   once network-wide by one shared card ``TorchBatchVerifier`` behind the
+   queue (an ``ed25519_verify`` launch a verify row: the overlay drains
+   after every submit); n = 1,024 signed with ``coalesce_ingest`` and
+   ``record=False`` (cut from the bench's 4,096); Byzantine contributors
+   at n = 64 (100 garbage frames, only peer 2 demoted); ``bls_partials``
+   at n = 16 (a ``g1_aggregate`` launch a merge, through the
+   ``G1SumLauncher``); the n = 16 unsigned dump against the JAX bytes,
+   replayed with no overlay wiring. Then a ``DeviceTallyFlusher`` on a
+   table ``TorchWireVerifier`` rotating to the next generation (one member
+   rekeyed) between its queued windows, two windows a generation in one
+   drain: one launch a generation, with a table that keeps the retired key
+   (``ed25519_challenge`` + ``ed25519_semiwire`` twice) and with the next
+   table only (the old generation on ``ed25519_wire``), verdicts against
+   ``HostVerifier`` and the plain version; config 2's network with
+   stake-driven epochs and a ``DeviceLedgerExecutor`` a replica on the
+   card (the JAX run's digest, steps and committees); BLS certificates in
+   an epoch run with ``bls_certificates="device"`` (``g1_aggregate``
+   launches counted);
+10. the deployment path: threaded replicas on a loopback-TCP full mesh,
    one worker process per port (``python -m
    hyperdrive_tpu_torch.harness.deploy ... card``), each process with one
    ``TorchWireVerifier`` (a ``ValidatorTable`` of the network's keys:
@@ -168,7 +191,7 @@ Phases, each printing its lines:
    begin ``deploy``. Before them, ``deploy contention:`` lines: a flush's
    grid call (n = 1, V = 256) and verify call (100 grouped lanes), host
    wall per call from one thread and from 64 threads of this process;
-10. Shamir reconstruct (``ops/shamir.py``, PyTorch ops, no hand-written
+11. Shamir reconstruct (``ops/shamir.py``, PyTorch ops, no hand-written
    kernel): ``BatchReconstructor`` on the card at k = 171 (n = 256, f =
    85) for 16, 64 and 1,024 blocks, every payload equal byte for byte to
    the oracle's ``reconstruct_payload`` (at 1,024 blocks: to the payload,
@@ -177,7 +200,7 @@ Phases, each printing its lines:
    CUDA kernels a call, the bound and its share, the wrapper's and the
    host leg's wall; ``AdaptiveReconstructor``'s calibration record at
    1,024 blocks; on lines that begin ``programs: shamir``;
-11. the RLC batch equation (``rlc_check`` on ``ops/msm.py``, PyTorch ops):
+12. the RLC batch equation (``rlc_check`` on ``ops/msm.py``, PyTorch ops):
    one 64-lane MSM equal to the oracle's point sum; then
    ``TorchBatchVerifier(rlc=True)`` at 64, 256, 1,024 and 4,096 lanes: a
    clean batch accepted by one check with no fallback and no ladder
@@ -186,7 +209,7 @@ Phases, each printing its lines:
    order-8 torsion vector accepted by the RLC and rejected by the ladder;
    ms and CUDA kernels of ``rlc_check`` beside the ladder's time at the
    same lanes; on lines that begin ``programs: rlc``;
-12. config 5 (BASELINE configs[4]) as the JAX package's bench runs it
+13. config 5 (BASELINE configs[4]) as the JAX package's bench runs it
    (n = 256, k = 171, 496-byte payloads, seed 1005, 20 s timeouts,
    burst, 10 heights), signed (every settle on ``ed25519_verify``): the
    host run (``HostVerifier``), a run with
@@ -195,13 +218,13 @@ Phases, each printing its lines:
    on the host leg: no launch); each equal to the host run in digest,
    steps and every replica's reconstructed payloads; heights/s, the
    reconstruct share of wall and its p50, launches; lines ``config5``;
-13. certificates: the main path with ``certificates=True`` through the
+14. certificates: the main path with ``certificates=True`` through the
    packed verifier with ``rlc=False`` and ``rlc=True``: digest
    ``215413db54656240`` in 656,640 steps, chain digests equal across
    replicas and to a host run's, every certificate re-verified and
    round-tripped through its codec, the RLC run's checks, fallbacks and
    wall; lines ``certs``;
-14. the execution layer (``exec/``, ``ops/ledger.py``, ``ops/merkle.py``,
+15. the execution layer (``exec/``, ``ops/ledger.py``, ``ops/merkle.py``,
    PyTorch ops, no hand-written kernel) at the JAX package's documented
    sizes: one Merkleized apply step at 65,536 accounts and 16,384
    (incremental tree update) and 65,536 txs (full rebuild), every output
@@ -217,7 +240,7 @@ Phases, each printing its lines:
    equal across the three and the JAX package's digest, fewer
    ``ed25519_verify`` launches fused, and the blocks' signature rows
    verified by ``ed25519_verify``; lines ``exec``;
-15. BLS12-381 (``phase_bls``): ``fp381.mul`` (PyTorch ops) on 4,096 products
+16. BLS12-381 (``phase_bls``): ``fp381.mul`` (PyTorch ops) on 4,096 products
    against Python ints; the ``g1_aggregate`` kernel (``csrc/g1_aggregate.cu``,
    built in phase 1 beside the ed25519 library, one nvcc a unit, both
    started together) against its plain version ``aggregate_kernel`` at the
@@ -2383,6 +2406,370 @@ def phase_lockstep(ref: dict) -> None:
                             dict(record=False))))
 
 
+# ------------------------------------------- aggregation overlay, epochs
+
+#: The overlay bench's network (``benches/overlay_bench.py``: seed 29, 2
+#: heights, 1 ms a delivery). Every leg commits the all-to-all chain,
+#: ``OVERLAY_DIGEST``, in the JAX package's steps on the same seeds; the
+#: widest signed leg is cut from the bench's n = 4,096 to 1,024.
+OVERLAY_NET = dict(seed=29, target_height=2, delivery_cost=1e-3)
+OVERLAY_DIGEST = "ebccdb2654a1642c"
+OVERLAY_BYZANTINE = dict(byzantine=(2, 9, 17), withhold_levels=(1,), garbage_rate=0.5)
+#: What the JAX package's runs give a leg: steps, frames, garbage frames,
+#: verify rows (= queue submissions = row-1 launches: the overlay drains
+#: after every submit) and G1 merges (row-5 launches).
+OVERLAY_LEGS = {
+    "all-to-all n=256 unsigned": (240_896, None, None, None, None),
+    "n=256 unsigned": (36_966, 33_412, 0, 0, 0),
+    "n=256 signed": (35_495, 31_917, 0, 1_244, 0),
+    "n=1024 signed coalesce": (181_184, 166_745, 0, 5_122, 0),
+    "n=64 signed byzantine": (5_653, 4_993, 100, 259, 0),
+    "n=16 signed bls_partials": (965, 878, 0, 67, 1_731),
+}
+#: The n = 16 unsigned overlay run's dump (JAX package): steps, SHA-256
+#: prefix and bytes.
+OVERLAY_DUMP = (993, "e80f5a9427fb46cf", 73_763)
+#: Config 2's network with stake-driven epochs (the JAX run): 12 heights,
+#: epochs of 4 with a committee of 12 and one rekey each; its digest,
+#: steps and the committees of epochs 1-3.
+EPOCH_EXEC = dict(n=16, target_height=12, seed=1002, timeout=20.0, delivery_cost=1e-3,
+                  certificates=True)
+EPOCH_EXEC_LEDGER = dict(accounts=4096, txs_per_block=1024, stake_every=4,
+                         stake_accounts=16, seed=9)
+EPOCH_EXEC_WANT = ("41427182d6b6241a", 6_256)
+EPOCH_EXEC_COMMITTEES = (
+    (1, 12, 10, 8, 6, 7, 0, 15, 3, 9, 4, 14),
+    (1, 9, 0, 10, 3, 5, 7, 6, 15, 2, 13, 11),
+    (1, 9, 5, 7, 6, 8, 10, 11, 2, 14, 4, 3),
+)
+#: BLS certificates in an epoch run (n = 8, seed 5, epochs of 3 with one
+#: rekey, 9 heights; the JAX run's digest and steps).
+EPOCH_BLS = dict(n=8, target_height=9, seed=5, certificates=True)
+EPOCH_BLS_WANT = ("62c737c294b02dda", 1_200)
+
+
+def _overlay_leg(label: str, n: int, want: tuple, **kw) -> dict:
+    """One overlay (or all-to-all) run on the card: the kernel counts set
+    to 0 just before it and read just after; digest, steps, frames, garbage
+    frames, verify rows and launches held to the JAX run's; one line."""
+    from hyperdrive_tpu_torch.harness import Simulation
+    from hyperdrive_tpu_torch.ops import ed25519_cuda, g1_cuda
+
+    sim = Simulation(n=n, **OVERLAY_NET, **kw)
+    launcher = sim._overlay._bls_launcher if sim._overlay is not None else None
+    merged = []
+    if launcher is not None:
+        # Keep every merge launch's points and sums, to hold each sum
+        # against the host fold after the run.
+        inner = launcher.launch
+
+        def recorded(payloads):
+            sums = inner(payloads)
+            merged.extend(zip([list(p) for p in payloads], sums))
+            return sums
+
+        launcher.launch = recorded
+    torch.cuda.synchronize()
+    ed25519_cuda.reset_stats()
+    g1_cuda.reset_stats()
+    t0 = time.perf_counter()
+    res = sim.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: v.launches for k, v in ed25519_cuda.stats.items() if v.launches}
+    g1 = g1_cuda.stats["g1_aggregate"].launches
+    res.assert_safety()
+    digest = res.commit_digest()[:16]
+    steps, frames, garbage, rows, merges = want
+    if not res.completed or (digest, res.steps) != (OVERLAY_DIGEST, steps):
+        raise AssertionError(f"overlay {label}: digest {digest} in {res.steps} steps, "
+                             f"want {OVERLAY_DIGEST} in {steps}")
+    snap = sim.overlay_snapshot() if sim._overlay is not None else None
+    verify = launches.get("ed25519_verify", 0)
+    text = ""
+    if snap is not None:
+        q = sim._sched
+        got = (snap["frames"], snap["frames_garbage"], snap["verify_rows"], g1)
+        if got != (frames, garbage, rows, merges):
+            raise AssertionError(f"overlay {label}: frames, garbage, verify rows, merges "
+                                 f"{got}, want {(frames, garbage, rows, merges)}")
+        subs = q.submitted if q is not None else 0
+        if (set(launches) - {"ed25519_verify"} or verify != rows
+                or (q is not None and (q.launches != subs or q.coalesced))):
+            raise AssertionError(f"overlay {label}: launched {launches}, queue "
+                                 f"{subs} submitted / {q and q.launches} launches")
+        if snap["bls_partial_rejects"]:
+            raise AssertionError(f"overlay {label}: {snap['bls_partial_rejects']} partial "
+                                 "aggregates rejected")
+        if launcher is not None:
+            from hyperdrive_tpu_torch.crypto import bls
+
+            # Every g1_aggregate launch of the run against the host fold of
+            # the same points (the plain version of the masked sum).
+            bad = sum(s != bls.aggregate_signatures(p) for p, s in merged)
+            if (bad or len(merged) != merges or launcher.launched != g1
+                    or snap["bls_partials_attached"] != frames):
+                raise AssertionError(f"overlay {label}: {bad} of {len(merged)} merges differ "
+                                     f"from the host fold; launcher {launcher.launched}, "
+                                     f"kernel {g1} launches, "
+                                     f"{snap['bls_partials_attached']} frames with partials")
+        text = (f" frames={snap['frames']} frames_garbage={snap['frames_garbage']} "
+                f"frames_withheld={snap['frames_withheld']} verify_rows={snap['verify_rows']} "
+                f"queue_submitted={subs} queue_launches={q.launches if q else 0} "
+                f"bls_partials_attached={snap['bls_partials_attached']} "
+                f"demoted={snap['scores']['demoted']} honest_demoted={snap['honest_demoted']} "
+                f"bls_partial_rejects={snap['bls_partial_rejects']}")
+        if merged:
+            text += (f" merges_equal_host_fold={len(merged)} "
+                     f"max_merge_width={max(len(p) for p, _ in merged)}")
+    elif launches or g1:
+        raise AssertionError(f"overlay {label}: launched {launches}, g1 {g1}")
+    print(f"overlay {label}: n={n} heights={OVERLAY_NET['target_height']} steps={res.steps} "
+          f"wall_s={wall:.3f} launches={{'ed25519_verify': {verify}, 'g1_aggregate': {g1}}}"
+          f"{text} digest={digest}", flush=True)
+    return dict(sim=sim, res=res, snap=snap, wall=wall)
+
+
+def _rotated_flusher_leg(union: bool) -> dict:
+    """A ``DeviceTallyFlusher(TorchWireVerifier(table=...), queue=q)`` that
+    rotates to the next generation between its windows (one member
+    rekeyed): two windows a generation, one drain. The queue splits the
+    drain into one launch a generation; it never calls a verifier's
+    ``set_generation``, so both launches verify against the table installed
+    at the boundary. ``union``: that table keeps the retired key beside the
+    new one (its votes stay valid below their stale height), and every
+    window rides the challenge route, one ``ed25519_challenge`` and one
+    ``ed25519_semiwire`` launch a generation. Without it the old
+    generation's windows, which carry the retired key, take the full wire
+    route (``ed25519_wire``). Each launch's verdicts equal ``HostVerifier``'s
+    and the plain version's (the same verifier on the CPU)."""
+    from hyperdrive_tpu_torch.crypto.keys import KeyRing
+    from hyperdrive_tpu_torch.devsched import DeviceWorkQueue
+    from hyperdrive_tpu_torch.messages import Precommit, Prevote
+    from hyperdrive_tpu_torch.ops import ed25519_cuda
+    from hyperdrive_tpu_torch.ops.ed25519_wire import TorchWireVerifier, ValidatorTable
+    from hyperdrive_tpu_torch.replica import Replica, ReplicaOptions
+    from hyperdrive_tpu_torch.tallyflush import DeviceTallyFlusher
+    from hyperdrive_tpu_torch.testutil import CommitterCallback, MockProposer, MockValidator
+    from hyperdrive_tpu_torch.verifier import HostVerifier
+
+    n = 16
+    ring0 = KeyRing.deterministic(n, namespace=b"rotate-0")
+    keys0 = [ring0[i] for i in range(n)]
+    # The next generation rekeys one member, as EpochConfig(rekey_per_epoch=1).
+    keys1 = list(keys0)
+    keys1[5] = KeyRing.deterministic(1, namespace=b"rotate-1")[0]
+    sigs0 = [kp.public for kp in keys0]
+    sigs1 = [kp.public for kp in keys1]
+    table1 = sigs1 + [sigs0[5]] if union else sigs1
+    wire = TorchWireVerifier(device="cuda", table=ValidatorTable(sigs0, device="cuda"))
+    q = DeviceWorkQueue()
+    fl = DeviceTallyFlusher(wire, sigs0, queue=q)
+    rep = Replica(ReplicaOptions(), whoami=sigs0[0], signatories=sigs0, timer=None,
+                  proposer=MockProposer(fn=lambda h, r: bytes(32)),
+                  validator=MockValidator(ok=True),
+                  committer=CommitterCallback(on_commit=lambda h, v: (0, None)),
+                  catcher=None, broadcaster=None, verifier=None, flusher=fl)
+    value = hashlib.sha256(b"rotate").digest()
+    calls = []
+    inner = wire.verify_signatures
+
+    def recorded(items):
+        mask = inner(items)
+        calls.append((list(items), [bool(b) for b in mask]))
+        return mask
+
+    wire.verify_signatures = recorded
+
+    def window(keys, kind, round_, forged=()):
+        # One flushed window: every member but the replica itself, one
+        # signature zeroed.
+        for i, kp in enumerate(keys[1:], start=1):
+            msg = kp.sign_message(kind(height=1, round=round_, value=value,
+                                       sender=kp.public))
+            if i in forged:
+                msg = msg.with_signature(bytes(64))
+            getattr(rep.mq, f"insert_{kind.__name__.lower()}")(msg)
+        fl.flush(rep)
+
+    window(keys0, Prevote, 0, forged=(3,))
+    window(keys0, Precommit, 0)
+    # The epoch boundary: the wire verifier takes the next table (as
+    # TcpNode.rotate_epoch installs it), the flusher the next committee.
+    wire.install_table(ValidatorTable(table1, device="cuda"), 1)
+    fl.rotate_validators(sigs1)
+    window(keys1, Prevote, 1, forged=(7,))
+    window(keys1, Precommit, 1)
+    depth = q.depth
+    torch.cuda.synchronize()
+    ed25519_cuda.reset_stats()
+    t0 = time.perf_counter()
+    q.drain()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: v.launches for k, v in ed25519_cuda.stats.items() if v.launches}
+    wire.verify_signatures = inner
+    want = ({"ed25519_challenge": 2, "ed25519_semiwire": 2} if union else
+            {"ed25519_wire": 1, "ed25519_challenge": 1, "ed25519_semiwire": 1})
+    label = "union table" if union else "next table only"
+    if (depth, q.launches, q.coalesced, fl.generation) != (4, 2, 2, 1) or launches != want:
+        raise AssertionError(f"generations rotated flusher {label}: depth {depth}, "
+                             f"{q.launches} launches, {q.coalesced} coalesced, {launches}")
+    plain = TorchWireVerifier(device="cpu", table=ValidatorTable(table1, device="cpu"))
+    host = HostVerifier()
+    for items, mask in calls:
+        if (mask != [bool(b) for b in plain.verify_signatures(items)]
+                or mask != [bool(b) for b in host.verify_signatures(items)]):
+            raise AssertionError(f"generations rotated flusher {label}: verdicts differ "
+                                 "from the plain version or the host's")
+    rejected = sum(m.count(False) for _, m in calls)
+    if rejected != 2 or fl.launches != 4:
+        raise AssertionError(f"generations rotated flusher {label}: {rejected} rejected, "
+                             f"{fl.launches} grid calls")
+    print(f"generations rotated flusher {label}: n={n} windows={depth} generations=2 "
+          f"queue_launches={q.launches} queue_coalesced={q.coalesced} launches={launches} "
+          f"rows={[len(i) for i, _ in calls]} rejected={rejected} grid_calls={fl.launches} "
+          f"drain_ms={wall * 1e3:.3f} verdicts_equal_plain=True", flush=True)
+    return launches
+
+
+def phase_overlay() -> None:
+    """The aggregation overlay (``Simulation(overlay=OverlayConfig())``) on
+    the overlay bench's network, and table generations on the device queue
+    (epochs' device half). Overlay legs, each committing the all-to-all
+    chain in the JAX run's steps: n = 256 unsigned beside its all-to-all
+    run, n = 256 signed (one shared card ``TorchBatchVerifier`` behind the
+    queue: an ``ed25519_verify`` launch a verify row), n = 1,024 signed
+    with ``coalesce_ingest`` and ``record=False``, Byzantine contributors
+    at n = 64 (garbage and withheld frames; only the Byzantine peer
+    demoted), ``bls_partials`` at n = 16 (every merge a ``g1_aggregate``
+    launch through the ``G1SumLauncher``), and the n = 16 unsigned dump
+    against the JAX bytes, replayed without the overlay. Generation legs:
+    a rotated ``DeviceTallyFlusher`` on a table ``TorchWireVerifier`` (one
+    challenge + semiwire launch a generation); config 2's network with
+    stake-driven epochs and a ``DeviceLedgerExecutor`` a replica on the
+    card; BLS certificates in an epoch run with ``bls_certificates=
+    "device"``. Each leg is driven with the counts set to 0 just before it
+    and read just after."""
+    import tempfile
+
+    from hyperdrive_tpu_torch.epochs import EpochConfig
+    from hyperdrive_tpu_torch.exec import ExecutionConfig
+    from hyperdrive_tpu_torch.harness import Simulation
+    from hyperdrive_tpu_torch.ops import ed25519_cuda, g1_cuda
+    from hyperdrive_tpu_torch.ops.ed25519 import TorchBatchVerifier
+    from hyperdrive_tpu_torch.overlay import OverlayConfig, OverlayFaults
+
+    TorchBatchVerifier(device="cuda").warmup()
+    legs = OVERLAY_LEGS
+    base = _overlay_leg("all-to-all n=256 unsigned", 256,
+                        legs["all-to-all n=256 unsigned"])
+    leg = _overlay_leg("n=256 unsigned", 256, legs["n=256 unsigned"], overlay=OverlayConfig())
+    print(f"overlay n=256 steps: all_to_all={base['res'].steps} "
+          f"overlay={leg['res'].steps} ratio={base['res'].steps / leg['res'].steps:.3f} "
+          f"wall_ratio={base['wall'] / leg['wall']:.3f}", flush=True)
+    leg = _overlay_leg("n=256 signed", 256, legs["n=256 signed"],
+                       sign=True, overlay=OverlayConfig())
+    if type(leg["sim"]._overlay._verifier) is not TorchBatchVerifier:
+        raise AssertionError("overlay n=256 signed: not the card verifier")
+    _overlay_leg("n=1024 signed coalesce", 1024,
+                 legs["n=1024 signed coalesce"], sign=True, record=False,
+                 overlay=OverlayConfig(coalesce_ingest=True))
+    leg = _overlay_leg("n=64 signed byzantine", 64,
+                       legs["n=64 signed byzantine"], sign=True,
+                       overlay=OverlayConfig(faults=OverlayFaults(**OVERLAY_BYZANTINE)))
+    if leg["snap"]["scores"]["demoted"] != [2] or leg["snap"]["honest_demoted"]:
+        raise AssertionError(f"overlay byzantine: demoted {leg['snap']['scores']['demoted']}")
+    _overlay_leg("n=16 signed bls_partials", 16, legs["n=16 signed bls_partials"],
+                 sign=True, overlay=OverlayConfig(bls_partials=True))
+    # The n = 16 unsigned dump: the JAX package's bytes, replayed with no
+    # overlay wiring to the same commits.
+    steps, sha_want, size_want = OVERLAY_DUMP
+    live = Simulation(n=16, overlay=OverlayConfig(), device="cuda", **OVERLAY_NET).run()
+    build = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "hyperdrive_tpu_torch", "_build")
+    os.makedirs(build, exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="overlay-", dir=build)
+    try:
+        rec, sha, size, dump_s, load_s = _dump_check("overlay n=16", live.record, tmp,
+                                                     (sha_want, size_want))
+    finally:
+        os.rmdir(tmp)
+    again = Simulation.replay(rec, device="cuda")
+    if live.steps != steps or again.commits != live.commits:
+        raise AssertionError("overlay n=16 dump: steps or replayed commits differ")
+    print(f"overlay n=16 unsigned dump: steps={live.steps} bytes={size} sha256={sha} "
+          f"dump_s={dump_s:.3f} load_s={load_s:.3f} equals_jax=True "
+          f"replayed_without_overlay=True", flush=True)
+
+    _rotated_flusher_leg(union=True)
+    _rotated_flusher_leg(union=False)
+    # Stake-driven epochs: a DeviceLedgerExecutor a replica on the card,
+    # the elections read by the host stake oracle.
+    sim = Simulation(**EPOCH_EXEC, device="cuda",
+                     execution=ExecutionConfig(device=True, **EPOCH_EXEC_LEDGER),
+                     epochs=EpochConfig(epoch_length=4, committee_size=12,
+                                        rekey_per_epoch=1))
+    torch.cuda.synchronize()
+    ed25519_cuda.reset_stats()
+    g1_cuda.reset_stats()
+    t0 = time.perf_counter()
+    res = sim.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    # An unsigned run without BLS certificates: no kernel of rows 1-5.
+    launches = {k: v.launches for k, v in ed25519_cuda.stats.items()}
+    launches["g1_aggregate"] = g1_cuda.stats["g1_aggregate"].launches
+    committees = [tuple(v.index for v in sim.epoch_schedule.transition(e).committee)
+                  for e in range(1, sim.epoch + 1)]
+    ex = sim.executors[0]
+    if ((res.commit_digest()[:16], res.steps) != EPOCH_EXEC_WANT or sim.epoch != 3
+            or tuple(committees) != EPOCH_EXEC_COMMITTEES
+            or type(ex).__name__ != "DeviceLedgerExecutor" or ex.device.type != "cuda"
+            or type(sim._exec_oracle).__name__ != "HostLedgerExecutor"
+            or any(launches.values())):
+        raise AssertionError(f"generations stake epochs: {res.commit_digest()[:16]} in "
+                             f"{res.steps} steps, epoch {sim.epoch}, {committees}, "
+                             f"launches {launches}")
+    print(f"generations stake epochs: n={EPOCH_EXEC['n']} heights={EPOCH_EXEC['target_height']} "
+          f"steps={res.steps} wall_s={wall:.3f} epoch={sim.epoch} executor=cuda "
+          f"launches={launches} committees={committees} digest={res.commit_digest()[:16]}",
+          flush=True)
+    # BLS certificates in an epoch run, aggregated by g1_aggregate: one
+    # launch a replica a height, and every replica's certificate chain
+    # equal to the host fold's run of the same configuration.
+    epochs = dict(epoch_length=3, rekey_per_epoch=1)
+    sim = Simulation(**EPOCH_BLS, bls_certificates="device", device="cuda",
+                     epochs=EpochConfig(**epochs))
+    torch.cuda.synchronize()
+    ed25519_cuda.reset_stats()
+    g1_cuda.reset_stats()
+    t0 = time.perf_counter()
+    res = sim.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    g1 = g1_cuda.stats["g1_aggregate"].launches
+    verify = sum(v.launches for v in ed25519_cuda.stats.values())
+    certs = [len(c.certs) for c in sim.certifiers]
+    host = Simulation(**EPOCH_BLS, bls_certificates=True, device="cuda",
+                      epochs=EpochConfig(**epochs)).run()
+    if ((res.commit_digest()[:16], res.steps) != EPOCH_BLS_WANT or sim.epoch != 3
+            or set(certs) != {EPOCH_BLS["target_height"]}
+            or g1 != EPOCH_BLS["n"] * EPOCH_BLS["target_height"] or verify
+            or g1_cuda.stats["g1_aggregate"].launches != g1  # none in the host run
+            or res.cert_digests != host.cert_digests
+            or host.commit_digest() != res.commit_digest()):
+        raise AssertionError(f"generations bls epochs: {res.commit_digest()[:16]} in "
+                             f"{res.steps} steps, epoch {sim.epoch}, certs {certs}, "
+                             f"{g1} g1_aggregate and {verify} ed25519 launches, "
+                             f"chains equal the host fold's: "
+                             f"{res.cert_digests == host.cert_digests}")
+    print(f"generations bls epochs: n={EPOCH_BLS['n']} heights={EPOCH_BLS['target_height']} "
+          f"steps={res.steps} wall_s={wall:.3f} epoch={sim.epoch} certs_per_replica="
+          f"{certs[0]} launches={{'g1_aggregate': {g1}, 'ed25519': {verify}}} "
+          f"cert_chains_equal_host_fold=True digest={res.commit_digest()[:16]}", flush=True)
+
+
 #: The deployment runs: (label, processes, replicas per process, heights,
 #: seconds until an unfinished run fails, worker options).
 DEPLOY_RUNS = (
@@ -3624,6 +4011,8 @@ def main() -> int:
     mark("burst")
     phase_lockstep(ref)
     mark("lockstep")
+    phase_overlay()
+    mark("overlay")
     phase_deploy()
     mark("deploy")
     phase_shamir()

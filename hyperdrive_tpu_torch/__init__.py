@@ -20,7 +20,10 @@ device-resident vote grid.
   (``votegrid``); the BLS12-381 field and G1 (``limbs``, ``fp381``,
   ``g1``) and the G1 aggregation kernel (``g1_cuda``), which folds a
   quorum certificate's BLS aggregate signature.
-- ``harness`` — the burst-mode network simulator.
+- ``harness`` — the network simulator (lock-step and burst delivery).
+- ``overlay`` — the aggregation overlay (seeded binomial tree, partial
+  aggregate frames, contribution scores); ``load`` — frame
+  classification (``load.frames``).
 
 Entry points run on the card unless the caller asks for the CPU
 (``device="cpu"``), where every kernel wrapper takes its plain version.

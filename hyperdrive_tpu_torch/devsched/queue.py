@@ -13,13 +13,19 @@ to consensus: every pending command against the same launcher coalesces
 into ONE device launch at the next drain, so N submitters (replicas,
 heights) share one sync instead of paying one each.
 
+Commands carry their table generation (``submit``'s third argument, as
+in the reference): a drain groups by ``(launcher, generation)``, so a
+drain that spans an epoch boundary splits into one launch per generation.
+
 Dropped from the copy, as the port's conventions say: the ``drain_point``
 lint marker, the recorder (``obs``), the metrics sink (``tracer``), the
-launch probe (``devtel``) and the backpressure controller seam. The
-futures' ``seq`` and ``launch_id`` attribution fields went with the
-probe. Added: ``submit(callback=)``, which attaches a done-callback
-before the ``max_depth`` auto-drain can resolve the command (the
-execution layer's speculation resolves there, see
+launch probe (``devtel``, and with it the generation-split count) and
+the backpressure controller seam (``controller``, which the reference's
+``load.BackpressureController.watch`` attaches; it comes with the rest of
+``load/``). The futures' ``seq`` and ``launch_id`` attribution fields
+went with the probe. Added: ``submit(callback=)``, which attaches a
+done-callback before the ``max_depth`` auto-drain can resolve the
+command (the execution layer's speculation resolves there, see
 :meth:`DeviceWorkQueue.submit`).
 """
 
@@ -171,12 +177,12 @@ class NullVerifyLauncher:
 class DeviceWorkQueue:
     """One async device-command queue.
 
-    ``submit(launcher, payload)`` enqueues and returns a
+    ``submit(launcher, payload, generation)`` enqueues and returns a
     :class:`DeviceFuture`; nothing touches the device until :meth:`drain`
-    — where pending commands group by launcher (in first-submission order)
-    and each group becomes ONE ``launcher.launch`` call. ``max_depth > 0``
-    bounds in-flight commands by auto-draining on the submit that reaches
-    the bound (the pipeline-slot size).
+    — where pending commands group by ``(launcher, generation)`` (in
+    first-submission order) and each group becomes ONE ``launcher.launch``
+    call. ``max_depth > 0`` bounds in-flight commands by auto-draining on
+    the submit that reaches the bound (the pipeline-slot size).
 
     ``on_drain``: callback ``(resolved_count) -> None`` fired after every
     drain that resolved work — the sim's commit-finalization flush hooks
@@ -192,7 +198,7 @@ class DeviceWorkQueue:
         self.max_depth = int(max_depth)
         self.on_drain = None
         self.policy = policy
-        self._pending: list = []  # (launcher, payload, future, meta)
+        self._pending: list = []  # (launcher, payload, future, meta, gen)
         self._launchers: dict = {}  # id(verifier) -> launcher
         self._draining = False
         self._closed = False
@@ -226,11 +232,20 @@ class DeviceWorkQueue:
             self._launchers[key] = got
         return got
 
-    def submit(self, launcher, payload, origin=None, rows=None,
-               callback=None) -> DeviceFuture:
+    def submit(self, launcher, payload, generation: int = 0, origin=None,
+               rows=None, callback=None) -> DeviceFuture:
         """Enqueue one command; returns its future. Auto-drains when
         ``max_depth`` is reached (including the command just submitted),
         so a pipeline slot never grows unbounded.
+
+        ``generation`` tags the command with its epoch-keyed table
+        generation (:mod:`~hyperdrive_tpu_torch.epochs`): commands only
+        coalesce within one ``(launcher, generation)`` pair, so a drain
+        that spans an epoch boundary splits into one launch per
+        generation instead of mixing two key tables in one batch. Callers
+        without a generation (the default 0) coalesce as before. It is
+        the third positional argument, as in the reference: pass
+        ``origin`` and ``rows`` by keyword.
 
         ``origin`` / ``rows`` (the submitting track and the command's lane
         count, default ``len(payload)``) feed the drain policy only.
@@ -247,7 +262,7 @@ class DeviceWorkQueue:
             if rows is None:
                 rows = len(payload) if hasattr(payload, "__len__") else 0
             meta = CmdMeta(self.submitted, origin, rows)
-        self._pending.append((launcher, payload, fut, meta))
+        self._pending.append((launcher, payload, fut, meta, generation))
         self.submitted += 1
         if self.max_depth and len(self._pending) >= self.max_depth:
             if not self._draining:
@@ -259,10 +274,10 @@ class DeviceWorkQueue:
     def drain(self) -> int:
         """Resolve every pending command; returns how many resolved.
 
-        Each cycle snapshots the pending list, groups it by launcher
-        preserving first-submission order, runs ONE launch per group, and
-        resolves the group's futures in submission order (their callbacks
-        run here). Callbacks may submit more work — the loop runs until
+        Each cycle snapshots the pending list, groups it by ``(launcher,
+        generation)`` preserving first-submission order, runs ONE launch
+        per group, and resolves the group's futures in submission order
+        (their callbacks run here). Callbacks may submit more work — the loop runs until
         the queue is quiet. Re-entrant calls (a callback resolving a
         future early) are satisfied by the outer drain.
         """
@@ -288,7 +303,10 @@ class DeviceWorkQueue:
                 for cmd in batch:
                     if cmd[2].cancelled():
                         continue
-                    key = id(cmd[0])
+                    # Coalesce per (launcher, table generation): an epoch
+                    # boundary inside one drain yields one launch per
+                    # generation, so keys never mix within a batch.
+                    key = (id(cmd[0]), cmd[4])
                     if key not in groups:
                         groups[key] = []
                         order.append(key)
@@ -298,13 +316,19 @@ class DeviceWorkQueue:
                     launcher = cmds[0][0]
                     self.launches += 1
                     self.coalesced += len(cmds) - 1
+                    if key[1] and hasattr(launcher, "set_generation"):
+                        # The reference's rule: only a nonzero generation,
+                        # and only a launcher that has the method (the
+                        # verify launchers have none, so a verifier's
+                        # table is never swapped here).
+                        launcher.set_generation(key[1])
                     results = launcher.launch([c[1] for c in cmds])
                     if len(results) != len(cmds):
                         raise RuntimeError(
                             f"launcher {launcher!r} returned {len(results)} "
                             f"results for {len(cmds)} commands"
                         )
-                    for (_, _, fut, _), res in zip(cmds, results):
+                    for (_, _, fut, _, _), res in zip(cmds, results):
                         if not fut.cancelled():
                             fut._resolve(res)
                         resolved += 1

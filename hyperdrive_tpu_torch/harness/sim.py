@@ -124,16 +124,34 @@ schedule and identity at the commit seam, and retired identities enter
 one stale-vote map that every replica shares (``Replica.retired``). With
 ``certificates=True`` every certifier is an
 :class:`~hyperdrive_tpu_torch.epochs.EpochCertifier` that mints the
-epoch proofs.
+epoch proofs, with ``bls_certificates`` over a BLS keyring built from
+epoch 0's committee. With ``execution=`` the elections are stake-driven:
+a host stake oracle (a ``HostLedgerExecutor`` bound to the schedule's
+``stake_source``) elects from the committed ledger's stake column,
+whatever executors the replicas run.
+
+With ``overlay=OverlayConfig(...)`` (lock-step, paced by
+``delivery_cost``) votes travel the seeded binomial aggregation tree of
+:mod:`hyperdrive_tpu_torch.overlay` as partial-aggregate frames, one
+``delivery_cost`` a frame, instead of the n-wide fan-out; proposals keep
+the fan-out. Constituent votes are delivered and recorded as plain
+``(to, vote)`` tuples, so a dump replays with no overlay wiring. A
+signed overlay run verifies each vote once network-wide through one
+shared verifier behind the device-work queue (a ``TorchBatchVerifier``
+on the card; a ``HostVerifier`` with ``device="cpu"``), and
+``bls_partials`` merges go through a ``G1SumLauncher`` on ``device``
+(the host fold only with ``device="cpu"`` and no ``devsched``); the
+reference verifies on the host and folds on the host without a queue,
+with the same aggregates and digests. Frame and tick deliveries run the
+laggard sweep (``catchup_every``, ``catchup_lag``), whose resyncs are
+recorded as ``OP_RESYNC`` lifecycle operations and replayed.
 
 Not ported (a later slice of the port), and refused: the sharded grid
 (``tally_mesh``), the flight recorder (``observe``, ``obs_capacity``),
-chaos, load and overlay; and, with epochs, execution (stake-driven
-elections) and BLS certificates (the committee keyring's epoch branch).
-The laggard catch-up sweep (``catchup_every``, ``catchup_lag``) runs
-only under chaos or overlay, so it comes with them and is refused too.
-The tracer, metrics registry and device
-telemetry are dropped (tracing returns in a later slice).
+chaos (and with it the sweep's chaos branch, the rescue of a stalled
+run and the replay of crash and restore operations) and load. The
+tracer, metrics registry and device telemetry are dropped (tracing
+returns in a later slice).
 """
 
 from __future__ import annotations
@@ -158,7 +176,8 @@ from hyperdrive_tpu_torch.messages import (
     marshal_message,
     unmarshal_message,
 )
-from hyperdrive_tpu_torch.replica import Replica, ReplicaOptions, merge_drain
+from hyperdrive_tpu_torch.overlay.runtime import OverlayFrame, OverlayTick
+from hyperdrive_tpu_torch.replica import Replica, ReplicaOptions, ResetHeight, merge_drain
 from hyperdrive_tpu_torch.scheduler import RoundRobin
 from hyperdrive_tpu_torch.testutil import (
     BroadcasterCallbacks,
@@ -171,6 +190,11 @@ from hyperdrive_tpu_torch.timer import VirtualTimer
 from hyperdrive_tpu_torch.types import Height, Value
 
 __all__ = ["VirtualClock", "ScenarioRecord", "SimulationResult", "Simulation"]
+
+#: The laggard sweep's defaults: delivery steps between sweeps, and the
+#: height lag tolerated before a laggard is jumped forward.
+_CATCHUP_EVERY = 256
+_CATCHUP_LAG = 2
 
 
 class VirtualClock:
@@ -575,8 +599,16 @@ class Simulation:
     injected ``devsched``, whose drains resolve the speculation.
 
     ``epochs`` (an :class:`~hyperdrive_tpu_torch.epochs.EpochConfig`):
-    dynamic validator sets, lock-step and unsigned only. ``record``
-    (default True) keeps the :class:`ScenarioRecord` that
+    dynamic validator sets, lock-step and unsigned only; with
+    ``execution`` the elections read the committed stake column (it needs
+    at least ``n`` accounts). ``overlay`` (an
+    :class:`~hyperdrive_tpu_torch.overlay.OverlayConfig`): the aggregation
+    overlay, lock-step with ``delivery_cost > 0``, no ``drop_rate``,
+    ``reorder`` or ``verifier_for``, and an epoch committee of all ``n``;
+    it resolves ``device`` when signed or with ``bls_partials``.
+    ``catchup_every`` (default 256 steps) and ``catchup_lag`` (default 2
+    heights): the laggard sweep of an overlay run. ``record`` (default
+    True) keeps the :class:`ScenarioRecord` that
     ``SimulationResult.record`` returns.
 
     The adversaries, as in the reference, all drawing from ``self.rng =
@@ -645,6 +677,9 @@ class Simulation:
         exec_speculate: Optional[bool] = None,
         fused_exec_drain: Optional[bool] = None,
         dedup_exec: Optional[bool] = None,
+        overlay=None,
+        catchup_every: Optional[int] = None,
+        catchup_lag: Optional[int] = None,
         device="cuda",
         **unported,
     ):
@@ -653,9 +688,10 @@ class Simulation:
                 f"Simulation options {sorted(unported)} are not ported to "
                 "the PyTorch package yet (a later slice of the port): "
                 "tally_mesh needs the multi-device vote grid; observe and "
-                "obs_capacity the flight recorder; chaos, load and overlay "
-                "their subsystems; catchup_every and catchup_lag the "
-                "laggard sweep of chaos and overlay"
+                "obs_capacity the flight recorder; chaos its fault engine, "
+                "checkpoint capture and invariant monitor; load the rest of "
+                "the load/ package (schedules, backpressure, generators), "
+                "which comes with chaos"
             )
         #: The adversaries' one random stream: ``reorder`` draws once a
         #: lock-step delivery (or shuffles each superstep), ``drop_rate``
@@ -784,19 +820,34 @@ class Simulation:
                     from hyperdrive_tpu_torch.ops.ed25519 import TorchBatchVerifier
 
                     self.batch_verifier = TorchBatchVerifier(device=device)
-            elif verifier_for is None and flusher_for is None:
+            elif verifier_for is None and flusher_for is None and overlay is None:
                 # Every replica verifies its own windows, as in the
                 # reference, on ``device``: a flusher, when given, owns
-                # the flush and needs none.
+                # the flush and needs none, and an overlay run verifies
+                # once network-wide at the dissemination layer instead.
                 verifier_for = lambda i: _lockstep_verifier(device)  # noqa: E731
         else:
             self.signatories = signatories or [
                 hashlib.sha256(b"sim-replica-%d-%d" % (seed, i)).digest()
                 for i in range(n)
             ]
-        self._init_epochs(epochs, signatories, sign, burst, payload_bytes,
-                          execution, bls_certificates)
+        self._init_epochs(epochs, signatories, sign, burst, payload_bytes)
         self.record.signatories = list(self.signatories)
+        #: Laggard catch-up sweep (overlay runs): every ``catchup_every``
+        #: delivery steps, an alive replica more than ``catchup_lag``
+        #: heights below the network's working height is jumped to it.
+        self._catchup_every = (
+            _CATCHUP_EVERY if catchup_every is None else int(catchup_every)
+        )
+        self._catchup_lag = (
+            _CATCHUP_LAG if catchup_lag is None else int(catchup_lag)
+        )
+        if self._catchup_every < 1:
+            raise ValueError("catchup_every must be >= 1")
+        if self._catchup_lag < 0:
+            raise ValueError("catchup_lag must be >= 0")
+        self._check_overlay(overlay, epochs, burst, drop_rate, reorder,
+                            delivery_cost, verifier_for)
         bv = self.batch_verifier
         if small_window_host is True and bv is None:
             raise ValueError(
@@ -928,6 +979,7 @@ class Simulation:
             # boundary height keeps accepting the old key below H.
             for r in self.replicas:
                 r.retired = self._retired
+        self._init_overlay(overlay, sign, device)
         #: Device-resident quorum tallies: behavior-neutral by construction
         #: (counts equal the host counters wherever a TallyView answers).
         self.device_tally = device_tally
@@ -1009,6 +1061,20 @@ class Simulation:
                 # One delivery per recipient, self included.
                 if keypair is not None:
                     msg = keypair.sign_message(msg)
+                ov = self._overlay
+                if ov is not None:
+                    # Overlay dissemination: a vote enters the aggregation
+                    # tree instead of fanning out n-wide, and the sender's
+                    # own copy still rides the queue (recorded like any
+                    # delivery). A proposal keeps the all-to-all fan-out
+                    # (one a round, nothing to aggregate), verified once
+                    # network-wide.
+                    if type(msg) is not Propose:
+                        self.queue.append((i, msg))
+                        ov.on_broadcast(i, msg)
+                        return
+                    if not ov.verify_propose(msg):
+                        return
                 self.queue.extend(zip(recipients, repeat(msg, self.n)))
 
         timer = VirtualTimer(
@@ -1056,6 +1122,7 @@ class Simulation:
 
                 certifier = EpochCertifier(
                     self.epoch_schedule, transcript_source=transcript_source,
+                    bls_keyring=bls_keyring, bls_aggregate_fn=bls_agg_fn,
                 )
             else:
                 certifier = Certifier(
@@ -1104,6 +1171,194 @@ class Simulation:
             certifier=certifier,
         )
 
+    # ------------------------------------------------------------ overlay
+
+    def _check_overlay(self, overlay, epochs, burst, drop_rate, reorder,
+                       delivery_cost, verifier_for) -> None:
+        """The reference's refusals of an overlay run (``ValueError``)."""
+        self._overlay = None
+        self._overlay_coalesce = False
+        if overlay is None:
+            return
+        if burst:
+            raise ValueError(
+                "the overlay disseminates per delivery on the shared virtual "
+                "clock; use lock-step mode (burst=False)"
+            )
+        if drop_rate or reorder:
+            raise ValueError(
+                "the seeded drop/reorder adversary acts on the raw queue and "
+                "would desynchronize frame bookkeeping; use link faults "
+                "with the overlay instead"
+            )
+        if delivery_cost <= 0.0:
+            raise ValueError(
+                "overlay level windows ride the virtual clock, and without "
+                "delivery pacing a busy network never advances it: pass "
+                "delivery_cost > 0"
+            )
+        if verifier_for is not None:
+            raise ValueError(
+                "overlay runs verify once at the dissemination layer "
+                "(replicas get verifier=None); per-replica verifier_for "
+                "would re-verify every constituent"
+            )
+        if epochs is not None and (epochs.committee_size or self.n) != self.n:
+            raise ValueError(
+                "overlay coverage masks index validator slots 1:1 with "
+                "replicas; partial committees are not supported "
+                "(committee_size must equal n)"
+            )
+        overlay.validate(self.n)
+
+    def _init_overlay(self, overlay, sign, device) -> None:
+        """Wire the aggregation overlay (:mod:`hyperdrive_tpu_torch.
+        overlay`): votes travel a seeded binomial tree as partial-aggregate
+        frames. A signed run verifies each vote once network-wide through
+        one shared verifier behind the device-work queue: a
+        ``TorchBatchVerifier`` on the card, a ``HostVerifier`` with
+        ``device="cpu"``. ``bls_partials`` merges go through a
+        ``G1SumLauncher`` on ``device`` behind the queue (one is made if
+        none was passed); only a CPU run without ``devsched`` folds on the
+        host. Aggregates and digests are the same either way."""
+        if overlay is None:
+            return
+        from hyperdrive_tpu_torch.devsched.queue import DeviceWorkQueue
+        from hyperdrive_tpu_torch.ops.merkle import resolve_device
+        from hyperdrive_tpu_torch.overlay import OverlayRuntime
+
+        # Only a signed or bls_partials run has device work: an unsigned
+        # overlay resolves no device.
+        dev = None
+        verifier = None
+        ov_sched = None
+        ov_bls_keyring = None
+        if getattr(overlay, "bls_partials", False):
+            dev = resolve_device(device)
+            ov_bls_keyring = self._bls_committee_keyring()
+            ov_sched = self._sched
+            if ov_sched is None and dev.type != "cpu":
+                ov_sched = self._sched = DeviceWorkQueue()
+        if sign:
+            dev = resolve_device(device)
+            verifier = _lockstep_verifier(dev)
+            ov_sched = self._sched
+            if ov_sched is None:
+                ov_sched = self._sched = DeviceWorkQueue()
+        if self.epoch_schedule is not None:
+            anchor = self.epoch_schedule.anchor(0)
+        else:
+            from hyperdrive_tpu_torch.epochs import genesis_anchor
+
+            anchor = genesis_anchor(self.seed)
+        self._overlay_coalesce = overlay.coalesce_ingest
+        self._overlay = OverlayRuntime(
+            overlay,
+            n=self.n,
+            seed=self.seed,
+            anchor=anchor,
+            identities=list(self._identity),
+            quorum=2 * self.f + 1,
+            delivery_cost=self.delivery_cost,
+            enqueue=lambda to, fr: self.queue.append((to, fr)),
+            schedule=self.clock.schedule,
+            now=lambda: self.clock.now,
+            deliver=self._overlay_deliver,
+            alive=self.alive,
+            order_pos=self._order_pos,
+            retired=self._retired,
+            verifier=verifier,
+            sched=ov_sched,
+            bls_keyring=ov_bls_keyring,
+            device=dev,
+        )
+
+    def overlay_snapshot(self) -> dict:
+        """The overlay runtime's accounting: frames by kind, verify rows,
+        scores and demotions, the topology digest."""
+        if self._overlay is None:
+            raise ValueError("overlay_snapshot() on a run without overlay=")
+        return self._overlay.snapshot()
+
+    def _overlay_deliver(self, to: int, votes) -> None:
+        """Constituent votes reaching replica ``to`` from one overlay
+        frame, recorded as plain ``(to, vote)`` tuples (replay is
+        record-driven and never rebuilds the overlay), and handled one by
+        one or, with ``coalesce_ingest``, through one
+        ``handle_coalesced`` call."""
+        if not self.alive[to] or not votes:
+            return
+        rec = self.record.messages if self._record_on else _DISCARD
+        r = self.replicas[to]
+        for v in votes:
+            rec.append((to, v))
+        if self._overlay_coalesce and len(votes) > 1:
+            r.handle_coalesced(votes)
+        else:
+            for v in votes:
+                r.handle(v)
+
+    # ----------------------------------------------------- laggard sweep
+
+    def _laggard_sweep(self, steps: int) -> None:
+        """Laggard catch-up on a timer: every ``catchup_every`` steps, jump
+        each alive replica more than ``catchup_lag`` heights below the
+        network's working height to an active join of it (the reference's
+        application-driven catch-up, replica/replica.go:222-235). The
+        overlay prunes slots at the commit floor, so a replica that misses
+        a quorum while the rest move on is stranded, and in lock-step
+        delivery its round timeout cannot fire while the busy majority
+        keeps the queue full. Runs on overlay frame and tick deliveries;
+        each resync is recorded as an ``OP_RESYNC`` lifecycle op, so replay
+        needs no cadence."""
+        if steps % self._catchup_every == 0:
+            net = self._net_height()
+            if net > self._catchup_lag + 1:
+                self._resync(net, lag=self._catchup_lag)
+
+    def _net_height(self) -> Height:
+        """The network's next height: one past the best commit any replica
+        has recorded (the resync target)."""
+        best = 0
+        for c in self.commits:
+            if c:
+                m = max(c)
+                if m > best:
+                    best = m
+        return best + 1
+
+    def _resync(self, target: Height, lag: int = 0) -> int:
+        """Jump every alive replica more than ``lag`` heights below
+        ``target`` to an active join of it: the ResetHeight carries the
+        signatory set, so the replica starts round 0 there (arming its
+        propose timeout, or proposing). Equivocation-free: a replica below
+        the target never voted at it."""
+        sigs = self._resync_sigs(target)
+        resynced = 0
+        for i in range(self.n):
+            r = self.replicas[i]
+            if self.alive[i] and target - r.proc.current_height > lag:
+                self._note_lifecycle(ScenarioRecord.OP_RESYNC, i, target)
+                self._apply_epoch_state(i, target)
+                r.handle(ResetHeight(height=target, signatories=sigs))
+                resynced += 1
+        return resynced
+
+    def _note_lifecycle(self, kind: int, replica: int, aux: int) -> None:
+        if self._record_on:
+            self.record.lifecycle.append(
+                (kind, len(self.record.messages), replica, aux)
+            )
+
+    def _replay_lifecycle(self, op: tuple) -> None:
+        """Replay one ``OP_RESYNC`` operation (:meth:`replay` refuses the
+        others before it starts)."""
+        _, _, replica, aux = op
+        self._apply_epoch_state(replica, aux)
+        self.replicas[replica].handle(
+            ResetHeight(height=aux, signatories=self._resync_sigs(aux))
+        )
+
     # -------------------------------------------------- BLS certificates
 
     def _bls_committee_keyring(self) -> dict:
@@ -1113,9 +1368,12 @@ class Simulation:
         if self._bls_keyring is None:
             from hyperdrive_tpu_torch.crypto import bls
 
-            self._bls_keyring = {
-                s: bls.bls_keypair_from_identity(s) for s in self.signatories
-            }
+            ids = (
+                self.epoch_schedule.signatories(0)
+                if self.epoch_schedule is not None
+                else self.signatories
+            )
+            self._bls_keyring = {s: bls.bls_keypair_from_identity(s) for s in ids}
         return self._bls_keyring
 
     def _bls_device_aggregate(self, partials):
@@ -1147,6 +1405,11 @@ class Simulation:
         )
         if self.payload_bytes:
             self._reconstruct_commit(i, height, value)
+        if self._overlay is not None:
+            # Slots below height - 1 can no longer change any replica: the
+            # laggard sweep resyncs a replica left behind (no
+            # retransmission).
+            self._overlay.note_commit(height)
         if height >= self.target_height:
             self._pending_replicas.discard(i)
         if (
@@ -1158,8 +1421,8 @@ class Simulation:
 
     # ------------------------------------------------------------- epochs
 
-    def _init_epochs(self, epochs, signatories, sign, burst, payload_bytes,
-                     execution, bls_certificates) -> None:
+    def _init_epochs(self, epochs, signatories, sign, burst,
+                     payload_bytes) -> None:
         """Dynamic validator sets: the schedule, the generation-0 pool
         identities (``self.signatories``, what records carry), each
         replica's CURRENT identity (``_identity``; rekeys replace it) and
@@ -1167,6 +1430,8 @@ class Simulation:
         stale), which every replica shares."""
         self.epoch_schedule = None
         self.epoch = 0
+        self._identity = list(self.signatories)
+        self._retired: dict = {}
         if epochs is None:
             return
         if burst:
@@ -1186,13 +1451,6 @@ class Simulation:
                 "payload reconstruction pins k = 2f+1 at construction; "
                 "epoch-rotated thresholds are not supported on the "
                 "payload path"
-            )
-        if execution is not None or bls_certificates:
-            raise NotImplementedError(
-                "epochs with execution (stake-driven elections) or with BLS "
-                "certificates (the committee keyring's epoch branch) are "
-                "not ported to the PyTorch package yet (a later slice of "
-                "the port)"
             )
         from hyperdrive_tpu_torch.epochs import EpochSchedule, default_signatory
 
@@ -1225,7 +1483,6 @@ class Simulation:
             )
         self.signatories = derived
         self._identity = list(derived)
-        self._retired: dict = {}
         self.record.epochs = (
             int(epochs.epoch_length),
             int(epochs.committee_size or n),
@@ -1241,7 +1498,14 @@ class Simulation:
         trips the schedule's fork check), and hand the Process its
         next-height committee: the returned ``(f, scheduler)`` flows
         through the commit seam into ``start_round(0)`` of ``height + 1``."""
-        tr = self.epoch_schedule.transition_at(height, value)
+        stakes = None
+        if self.executors:
+            # Stake-driven election: the ledger's stake column at the
+            # boundary height (this replica's executor applied the boundary
+            # block in _exec_extend), the same in every replica that
+            # committed the same heights.
+            stakes = self.executors[i].election_stakes(self.n)
+        tr = self.epoch_schedule.transition_at(height, value, stakes=stakes)
         if tr.epoch > self.epoch:
             self._epoch_install(tr, height)
         r = self.replicas[i]
@@ -1268,6 +1532,38 @@ class Simulation:
             self._order_pos[fresh] = idx
             self._retired[old] = height + 1
         self.epoch = tr.epoch
+        if self._overlay is not None:
+            # Churn re-keys tree positions: the next epoch's tree hangs off
+            # the boundary-chained anchor and the rotated identity set.
+            self._overlay.rekey(
+                self.epoch_schedule.anchor(tr.epoch), list(self._identity),
+                tr.epoch,
+            )
+
+    def _resync_sigs(self, target: Height) -> tuple:
+        """The signatory set a ResetHeight to ``target`` carries: the
+        committee of ``target``'s epoch (clamped to the latest elected:
+        the schedule cannot see past the last committed boundary), or the
+        static whitelist outside epoch mode."""
+        sched = self.epoch_schedule
+        if sched is None:
+            return tuple(self.signatories)
+        e = min(sched.latest_epoch, sched.epoch_of(target))
+        return sched.signatories(e)
+
+    def _apply_epoch_state(self, i: int, target: Height) -> None:
+        """Epoch effects of a resync to ``target`` that the ResetHeight
+        cannot carry: the replica's own (possibly rotated) identity and its
+        certifier's committee. Runs BEFORE the ResetHeight is handled:
+        round 0 at the target may make this replica the proposer, and it
+        must propose under its current key."""
+        sched = self.epoch_schedule
+        if sched is None:
+            return
+        e = min(sched.latest_epoch, sched.epoch_of(target))
+        self.replicas[i].proc.whoami = self._identity[i]
+        if self.certifiers and self.certifiers[i].epoch != e:
+            self.certifiers[i].rotate_to(e)
 
     def _on_sched_drain(self, resolved: int) -> None:
         """Queue drain hook: every in-flight speculative settle just
@@ -1353,6 +1649,9 @@ class Simulation:
         self._execution = cfg
         self.record.execution = cfg.as_ints()
         self._exec_source = BlockSource(cfg)
+        genesis_stakes = (
+            self.epoch_schedule.stakes if self.epoch_schedule is not None else ()
+        )
         kwargs = dict(source=self._exec_source, masks=self._exec_masks)
         exec_cls = HostLedgerExecutor
         if cfg.device:
@@ -1368,7 +1667,8 @@ class Simulation:
         if dedup_exec is None:
             dedup_exec = self._pipeline_heights
         self._exec_unique = [
-            exec_cls(cfg, **kwargs) for _ in range(1 if dedup_exec else n)
+            exec_cls(cfg, genesis_stakes, **kwargs)
+            for _ in range(1 if dedup_exec else n)
         ]
         self.executors = (
             self._exec_unique * n if dedup_exec else list(self._exec_unique)
@@ -1418,6 +1718,30 @@ class Simulation:
                 "fused_exec_drain requires sign_txs execution and a devsched "
                 "queue"
             )
+        if self.epoch_schedule is not None:
+            if cfg.accounts < n:
+                raise ValueError(
+                    f"execution.accounts={cfg.accounts} < n={n}: epoch "
+                    "elections read stake accounts 0..n-1"
+                )
+            # The stake oracle: one extra HOST executor bound to the
+            # schedule's stake_source, so the first path to mint a
+            # boundary transition (EpochCertifier.observe_commit, inside
+            # the replica's commit and before this sim's commit seam)
+            # already elects from committed ledger state. A host class
+            # whatever the replicas run: device roots equal host roots,
+            # so it is digest-neutral.
+            oracle = HostLedgerExecutor(
+                cfg, genesis_stakes, source=self._exec_source,
+                masks=self._exec_masks,
+            )
+            self._exec_oracle = oracle
+
+            def stake_source(height, _o=oracle, _n=n):
+                _o.advance_to(height)
+                return _o.election_stakes(_n)
+
+            self.epoch_schedule.stake_source = stake_source
         if cfg.sign_txs and self._exec_launcher is None:
             # Sequential sign_txs: each committed height's block is
             # verified ONCE, through the batch verifier (on the card by
@@ -1671,6 +1995,26 @@ class Simulation:
                 del queue[: self._qhead]
                 self._qhead = 0
             steps += 1
+
+            ov = self._overlay
+            if ov is not None:
+                t = type(msg)
+                if t is OverlayFrame:
+                    self._laggard_sweep(steps)
+                    if not alive[to]:
+                        continue
+                    # One delivery_cost a frame, whatever its mask carries:
+                    # commit latency counts frames (O(n log n)), not votes.
+                    self.clock.now += self.delivery_cost
+                    ov.on_frame(to, msg)
+                    continue
+                if t is OverlayTick:
+                    self._laggard_sweep(steps)
+                    # A tick is a local timer, not a network message: no
+                    # delivery cost and no liveness gate (the runtime
+                    # disarms dead owners itself).
+                    ov.on_tick(to, msg)
+                    continue
 
             if self.drop_rate and not isinstance(msg, Timeout):
                 if self.rng.random() < self.drop_rate:
@@ -2674,14 +3018,17 @@ class Simulation:
         recorded burst buffered, then settled (pass ``batch_verifier=`` to
         verify during replay). The epoch and execution trailers rebuild
         the run's ``EpochConfig`` and ``ExecutionConfig`` unless ``kwargs``
-        names them. A record with chaos lifecycle operations raises:
-        chaos is not ported."""
-        if record.lifecycle:
+        names them. A record's ``OP_RESYNC`` lifecycle operations (the
+        laggard sweep's) are applied at their recorded positions; a crash
+        or restore operation raises ``NotImplementedError``: its replay
+        needs the checkpoint capture of chaos, which is not ported."""
+        ops = list(record.lifecycle)
+        if any(op[0] != ScenarioRecord.OP_RESYNC for op in ops):
             raise NotImplementedError(
-                f"record carries {len(record.lifecycle)} chaos lifecycle "
-                "operations; chaos (crash/restore/resync replay) is not "
-                "ported to the PyTorch package yet (a later slice of the "
-                "port)"
+                "record carries chaos crash/restore lifecycle operations; "
+                "their replay needs the checkpoint capture of chaos, which "
+                "is not ported to the PyTorch package yet (a later slice of "
+                "the port)"
             )
         if record.epochs is not None and "epochs" not in kwargs:
             from hyperdrive_tpu_torch.epochs import EpochConfig
@@ -2727,11 +3074,17 @@ class Simulation:
                 sim._qhead = 0
                 sim._settle()
         else:
-            for to, msg in record.messages:
+            optr = 0
+            for j, (to, msg) in enumerate(record.messages):
+                while optr < len(ops) and ops[optr][1] <= j:
+                    sim._replay_lifecycle(ops[optr])
+                    optr += 1
                 if not sim.alive[to]:
                     continue
                 sim.replicas[to].handle(msg)
                 steps += 1
+            for op in ops[optr:]:
+                sim._replay_lifecycle(op)
         res = sim._result(steps)
         res.record = record
         res.sim = sim

@@ -32,8 +32,9 @@ Port of the JAX package's ``ops/g1.py``, limb for limb in :func:`padd`,
 The reference's jit factories (``make_aggregate_fn``,
 ``make_batched_aggregate_fn``) have no counterpart: PyTorch runs
 eagerly. :class:`G1SumLauncher` submits to the port's
-:class:`~hyperdrive_tpu_torch.devsched.queue.DeviceWorkQueue`, whose
-``submit`` takes no ``generation=``.
+:class:`~hyperdrive_tpu_torch.devsched.queue.DeviceWorkQueue`; the
+overlay tags its merges with ``generation=level``, which only splits a
+drain (the launcher has no ``set_generation``).
 
 Host-side pack/unpack helpers convert between the affine Python-int
 points of :mod:`hyperdrive_tpu_torch.crypto.bls` and the device layout.
@@ -248,8 +249,9 @@ class G1SumLauncher:
     A payload is a list of affine host points; the drain stacks every
     pending payload into ONE batched ``g1_aggregate`` launch at a fixed
     lane width on ``device`` (None: the card). Results come back as affine
-    host points (None = identity). Submitted without a generation (the
-    port's queue has none)."""
+    host points (None = identity). The overlay submits each merge under
+    ``generation=level``: commands of different levels never share a
+    launch, and the launcher itself is the same under any generation."""
 
     kind = "bls.g1sum"
 

@@ -36,14 +36,12 @@ default the verifier's, else the card; without CUDA it raises unless the
 caller passes ``device="cpu"``); on the card each flusher runs its
 launches on a CUDA stream of its own, so a replica thread waits only for
 its own work, never for the launches of the replicas that share its
-verifier; queue-mode commands carry no ``generation`` (the port's
-``DeviceWorkQueue.submit`` has none, since epochs are not ported).
-Dropped, as the port's conventions say: the metrics recorder (``obs``),
-the ``@async_scope`` and ``device_fetch`` analysis hooks, and the
-sanitizer's default ``tally_check``
-(``analysis.sanitizer.maybe_tally_check``). Refused with
-``NotImplementedError``: :meth:`~DeviceTallyFlusher.rotate_validators`
-(epochs).
+verifier. :meth:`~DeviceTallyFlusher.rotate_validators` (the epoch
+boundary's hot swap) and the :attr:`~DeviceTallyFlusher.generation` that
+queue-mode commands carry are the reference's. Dropped, as the port's
+conventions say: the metrics recorder (``obs``), the ``@async_scope`` and
+``device_fetch`` analysis hooks, and the sanitizer's default
+``tally_check`` (``analysis.sanitizer.maybe_tally_check``).
 
 A ``certifier`` (:class:`~hyperdrive_tpu_torch.certificates.Certifier`,
 shared with the replica's Process) is bound to the verifier's
@@ -63,9 +61,6 @@ from hyperdrive_tpu_torch.ops.tally import pack_value
 from hyperdrive_tpu_torch.ops.votegrid import TallyView, VoteGrid
 
 __all__ = ["DeviceTallyFlusher"]
-
-_LATER = "not ported to the PyTorch package yet (a later slice of the port)"
-
 
 class DeviceTallyFlusher:
     """Owns one replica's vote grid and its batched verify + tally flush.
@@ -102,6 +97,13 @@ class DeviceTallyFlusher:
             1, len(validators), r_slots=r_slots, buckets=buckets, device=device
         )
         self.device = self.grid.device
+        self._r_slots = r_slots
+        self._buckets = buckets
+        #: Epoch-keyed table generation (:mod:`~hyperdrive_tpu_torch.
+        #: epochs`). Tags every queued verify command, so the queue never
+        #: coalesces windows of two validator-set generations into one
+        #: launch: a drain that spans an epoch boundary splits instead.
+        self.generation = 0
         self._stream = None
         if self.device.type == "cuda":
             self._stream = torch.cuda.Stream(self.device)
@@ -178,7 +180,34 @@ class DeviceTallyFlusher:
             self.certifier.reset()
 
     def rotate_validators(self, validators, generation=None) -> None:
-        raise NotImplementedError(f"epoch rotation of the grid is {_LATER}")
+        """Install the next epoch's signatory list (whitelist order).
+
+        Epoch-boundary hot swap: rebuilds the sender -> column map, builds
+        a new grid on the flusher's device when the committee size changed
+        (a same-size committee keeps its grid: the next settle's height
+        move resets the plane anyway), and bumps :attr:`generation` so
+        queued verify commands submitted after this point land in a launch
+        of their own. In-flight windows keep their old generation tag, so
+        the queue never mixes them with the new generation's windows. The
+        split is all the queue does: its verify launchers have no
+        ``set_generation``, so a verifier's table is not swapped by it."""
+        validators = list(validators)
+        if generation is None:
+            generation = self.generation + 1
+        self.generation = int(generation)
+        if len(validators) != self.grid.V:
+            self.grid = VoteGrid(
+                1, len(validators), r_slots=self._r_slots,
+                buckets=self._buckets, device=self.device,
+            )
+            if self._stream is not None:
+                # The new grid's zeros were written on this thread's stream.
+                self._stream.wait_stream(torch.cuda.current_stream(self.device))
+        self._pos = {s: i for i, s in enumerate(validators)}
+        # Pre-rotation scatters mean nothing under the new column order:
+        # force the next settle to reset the grid plane.
+        self._height = None
+        self._dirty = set()
 
     def settle_block(self, replica, block) -> None:
         """Wire-facing columnar settle: one verified + tallied pass over a
@@ -227,6 +256,7 @@ class DeviceTallyFlusher:
             fut = queue.submit(
                 launcher,
                 [(m.sender, m.digest(), m.signature) for m in window],
+                self.generation,
                 rows=len(window),
             )
             self._inflight.append(fut)

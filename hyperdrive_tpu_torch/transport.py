@@ -27,12 +27,15 @@ markers (``analysis.annotations``), the sanitizer's wire reader
 (``analysis.sanitizer``), the causal trace stamp (``trace=``,
 ``obs.tracectx``), the metrics recorder (the ``obs=`` argument), the
 metrics registry (``registry=``), the logger (``utils.log``; the counters stay), the
-admission gate (``admission=``, the ``load/`` package) and with it the
-priority-aware prevote shedding, and the retired-generation filter on
-wire ingress (it needs ``load.frames``). Epochs are not ported:
-:meth:`TcpNode.rotate_epoch` raises ``NotImplementedError``, as do the
-constructor's ``trace``, ``admission`` and ``registry`` when they are not
-None.
+admission gate (``admission=``, the rest of the ``load/`` package) and
+with it the priority-aware prevote shedding. Epoch rotation is the
+reference's: :meth:`TcpNode.rotate_epoch` installs the new table on every
+registered wire verifier, and wire ingress drops (and counts in
+``stale_frames``) frames signed under a retired identity, classified by
+:mod:`hyperdrive_tpu_torch.load.frames`; the ``epoch.switch`` and
+``wire.frame.stale`` events and the registry count went with the
+recorder and the registry. The constructor's ``trace``, ``admission`` and
+``registry`` raise ``NotImplementedError`` when they are not None.
 """
 
 from __future__ import annotations
@@ -44,6 +47,7 @@ import struct
 import threading
 
 from hyperdrive_tpu_torch.codec import Reader, SerdeError, Writer
+from hyperdrive_tpu_torch.load.frames import STALE_GENERATION, classify_frame
 from hyperdrive_tpu_torch.messages import (
     Precommit,
     Prevote,
@@ -151,6 +155,14 @@ class TcpNode:
         #: length header.
         self.malformed_frames = 0
         self.oversize_frames = 0
+        #: Wire-path epoch state: the current table generation and the
+        #: retired signatory -> first stale height bounds. Frames signed
+        #: under a retired identity are counted in ``stale_frames`` and
+        #: dropped, never fatal to the peer's connection (a laggard peer
+        #: is lagging, not hostile).
+        self.generation = 0
+        self.retired: dict = {}
+        self.stale_frames = 0
         self._verifiers: list = []
         self._replicas: list = []
         #: peer key -> outbound frame queue, drained by one sender thread
@@ -193,12 +205,27 @@ class TcpNode:
     def register_wire_verifier(self, verifier) -> None:
         """Attach a wire-path signature verifier (e.g.
         :class:`~hyperdrive_tpu_torch.ops.ed25519_wire.TorchWireVerifier`)
-        whose key table would follow this node's epoch switches."""
+        whose key table follows this node's epoch switches."""
         self._verifiers.append(verifier)
 
     def rotate_epoch(self, generation: int, table=None,
                      retired=None) -> None:
-        raise NotImplementedError(f"epoch rotation on the wire is {_LATER}")
+        """Epoch handoff on the socket path: install the new key ``table``
+        (signatory -> key, or a verifier-native table) under
+        ``generation`` on every registered wire verifier, and extend the
+        retired-identity bounds, so frames still signed under rotated-out
+        keys are counted and dropped rather than failing verification
+        mid-batch. Verifiers without ``install_table`` only follow the
+        generation number, where they can."""
+        with self._lock:
+            self.generation = int(generation)
+            if retired:
+                self.retired.update(retired)
+        for v in self._verifiers:
+            if table is not None and hasattr(v, "install_table"):
+                v.install_table(table, generation)
+            elif hasattr(v, "set_generation"):
+                v.set_generation(generation)
 
     def start(self) -> None:
         for t in self._threads:
@@ -272,12 +299,20 @@ class TcpNode:
                     return
                 self._deliver(msg)
 
-    def _deliver(self, msg) -> None:
+    def _deliver(self, msg, local: bool = False) -> None:
         # Timeouts are LOCAL events (each replica's own LinearTimer
         # enqueues them); one arriving off the wire is a forgery attempt
         # that could drive honest replicas into premature round changes.
         # Deliver only the three signed consensus message types.
         t = type(msg)
+        if not local and self.retired:
+            # Wire ingress only: a node's own broadcasts are signed under
+            # the current generation by construction.
+            cls, _ = classify_frame(msg, retired=self.retired)
+            if cls is STALE_GENERATION:
+                with self._lock:
+                    self.stale_frames += 1
+                return  # counted, never fatal to the connection
         for r in self._replicas:
             if t is Propose:
                 r.propose(msg, self._stop)
@@ -337,7 +372,7 @@ class TcpNode:
         sender queues (never blocks on a slow or dead peer). A full peer
         queue sheds its oldest frame, counted per peer in
         ``dropped_frames``."""
-        self._deliver(msg)
+        self._deliver(msg, local=True)
         frame = encode_frame(msg)
         for key, q in self._peer_queues.items():
             while True:

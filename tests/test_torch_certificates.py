@@ -199,14 +199,32 @@ def test_transcript_widening_chain_order_reset_and_rotation():
     assert cert.signers == bytes([0x40]) and a.certificate_for(1) is not None
 
 
-def test_unported_bls_parts_refuse():
-    # BLS certificates and epochs (with EpochCertifier) are ported; BLS
-    # certificates in an epoch run are not.
+def test_bls_certificates_in_an_epoch_run_match_jax():
+    # The committee keyring's epoch branch: keys for the whole pool of
+    # epoch 0, certificates minted by each replica's EpochCertifier across
+    # two boundaries (one rekey each), chains and every certificate byte
+    # for byte the JAX package's.
+    from hyperdrive_tpu.epochs import EpochConfig as RefEpochConfig
     from hyperdrive_tpu_torch.epochs import EpochConfig
 
-    with pytest.raises(NotImplementedError, match="BLS"):
-        Simulation(n=8, target_height=1, bls_certificates=True,
-                   epochs=EpochConfig(epoch_length=2, committee_size=6))
+    kw = dict(n=4, target_height=4, seed=5, certificates=True, bls_certificates=True)
+    ref = RefSimulation(epochs=RefEpochConfig(epoch_length=2, rekey_per_epoch=1), **kw)
+    rres = ref.run()
+    sim = Simulation(epochs=EpochConfig(epoch_length=2, rekey_per_epoch=1),
+                     device="cpu", **kw)
+    res = sim.run()
+    assert res.completed and sim.epoch == ref.epoch == 2
+    assert res.steps == rres.steps and res.commits == rres.commits
+    assert res.cert_digests == rres.cert_digests
+    for c, rc in zip(sim.certifiers, ref.certifiers):
+        assert sorted(c.certs) == sorted(rc.certs) == [1, 2, 3, 4]
+        for h, cert in c.certs.items():
+            assert len(cert.agg_sig) == 48
+            assert _wire(cert) == _wire(rc.certs[h], RefWriter, ref_marshal)
+    # Built from epoch 0's committee; the rotated identities' keys join it
+    # as they are elected, as in the JAX package.
+    assert set(sim.epoch_schedule.signatories(0)) <= set(sim._bls_keyring)
+    assert set(sim._bls_keyring) == set(ref._bls_keyring)
 
 
 # ------------------------------------------------------------ BLS aggregate

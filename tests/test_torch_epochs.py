@@ -23,6 +23,8 @@ from hyperdrive_tpu.harness.sim import ScenarioRecord as RefScenarioRecord
 from hyperdrive_tpu.harness.sim import Simulation as RefSimulation
 from hyperdrive_tpu.messages import Prevote as RefPrevote
 from hyperdrive_tpu.messages import Propose as RefPropose
+from hyperdrive_tpu.exec import ExecutionConfig as RefExecutionConfig
+from hyperdrive_tpu.overlay import OverlayConfig as RefOverlayConfig
 from hyperdrive_tpu_torch import epochs
 from hyperdrive_tpu_torch.codec import Reader, Writer
 from hyperdrive_tpu_torch.epochs import (
@@ -36,6 +38,7 @@ from hyperdrive_tpu_torch.epochs import (
 from hyperdrive_tpu_torch.exec import ExecutionConfig
 from hyperdrive_tpu_torch.harness import ScenarioRecord, Simulation
 from hyperdrive_tpu_torch.messages import Prevote, Propose
+from hyperdrive_tpu_torch.overlay import OverlayConfig
 
 # The port's tests work on small tensors, where torch's intra-op threads
 # only spin: one thread leaves the cores to the other test workers.
@@ -228,9 +231,21 @@ def test_stale_filter_in_burst_buffering():
     (dict(sign=True), ValueError, "unsigned"),
     (dict(payload_bytes=62), ValueError, "payload"),
     (dict(signatories=[bytes(32)] * 8), ValueError, "signatory function"),
-    (dict(bls_certificates=True), NotImplementedError, "BLS"),
-    (dict(execution=ExecutionConfig(accounts=16)), NotImplementedError, "stake-driven"),
-], ids=["burst", "sign", "payload", "signatories", "bls", "execution"])
+    # An overlay needs the whole pool in the committee; elections read
+    # stake accounts 0..n-1, so fewer accounts than replicas is refused
+    # (by the executors' genesis stakes, before the reference's own check).
+    (dict(overlay=OverlayConfig(), delivery_cost=1e-3), ValueError, "committee_size"),
+    (dict(execution=ExecutionConfig(accounts=4, txs_per_block=4, stake_every=0)),
+     ValueError, "accounts"),
+], ids=["burst", "sign", "payload", "signatories", "overlay", "execution"])
 def test_epoch_refusals(kw, exc, match):
     with pytest.raises(exc, match=match):
-        Simulation(n=8, target_height=2, epochs=EpochConfig(**_CFG), **kw)
+        Simulation(n=8, target_height=2, epochs=EpochConfig(**_CFG), device="cpu", **kw)
+    ref = dict(kw)
+    if "overlay" in ref:
+        ref["overlay"] = RefOverlayConfig()
+    if "execution" in ref:
+        ref["execution"] = RefExecutionConfig(accounts=4, txs_per_block=4, stake_every=0)
+    if exc is ValueError:
+        with pytest.raises(exc, match=match):
+            RefSimulation(n=8, target_height=2, epochs=ref_epochs.EpochConfig(**_CFG), **ref)

@@ -37,12 +37,14 @@ from hyperdrive_tpu.exec import ExecutionConfig as RefConfig
 from hyperdrive_tpu.exec.device import DeviceLedgerExecutor as RefDeviceExecutor
 from hyperdrive_tpu.exec.ledger import BlockSource as RefBlockSource
 from hyperdrive_tpu.exec.ledger import HostLedgerExecutor as RefHostExecutor
+from hyperdrive_tpu.epochs import EpochConfig as RefEpochConfig
 from hyperdrive_tpu.harness import Simulation as RefSimulation
 from hyperdrive_tpu.ops import ledger as ref_ledger
 from hyperdrive_tpu.ops import merkle as ref_merkle
 from hyperdrive_tpu.ops import rootmix as ref_rootmix
 from hyperdrive_tpu.verifier import HostVerifier as RefHostVerifier
 from hyperdrive_tpu_torch.devsched import DeviceWorkQueue
+from hyperdrive_tpu_torch.epochs import EpochConfig, elect_committee
 from hyperdrive_tpu_torch.exec import ExecutionConfig
 from hyperdrive_tpu_torch.exec.device import DeviceLedgerExecutor
 from hyperdrive_tpu_torch.exec.ledger import (
@@ -51,7 +53,7 @@ from hyperdrive_tpu_torch.exec.ledger import (
     ExecApplyLauncher,
     HostLedgerExecutor,
 )
-from hyperdrive_tpu_torch.harness import Simulation
+from hyperdrive_tpu_torch.harness import ScenarioRecord, Simulation
 from hyperdrive_tpu_torch.ops import ledger, rootmix
 from hyperdrive_tpu_torch.verifier import HostVerifier
 
@@ -494,9 +496,12 @@ def test_fused_drain_issues_fewer_launches_than_two_kind():
 
 
 @pytest.mark.parametrize("opts,error", [
-    # Stake-driven epochs (lock-step, unsigned) are not ported.
-    (dict(epochs=object(), burst=False, sign=False, batch_verifier=None),
-     NotImplementedError),
+    # Stake-driven epochs (lock-step, unsigned) need a stake account per
+    # replica: fewer accounts than replicas is the reference's ValueError.
+    (dict(epochs=EpochConfig(epoch_length=2), burst=False, sign=False,
+          batch_verifier=None,
+          execution=ExecutionConfig(accounts=2, txs_per_block=4, stake_every=0)),
+     ValueError),
     (dict(load=object()), NotImplementedError),
     # Execution runs under lock-step delivery; a batch verifier does not.
     (dict(burst=False), ValueError),
@@ -510,6 +515,65 @@ def test_refused_option_combinations(opts, error):
     kw.update(opts)
     with pytest.raises(error):
         Simulation(**kw)
+
+
+# ------------------------------------------------------ stake-driven epochs
+
+_STAKE = dict(seed=17, accounts=16, txs_per_block=32, stake_every=2,
+              stake_accounts=4, amount_cap=32, initial_balance=2000)
+
+
+def _stake_sim(sim_cls, cfg_cls, epoch_cls, **kw):
+    # The JAX package's heavy stake churn: every other tx stakes or
+    # unstakes one of the n validator accounts, so the stake column
+    # drifts hard between boundaries.
+    return sim_cls(n=4, target_height=9, seed=17, execution=cfg_cls(**_STAKE, **kw),
+                   epochs=epoch_cls(epoch_length=3, committee_size=3),
+                   certificates=True)
+
+
+@pytest.mark.parametrize("device_exec", [False, True], ids=["host", "device"])
+def test_stake_driven_elections_match_jax(device_exec, tmp_path):
+    ref = _stake_sim(RefSimulation, RefConfig, RefEpochConfig)
+    rres = ref.run()
+    sim = _stake_sim(
+        lambda **kw: Simulation(device="cpu", **kw), ExecutionConfig, EpochConfig,
+        device=device_exec,
+    )
+    res = sim.run()
+    assert res.completed and sim.epoch == ref.epoch >= 2
+    assert res.steps == rres.steps
+    assert res.commit_digest() == rres.commit_digest()
+    assert res.cert_digests == rres.cert_digests
+    sched, rsched = sim.epoch_schedule, ref.epoch_schedule
+    oracle = HostLedgerExecutor(ExecutionConfig(**_STAKE), genesis_stakes=sched.stakes)
+    differs = 0
+    for e in range(1, sim.epoch + 1):
+        tr, rtr = sched.transition(e), rsched.transition(e)
+        assert [(v.index, v.stake) for v in tr.committee] == [
+            (v.index, v.stake) for v in rtr.committee]
+        # The committee is the one the committed stake column elects, and
+        # a static-stake election at the same anchor differs somewhere.
+        oracle.advance_to(sched.boundary_height(e - 1))
+        stakes = oracle.election_stakes(sim.n)
+        want = elect_committee(stakes, sched.committee_size, sched.anchor(e) + b"elect")
+        assert tuple(v.index for v in tr.committee) == want
+        static = elect_committee(sched.stakes, sched.committee_size,
+                                 sched.anchor(e) + b"elect")
+        differs += want != static
+    assert differs > 0
+    # The record carries both trailers, byte for byte the JAX package's
+    # (its execution trailer names the executor kind, so the host run's),
+    # and replays to the same commits.
+    res.record.dump(tmp_path / "port")
+    rres.record.dump(tmp_path / "jax")
+    assert res.record.epochs == rres.record.epochs
+    assert res.record.execution == dataclasses.replace(
+        RefConfig(**_STAKE), device=device_exec).as_ints()
+    if not device_exec:
+        assert (tmp_path / "port").read_bytes() == (tmp_path / "jax").read_bytes()
+    again = Simulation.replay(ScenarioRecord.load(tmp_path / "port"), device="cpu")
+    assert again.commits == res.commits
 
 
 def test_exec_options_without_execution_are_refused():

@@ -25,6 +25,7 @@ from hyperdrive_tpu.devsched import DeviceWorkQueue as RefQueue
 from hyperdrive_tpu.devsched import QueueFlusher as RefQueueFlusher
 from hyperdrive_tpu.exec import ExecutionConfig as RefExecutionConfig
 from hyperdrive_tpu.harness import Simulation as RefSimulation
+from hyperdrive_tpu.overlay import OverlayConfig as RefOverlayConfig
 from hyperdrive_tpu.verifier import HostVerifier as RefHostVerifier
 from hyperdrive_tpu.verifier import NullVerifier as RefNullVerifier
 from hyperdrive_tpu_torch.devsched import DeviceWorkQueue, QueueFlusher
@@ -32,6 +33,7 @@ from hyperdrive_tpu_torch.devsched.__main__ import main as devsched_main
 from hyperdrive_tpu_torch.exec import ExecutionConfig
 from hyperdrive_tpu_torch.harness import Simulation
 from hyperdrive_tpu_torch.ops.ed25519 import TorchBatchVerifier
+from hyperdrive_tpu_torch.overlay import OverlayConfig
 from hyperdrive_tpu_torch.verifier import HostVerifier, NullVerifier
 
 # The port's tests work on small tensors, where torch's intra-op threads
@@ -207,6 +209,23 @@ def test_lockstep_refusals(kw, match):
 @pytest.mark.parametrize("opt", ["tally_mesh", "observe", "obs_capacity", "chaos", "load",
                                  "overlay", "catchup_every", "catchup_lag"])
 def test_unported_subsystems_refused_with_reason(opt):
+    # The overlay and the laggard sweep are ported: their cases are the
+    # reference's ValueErrors (an overlay in burst mode, a sweep every 0
+    # steps, a negative lag), raised by both packages.
+    lifted = {
+        "overlay": (dict(overlay=OverlayConfig(), burst=True, delivery_cost=1e-3),
+                    dict(overlay=RefOverlayConfig(), burst=True, delivery_cost=1e-3),
+                    "lock-step"),
+        "catchup_every": (dict(catchup_every=0), dict(catchup_every=0), ">= 1"),
+        "catchup_lag": (dict(catchup_lag=-1), dict(catchup_lag=-1), ">= 0"),
+    }
+    if opt in lifted:
+        kw, ref_kw, match = lifted[opt]
+        with pytest.raises(ValueError, match=match):
+            Simulation(n=4, target_height=2, device="cpu", **kw)
+        with pytest.raises(ValueError, match=match):
+            RefSimulation(n=4, target_height=2, **ref_kw)
+        return
     with pytest.raises(NotImplementedError, match=opt) as e:
         Simulation(n=4, target_height=2, **{opt: 1})
     assert "later slice" in str(e.value)

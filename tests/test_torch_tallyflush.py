@@ -14,7 +14,6 @@ counts are integers.
 import hashlib
 
 import numpy as np
-import pytest
 import torch
 
 from hyperdrive_tpu import batch as ref_batch
@@ -400,9 +399,14 @@ def test_unported_flusher_features_refuse():
     assert got.fl.fastpath_rows == want.fl.fastpath_rows > 0
     assert checkpoint_bytes(got.rep.proc) == checkpoint_bytes(obj.rep.proc)
     assert checkpoint_bytes(got.rep.proc) == ref_checkpoint_bytes(want.rep.proc)
+    # rotate_validators is ported (tests/test_torch_generations.py holds
+    # it to the JAX flusher in queue mode): a blocking rotation bumps the
+    # generation and reorders the columns, as the JAX flusher's does.
     fl = DeviceTallyFlusher(NullVerifier(), SIGS, device="cpu")
-    with pytest.raises(NotImplementedError):
-        fl.rotate_validators(SIGS)
+    ref = RefDeviceTallyFlusher(RefNullVerifier(), SIGS)
+    for f in (fl, ref):
+        f.rotate_validators(SIGS[::-1])
+    assert (fl.generation, fl._pos, fl.grid.V) == (ref.generation, ref._pos, ref.grid.V)
     # Certificates are ported: a Certifier binds to the flusher and rides
     # the Replica's Process; since the BLS slice, so does a BLS keyring
     # (a counted signer without a key mints no aggregate).

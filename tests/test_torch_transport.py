@@ -32,6 +32,7 @@ from hyperdrive_tpu.testutil import CommitterCallback as RefCommitterCallback
 from hyperdrive_tpu.testutil import MockProposer as RefMockProposer
 from hyperdrive_tpu.testutil import MockValidator as RefMockValidator
 from hyperdrive_tpu.transport import FlightRecorder as RefFlightRecorder
+from hyperdrive_tpu.transport import TcpNode as RefTcpNode
 from hyperdrive_tpu.transport import encode_frame as ref_encode_frame
 from hyperdrive_tpu.transport import reconnect_schedule as ref_reconnect_schedule
 from hyperdrive_tpu.transport import replay_flight as ref_replay_flight
@@ -50,6 +51,7 @@ from hyperdrive_tpu_torch.harness.deploy import (
 )
 from hyperdrive_tpu_torch.messages import Precommit, Prevote, Propose
 from hyperdrive_tpu_torch.ops import ed25519_cuda
+from hyperdrive_tpu_torch.ops.ed25519_wire import TorchWireVerifier, ValidatorTable
 from hyperdrive_tpu_torch.replica import Replica, ReplicaOptions, ResetHeight
 from hyperdrive_tpu_torch.tallyflush import DeviceTallyFlusher
 from hyperdrive_tpu_torch.testutil import CommitterCallback, MockProposer, MockValidator
@@ -230,12 +232,81 @@ def test_unported_node_features_refuse():
         TcpNode(trace=object())
     with pytest.raises(NotImplementedError):
         TcpNode(registry=object())
+
+
+def test_rotate_epoch_installs_tables_and_counts_stale_frames():
+    # The JAX package's epoch handoff on the socket path, without its
+    # recorder: rotate_epoch pushes the new table and generation to the
+    # registered wire verifiers (set_generation where there is no
+    # install_table), and wire frames from a retired signatory at or
+    # after its retirement height are counted and dropped, never fatal.
+    # The node's own broadcasts skip the filter.
+    class FakeVerifier:
+        def __init__(self):
+            self.installed = None
+
+        def install_table(self, table, generation):
+            self.installed = (table, generation)
+
+    class GenOnly:
+        generation = 0
+
+        def set_generation(self, generation):
+            self.generation = generation
+
+    class Sink:
+        def __init__(self):
+            self.prevotes = []
+
+        def propose(self, msg, stop):
+            pass
+
+        def prevote(self, msg, stop):
+            self.prevotes.append(msg)
+
+        def precommit(self, msg, stop):
+            pass
+
     node = TcpNode()
+    verifier, gen_only, sink = FakeVerifier(), GenOnly(), Sink()
+    pubs = KeyRing.deterministic(2, namespace=b"rotate").signatories
+    wire = TorchWireVerifier(table=ValidatorTable(pubs[:1], device="cpu"), device="cpu")
+    for v in (verifier, gen_only, wire):
+        node.register_wire_verifier(v)
+    node.add_replica(sink)
+    retired_key = b"\x0a" * 32
     try:
-        with pytest.raises(NotImplementedError):
-            node.rotate_epoch(1)
+        table = ValidatorTable(pubs[1:], device="cpu")
+        node.rotate_epoch(2, table=table, retired={retired_key: 5})
+        assert node.generation == 2 and node.retired == {retired_key: 5}
+        assert verifier.installed == (table, 2)
+        assert gen_only.generation == 2
+        assert wire.generation == 2 and wire.table is table
+        wire.set_generation(0)  # the previous generation stays resident
+        stale = Prevote(height=5, round=0, value=b"\x07" * 32, sender=retired_key)
+        node._deliver(stale)
+        assert node.stale_frames == 1 and sink.prevotes == []
+        # The same identity below the bound is still valid history.
+        old = Prevote(height=4, round=0, value=b"\x07" * 32, sender=retired_key)
+        node._deliver(old)
+        assert len(sink.prevotes) == 1
+        node.broadcast(stale)  # own broadcast: delivered, not counted
+        assert node.stale_frames == 1 and len(sink.prevotes) == 2
+        # No table: set_generation where it exists; the wire verifier
+        # refuses a generation it does not hold.
+        with pytest.raises(KeyError, match="not resident"):
+            node.rotate_epoch(3)
+        assert gen_only.generation == 3 and verifier.installed == (table, 2)
     finally:
         node.stop()
+    ref = RefTcpNode()
+    try:
+        ref.rotate_epoch(2, retired={retired_key: 5})
+        ref._deliver(RefPrevote(height=5, round=0, value=b"\x07" * 32,
+                                sender=retired_key), peer=("127.0.0.1", 9))
+        assert ref.stale_frames == node.stale_frames == 1
+    finally:
+        ref.stop()
 
 
 def test_kernel_counts_lose_no_launch_under_thread_switches():
