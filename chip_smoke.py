@@ -172,7 +172,26 @@ Phases, each printing its lines:
    card (the JAX run's digest, steps and committees); BLS certificates in
    an epoch run with ``bls_certificates="device"`` (``g1_aggregate``
    launches counted);
-10. the deployment path: threaded replicas on a loopback-TCP full mesh,
+10. chaos and open-loop load (``phase_chaos``, lines ``chaos``): config
+   2's network (n = 16, seed 1002, 1 ms a delivery, 20 heights), signed,
+   1 s timeouts, under ``FaultPlan.seeded(1002, 16)`` (a partition of
+   five replicas, one of them crashed and restored from its checkpoint,
+   three faulty links), an ``InvariantMonitor`` armed, every leg on the
+   JAX package's digest and steps: ``queue`` (``QueueFlusher`` replicas on
+   one card ``TorchBatchVerifier`` behind a depth-8 queue: ``ed25519_verify``
+   only, the JAX run's queue counts, lifecycle and dump bytes); ``cancel``
+   (the crash moved to step 254 and restored one step later: the restore
+   cancels a window in flight, which is never launched); ``tally``
+   (``DeviceTallyFlusher`` replicas on one ``TorchWireVerifier`` with the
+   ring's ``ValidatorTable``, 8 heights: rows 3 and 4 only, the victim's
+   grid plane reset after its restore); ``replay`` (the queue leg's
+   record, with its crash and restore, dumped, loaded and replayed on the
+   card verifier a replica, to the live commits); ``overload``
+   (``FaultPlan.overload(1002, 16)``: the same chain, the JAX run's
+   overload snapshot, launches and verified rows beside the queue leg's);
+   ``escalation`` (the same with ``pin=False``: the controller watches
+   the card queue; the JAX run's level and transitions);
+11. the deployment path: threaded replicas on a loopback-TCP full mesh,
    one worker process per port (``python -m
    hyperdrive_tpu_torch.harness.deploy ... card``), each process with one
    ``TorchWireVerifier`` (a ``ValidatorTable`` of the network's keys:
@@ -191,7 +210,7 @@ Phases, each printing its lines:
    begin ``deploy``. Before them, ``deploy contention:`` lines: a flush's
    grid call (n = 1, V = 256) and verify call (100 grouped lanes), host
    wall per call from one thread and from 64 threads of this process;
-11. Shamir reconstruct (``ops/shamir.py``, PyTorch ops, no hand-written
+12. Shamir reconstruct (``ops/shamir.py``, PyTorch ops, no hand-written
    kernel): ``BatchReconstructor`` on the card at k = 171 (n = 256, f =
    85) for 16, 64 and 1,024 blocks, every payload equal byte for byte to
    the oracle's ``reconstruct_payload`` (at 1,024 blocks: to the payload,
@@ -200,7 +219,7 @@ Phases, each printing its lines:
    CUDA kernels a call, the bound and its share, the wrapper's and the
    host leg's wall; ``AdaptiveReconstructor``'s calibration record at
    1,024 blocks; on lines that begin ``programs: shamir``;
-12. the RLC batch equation (``rlc_check`` on ``ops/msm.py``, PyTorch ops):
+13. the RLC batch equation (``rlc_check`` on ``ops/msm.py``, PyTorch ops):
    one 64-lane MSM equal to the oracle's point sum; then
    ``TorchBatchVerifier(rlc=True)`` at 64, 256, 1,024 and 4,096 lanes: a
    clean batch accepted by one check with no fallback and no ladder
@@ -209,7 +228,7 @@ Phases, each printing its lines:
    order-8 torsion vector accepted by the RLC and rejected by the ladder;
    ms and CUDA kernels of ``rlc_check`` beside the ladder's time at the
    same lanes; on lines that begin ``programs: rlc``;
-13. config 5 (BASELINE configs[4]) as the JAX package's bench runs it
+14. config 5 (BASELINE configs[4]) as the JAX package's bench runs it
    (n = 256, k = 171, 496-byte payloads, seed 1005, 20 s timeouts,
    burst, 10 heights), signed (every settle on ``ed25519_verify``): the
    host run (``HostVerifier``), a run with
@@ -218,13 +237,13 @@ Phases, each printing its lines:
    on the host leg: no launch); each equal to the host run in digest,
    steps and every replica's reconstructed payloads; heights/s, the
    reconstruct share of wall and its p50, launches; lines ``config5``;
-14. certificates: the main path with ``certificates=True`` through the
+15. certificates: the main path with ``certificates=True`` through the
    packed verifier with ``rlc=False`` and ``rlc=True``: digest
    ``215413db54656240`` in 656,640 steps, chain digests equal across
    replicas and to a host run's, every certificate re-verified and
    round-tripped through its codec, the RLC run's checks, fallbacks and
    wall; lines ``certs``;
-15. the execution layer (``exec/``, ``ops/ledger.py``, ``ops/merkle.py``,
+16. the execution layer (``exec/``, ``ops/ledger.py``, ``ops/merkle.py``,
    PyTorch ops, no hand-written kernel) at the JAX package's documented
    sizes: one Merkleized apply step at 65,536 accounts and 16,384
    (incremental tree update) and 65,536 txs (full rebuild), every output
@@ -240,7 +259,7 @@ Phases, each printing its lines:
    equal across the three and the JAX package's digest, fewer
    ``ed25519_verify`` launches fused, and the blocks' signature rows
    verified by ``ed25519_verify``; lines ``exec``;
-16. BLS12-381 (``phase_bls``): ``fp381.mul`` (PyTorch ops) on 4,096 products
+17. BLS12-381 (``phase_bls``): ``fp381.mul`` (PyTorch ops) on 4,096 products
    against Python ints; the ``g1_aggregate`` kernel (``csrc/g1_aggregate.cu``,
    built in phase 1 beside the ed25519 library, one nvcc a unit, both
    started together) against its plain version ``aggregate_kernel`` at the
@@ -267,8 +286,8 @@ Phases, each printing its lines:
    ``bls``, ``kernel g1_aggregate`` and ``programs: bls``, after the
    card's name and power limit.
 
-Each path of phases 5, 6, 7, 8, 12, 13, 14 and 15 is driven with the
-kernel counts set to 0 just before it and read just after.
+Each path of phases 5, 6, 7, 8, 10, 13, 14, 15 and 16 is driven with
+the kernel counts set to 0 just before it and read just after.
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``. Any failed check raises, so the script
@@ -2770,6 +2789,263 @@ def phase_overlay() -> None:
           f"cert_chains_equal_host_fold=True digest={res.commit_digest()[:16]}", flush=True)
 
 
+# ------------------------------------------- chaos, open-loop load
+
+#: The chaos network: config 2's (``LOCK2``: n = 16, seed 1002, 1 ms a
+#: delivery), signed, with the chaos tests' and the soak's 1 s timeouts,
+#: under ``FaultPlan.seeded(1002, 16)`` (a partition of replicas 2, 3, 12,
+#: 13 and 14 from 0.366 to 1.620 virtual seconds, replica 12 crashed at
+#: step 568 and restored 247 steps later, three link faults). What the
+#: JAX package's runs give, with ``QueueFlusher`` replicas on one
+#: ``HostVerifier`` behind ``DeviceWorkQueue(max_depth=8)`` and an
+#: ``InvariantMonitor`` armed: commit digest and steps, the queue's
+#: submitted / launches / coalesced, the lifecycle of the record and its
+#: dump's SHA-256 prefix and bytes.
+CHAOS_NET = dict(n=16, seed=1002, timeout=1.0, delivery_cost=1e-3, sign=True)
+CHAOS_HEIGHTS = 20
+CHAOS_A = dict(want=("9f217d6e5981ef8d", 11_544), queue=(9_839, 1_237, 8_602),
+               lifecycle=[(0, 492, 12, 0), (1, 664, 12, 2), (2, 680, 2, 2), (2, 680, 3, 2),
+                          (2, 680, 13, 2), (2, 680, 14, 2)],
+               dump=("090056a27f703cff", 1_734_452))
+#: The same plan with the crash moved to step 254 and the restore one step
+#: later: the first step at or above 250 (the family's lowest crash step)
+#: at which the JAX run cancels a window in flight. No plan of the seeded
+#: family cancels one: a restore comes at least 200 steps after its
+#: crash, and every drain in between resolves the dead replica's windows.
+CHAOS_CANCEL = dict(crash_at_step=254, restart_after_steps=1)
+CHAOS_CANCEL_WANT = dict(want=("9f217d6e5981ef8d", 11_546), queue=(9_839, 1_237, 8_601),
+                         cancelled=1)
+#: The tally leg, cut to 8 heights (past the restore at height 2): the JAX
+#: run's digest and steps and its queue launches.
+CHAOS_TALLY_HEIGHTS = 8
+CHAOS_B = dict(want=("9087b1e5729b3053", 5_208), launches=565)
+#: ``FaultPlan.overload(1002, 16)`` (leg A's plan with
+#: ``LoadProfile.seeded(1002)``, pinned at SHED_DUPLICATES): the JAX run's
+#: overload snapshot and queue counts; with ``pin=False`` (the controller
+#: watching the queue) the same.
+CHAOS_D = dict(queue=(12_975, 1_629, 11_346), rows=12_975,
+               snapshot={"injected": 59_008, "injected_sheddable": 51_008,
+                         "offered": 63_983, "admitted": 12_975,
+                         "shed": {"duplicate": 51_008}, "level": 1, "transitions": 1})
+
+
+def _chaos_leg(label: str, plan, want: tuple, own: tuple, queue, heights: int = CHAOS_HEIGHTS,
+               load=None, **sim_kw) -> dict:
+    """One chaos run on the card with an ``InvariantMonitor`` armed: the
+    kernel counts set to 0 just before it and read just after; digest and
+    steps held to the JAX run's, ``check_final``, at least one crash,
+    restore and heal, each kernel of ``own`` launched and no other, the
+    queue coalesced and empty at the end."""
+    from hyperdrive_tpu_torch.chaos import InvariantMonitor
+    from hyperdrive_tpu_torch.harness import Simulation
+    from hyperdrive_tpu_torch.ops import ed25519_cuda
+
+    sim = Simulation(**CHAOS_NET, target_height=heights, chaos=plan, load=load,
+                     devsched=queue, **sim_kw)
+    mon = InvariantMonitor(sim)
+    for r in sim.replicas:
+        f = r.flusher
+        if f is not None and hasattr(f, "warmup"):
+            f.warmup()
+    torch.cuda.synchronize()
+    ed25519_cuda.reset_stats()
+    t0 = time.perf_counter()
+    res = sim.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: v.launches for k, v in ed25519_cuda.stats.items() if v.launches}
+    mon.check_final(res)
+    digest = res.commit_digest()[:16]
+    if (digest, res.steps) != want:
+        raise AssertionError(f"chaos {label}: digest {digest} in {res.steps} steps, "
+                             f"want {want[0]} in {want[1]}")
+    if not (mon.crashes and mon.restores and mon.heals):
+        raise AssertionError(f"chaos {label}: crashes {mon.crashes}, restores "
+                             f"{mon.restores}, heals {mon.heals}")
+    if set(launches) != set(own) or not all(launches.values()):
+        raise AssertionError(f"chaos {label}: launched {launches}, want {own}")
+    if queue.depth or not queue.launches < queue.submitted:
+        raise AssertionError(f"chaos {label}: queue depth {queue.depth}, "
+                             f"{queue.launches} launches for {queue.submitted} submitted")
+    return dict(sim=sim, res=res, mon=mon, wall=wall, launches=launches)
+
+
+def phase_chaos() -> None:
+    """Chaos and open-loop load on the card (``phase_chaos``, lines
+    ``chaos``), config 2's signed network under ``FaultPlan.seeded(1002,
+    16)``, every leg on the JAX run's digest and steps:
+
+    - A, ``chaos queue``: ``QueueFlusher`` replicas on one shared card
+      ``TorchBatchVerifier`` behind ``DeviceWorkQueue(max_depth=8)``;
+      ``ed25519_verify`` the only kernel, the JAX run's queue counts,
+      lifecycle and dump bytes. Then ``chaos cancel``, the same with the
+      crash restored one step later: the restore cancels the dead
+      incarnation's window in flight, and the cancelled command is never
+      launched (submitted = launched + cancelled);
+    - B, ``chaos tally``: ``DeviceTallyFlusher`` replicas on one
+      ``TorchWireVerifier`` with the ring's ``ValidatorTable`` behind the
+      queue (rows 3 and 4 and a vote grid a replica), 8 heights; the
+      victim's flusher drops its height claim at the restore, and its
+      grid-plane resets after it are counted;
+    - C, ``chaos replay``: leg A's record (with ``OP_CRASH`` and
+      ``OP_RESTORE``) dumped, loaded and replayed on the shared card
+      verifier a replica, to leg A's commits;
+    - D, ``overload``: ``FaultPlan.overload(1002, 16)``, leg A's plan with a
+      pinned ``LoadProfile``: leg A's digest and steps, the JAX run's
+      overload snapshot (``offered == admitted + shed``, shed classes
+      within ``SHED_CLASSES``), row-1 launches and verified rows beside
+      leg A's;
+    - E, ``escalation``: D with ``pin=False``, the controller watching the
+      card queue: the JAX run's level and transitions."""
+    import tempfile
+
+    from hyperdrive_tpu_torch.chaos import FaultPlan
+    from hyperdrive_tpu_torch.crypto.keys import KeyRing
+    from hyperdrive_tpu_torch.devsched import DeviceWorkQueue, QueueFlusher
+    from hyperdrive_tpu_torch.harness import Simulation
+    from hyperdrive_tpu_torch.load.backpressure import SHED_CLASSES
+    from hyperdrive_tpu_torch.ops import ed25519_cuda
+    from hyperdrive_tpu_torch.ops.ed25519 import TorchBatchVerifier
+    from hyperdrive_tpu_torch.ops.ed25519_wire import TorchWireVerifier, ValidatorTable
+    from hyperdrive_tpu_torch.tallyflush import DeviceTallyFlusher
+
+    packed = ("ed25519_verify",)
+    plan = FaultPlan.seeded(CHAOS_NET["seed"], CHAOS_NET["n"])
+    shared = TorchBatchVerifier(device="cuda")
+    shared.warmup()
+    rows = [0]
+    inner = shared.verify_signatures
+
+    def counted(items):
+        rows[0] += len(items)
+        return inner(items)
+
+    shared.verify_signatures = counted
+
+    def queued(label, plan, want, queue_want, load=None):
+        q = DeviceWorkQueue(max_depth=8)
+        flushers = []
+
+        def make(i, v):
+            flushers.append(QueueFlusher(shared, q))
+            return flushers[-1]
+
+        rows[0] = 0
+        leg = _chaos_leg(label, plan, want, packed, q, load=load, flusher_for=make)
+        cancelled = sum(f.cancelled for f in flushers)
+        if ((q.submitted, q.launches, q.coalesced) != queue_want
+                or leg["launches"]["ed25519_verify"] != q.launches
+                or q.submitted != q.launches + q.coalesced + cancelled):
+            raise AssertionError(f"chaos {label}: queue {q.submitted}/{q.launches}/"
+                                 f"{q.coalesced} cancelled {cancelled}, launched "
+                                 f"{leg['launches']}, want {queue_want}")
+        leg.update(q=q, cancelled=cancelled, rows=rows[0])
+        return leg
+
+    def line(label, leg, extra=""):
+        q, mon = leg["q"], leg["mon"]
+        print(f"chaos {label}: n={CHAOS_NET['n']} heights={leg['sim'].target_height} "
+              f"steps={leg['res'].steps} wall_s={leg['wall']:.3f} "
+              f"launches={leg['launches']} queue_submitted={q.submitted} "
+              f"queue_launches={q.launches} queue_coalesced={q.coalesced} "
+              f"cancelled={leg['cancelled']} crashes={len(mon.crashes)} "
+              f"restores={len(mon.restores)} heals={len(mon.heals)}{extra} "
+              f"digest={leg['res'].commit_digest()[:16]}", flush=True)
+
+    # A: the seeded plan, then the same with the restore one step after the
+    # crash, which lands while the victim's window is in flight.
+    leg_a = queued("queue", plan, CHAOS_A["want"], CHAOS_A["queue"])
+    record = leg_a["res"].record
+    if record.lifecycle != CHAOS_A["lifecycle"]:
+        raise AssertionError(f"chaos queue: lifecycle {record.lifecycle}")
+    line("queue", leg_a, f" rows={leg_a['rows']}")
+    crash = dataclasses.replace(plan.crashes[0], **CHAOS_CANCEL)
+    leg = queued("cancel", dataclasses.replace(plan, crashes=(crash,)),
+                 CHAOS_CANCEL_WANT["want"], CHAOS_CANCEL_WANT["queue"])
+    if leg["cancelled"] != CHAOS_CANCEL_WANT["cancelled"]:
+        raise AssertionError(f"chaos cancel: {leg['cancelled']} windows cancelled")
+    line("cancel", leg, f" rows={leg['rows']} launched_commands="
+         f"{leg['q'].launches + leg['q'].coalesced}")
+
+    # B: rows 3 and 4 and a vote grid a replica behind the queue.
+    ring = KeyRing.deterministic(CHAOS_NET["n"], namespace=b"sim-%d" % CHAOS_NET["seed"])
+    wire = TorchWireVerifier(device="cuda",
+                             table=ValidatorTable(ring.signatories, device="cuda"))
+    q = DeviceWorkQueue(max_depth=8)
+    victim = plan.crashes[0].replica
+    at_restore = {}
+
+    def make_tally(i, v):
+        f = DeviceTallyFlusher(wire, v, queue=q)
+        if i == victim:
+            reset = f.reset
+
+            def noted(replica=None):
+                reset(replica)
+                at_restore.update(resets=f.plane_resets, claim=f._height)
+
+            f.reset = noted
+        return f
+
+    leg = _chaos_leg("tally", plan, CHAOS_B["want"], ("ed25519_challenge", "ed25519_semiwire"),
+                     q, heights=CHAOS_TALLY_HEIGHTS, flusher_for=make_tally)
+    la = leg["launches"]
+    vf = leg["sim"].replicas[victim].flusher
+    after = vf.plane_resets - at_restore.get("resets", vf.plane_resets)
+    if not (la["ed25519_challenge"] == la["ed25519_semiwire"] == q.launches
+            == CHAOS_B["launches"]) or at_restore.get("claim", 0) is not None or after < 1:
+        raise AssertionError(f"chaos tally: launched {la} for {q.launches} queue launches, "
+                             f"victim claim at restore {at_restore}, resets after {after}")
+    leg.update(q=q, cancelled=sum(r.flusher.cancelled for r in leg["sim"].replicas))
+    line("tally", leg, f" grid_calls={sum(r.flusher.launches for r in leg['sim'].replicas)} "
+         f"victim={victim} victim_plane_resets_after_restore={after}")
+
+    # C: leg A's record dumped, loaded and replayed on the card.
+    build = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "hyperdrive_tpu_torch", "_build")
+    os.makedirs(build, exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="chaos-", dir=build)
+    try:
+        rec, sha, size, dump_s, load_s = _dump_check("chaos queue", record, tmp,
+                                                     CHAOS_A["dump"])
+    finally:
+        os.rmdir(tmp)
+    ed25519_cuda.reset_stats()
+    t0 = time.perf_counter()
+    rep = Simulation.replay(rec, sign=True, verifier_for=lambda i: shared)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launched = {k: v.launches for k, v in ed25519_cuda.stats.items() if v.launches}
+    if rep.commits != leg_a["res"].commits or set(launched) != set(packed):
+        raise AssertionError(f"chaos replay: commits differ or launched {launched}")
+    print(f"chaos replay: deliveries={len(rec.messages)} lifecycle={len(rec.lifecycle)} "
+          f"bytes={size} sha256={sha} equals_jax=True dump_s={dump_s:.3f} "
+          f"load_s={load_s:.3f} replay_s={wall:.3f} launches={launched} "
+          f"same_commits=True", flush=True)
+
+    # D and E: open-loop load on leg A's plan, pinned, then escalating.
+    plan_d, profile = FaultPlan.overload(CHAOS_NET["seed"], CHAOS_NET["n"])
+    if plan_d != plan:
+        raise AssertionError("overload: the family's plan is not leg A's")
+    for label, prof in (("overload", profile),
+                        ("escalation", dataclasses.replace(profile, pin=False))):
+        leg = queued(label, plan_d, CHAOS_A["want"], CHAOS_D["queue"], load=prof)
+        snap = leg["sim"].overload_snapshot()
+        ctrl = leg["sim"].load_controller
+        watched = leg["q"].controller is ctrl
+        if (snap != CHAOS_D["snapshot"] or leg["rows"] != CHAOS_D["rows"]
+                or snap["offered"] != snap["admitted"] + sum(snap["shed"].values())
+                or not set(snap["shed"]) <= set(SHED_CLASSES)
+                or not snap["injected"] or watched != (not prof.pin)):
+            raise AssertionError(f"chaos {label}: snapshot {snap}, rows {leg['rows']}, "
+                                 f"controller watching the queue {watched}")
+        line(label, leg, f" rows={leg['rows']} rows_leg_a={leg_a['rows']} "
+             f"launches_leg_a={leg_a['launches']['ed25519_verify']} pin={prof.pin} "
+             f"watched={watched} injected={snap['injected']} offered={snap['offered']} "
+             f"admitted={snap['admitted']} shed={snap['shed']} level={snap['level']} "
+             f"transitions={snap['transitions']}")
+
+
 #: The deployment runs: (label, processes, replicas per process, heights,
 #: seconds until an unfinished run fails, worker options).
 DEPLOY_RUNS = (
@@ -4013,6 +4289,8 @@ def main() -> int:
     mark("lockstep")
     phase_overlay()
     mark("overlay")
+    phase_chaos()
+    mark("chaos")
     phase_deploy()
     mark("deploy")
     phase_shamir()

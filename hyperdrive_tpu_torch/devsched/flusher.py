@@ -14,7 +14,8 @@ Port copy of ``hyperdrive_tpu/devsched/flusher.py``. Dropped, as the
 port's conventions say: the metrics recorder (``obs``), whose replica
 track was the submitted ``origin`` (None with the recorder off), and the
 ``@async_scope`` lint marker. The port submits the replica's own
-identity as the ``origin`` a drain policy seats tenants by. Like the
+identity as the ``origin`` a drain policy seats tenants by. Added: the
+``cancelled`` count of windows that :meth:`QueueFlusher.reset` cancelled. Like the
 queue, a flusher is single-threaded: every replica sharing one queue
 must flush and drain on one thread.
 """
@@ -37,9 +38,11 @@ class QueueFlusher:
         self.verifier = verifier
         self.queue = queue
         self._inflight: list = []
-        #: Windows submitted / dispatched.
+        #: Windows submitted / dispatched / cancelled by :meth:`reset` (the
+        #: last a port addition: the windows a crash took down in flight).
         self.submitted = 0
         self.dispatched = 0
+        self.cancelled = 0
 
     def flush(self, replica) -> None:
         """Drain the replica's queue to quiescence, one submitted window
@@ -79,6 +82,7 @@ class QueueFlusher:
         """Crash-restart recovery hook (``Replica.restore``): cancel the
         dead incarnation's in-flight windows, which must not dispatch on
         top of the revived replica's checkpoint."""
+        self.cancelled += len(self._inflight)
         for fut in self._inflight:
             fut.cancel()
         self._inflight.clear()

@@ -19,11 +19,13 @@ drain that spans an epoch boundary splits into one launch per generation.
 
 Dropped from the copy, as the port's conventions say: the ``drain_point``
 lint marker, the recorder (``obs``), the metrics sink (``tracer``), the
-launch probe (``devtel``, and with it the generation-split count) and
-the backpressure controller seam (``controller``, which the reference's
-``load.BackpressureController.watch`` attaches; it comes with the rest of
-``load/``). The futures' ``seq`` and ``launch_id`` attribution fields
-went with the probe. Added: ``submit(callback=)``, which attaches a
+launch probe (``devtel``, and with it the generation-split count). The
+futures' ``seq`` and ``launch_id`` attribution fields went with the
+probe. The backpressure seam is the reference's: a
+:class:`~hyperdrive_tpu_torch.load.backpressure.BackpressureController`
+attached with ``watch`` (``queue.controller``) hears every submit's new
+depth and every drain's resolved count and latency, timed by the
+controller's own ``time_fn``. Added: ``submit(callback=)``, which attaches a
 done-callback before the ``max_depth`` auto-drain can resolve the
 command (the execution layer's speculation resolves there, see
 :meth:`DeviceWorkQueue.submit`).
@@ -197,6 +199,13 @@ class DeviceWorkQueue:
     def __init__(self, max_depth: int = 0, policy=None):
         self.max_depth = int(max_depth)
         self.on_drain = None
+        #: Backpressure seam (:mod:`~hyperdrive_tpu_torch.load.
+        #: backpressure`): once a BackpressureController is attached
+        #: (``controller.watch(q)``), every submit pushes the new depth and
+        #: every drain pushes its resolved count and latency, timed by the
+        #: controller's clock, so the queue itself stays wall-clock-free.
+        #: None = no admission coupling.
+        self.controller = None
         self.policy = policy
         self._pending: list = []  # (launcher, payload, future, meta, gen)
         self._launchers: dict = {}  # id(verifier) -> launcher
@@ -264,6 +273,8 @@ class DeviceWorkQueue:
             meta = CmdMeta(self.submitted, origin, rows)
         self._pending.append((launcher, payload, fut, meta, generation))
         self.submitted += 1
+        if self.controller is not None:
+            self.controller.note_depth(len(self._pending))
         if self.max_depth and len(self._pending) >= self.max_depth:
             if not self._draining:
                 self.drain()
@@ -285,6 +296,10 @@ class DeviceWorkQueue:
             return 0
         self._draining = True
         resolved = 0
+        ctrl = self.controller
+        t0 = None
+        if ctrl is not None and ctrl.time_fn is not None:
+            t0 = ctrl.time_fn()
         try:
             while self._pending:
                 batch = self._pending
@@ -334,8 +349,13 @@ class DeviceWorkQueue:
                         resolved += 1
         finally:
             self._draining = False
-        if resolved and self.on_drain is not None:
-            self.on_drain(resolved)
+        if resolved:
+            if ctrl is not None:
+                ctrl.note_drain(
+                    resolved, (ctrl.time_fn() - t0) if t0 is not None else 0.0
+                )
+            if self.on_drain is not None:
+                self.on_drain(resolved)
         return resolved
 
     def close(self) -> int:

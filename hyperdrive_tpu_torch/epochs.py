@@ -42,7 +42,8 @@ import), on this package's ``codec`` and ``certificates``. Dropped, as the
 port's conventions say: the ``wire_codec`` analysis annotation on the
 proof codec and the metrics recorder (``obs``) of
 :class:`EpochCertifier`, whose ``epoch.proof`` event went with it. The
-chaos engine, the reference's proving ground for churn, is not ported.
+chaos engine (:mod:`hyperdrive_tpu_torch.chaos`, ``FaultPlan.churn``) is
+the proving ground for churn, as in the reference.
 """
 
 from __future__ import annotations

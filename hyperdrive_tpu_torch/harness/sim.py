@@ -146,12 +146,32 @@ with the same aggregates and digests. Frame and tick deliveries run the
 laggard sweep (``catchup_every``, ``catchup_lag``), whose resyncs are
 recorded as ``OP_RESYNC`` lifecycle operations and replayed.
 
+With ``chaos=FaultPlan(...)`` (lock-step, paced by ``delivery_cost``
+when the plan has partitions) the plan is interpreted per delivery
+(:meth:`Simulation._chaos_deliver`, :meth:`Simulation._chaos_tick`): link
+faults drop, duplicate and delay deliveries from a chaos stream of their
+own, partitions block deliveries between groups on the virtual clock and
+resync the laggards at their heal, and a crash victim checkpoints its
+Process after every delivery it handles, goes down at its step and is
+restored from its latest checkpoint ``restart_after_steps`` later
+(:meth:`Simulation._apply_restore`); its queue-backed flusher cancels the
+dead incarnation's in-flight windows. Crashes and restores are recorded as
+``OP_CRASH`` and ``OP_RESTORE`` lifecycle operations and replayed, the
+checkpoints re-derived. An
+:class:`~hyperdrive_tpu_torch.chaos.InvariantMonitor` hooks the commit
+seam (``_on_commit``). With ``load=LoadProfile(...)`` (lock-step, paced)
+each delivered vote due an open-loop arrival is re-delivered as a gossip
+duplicate (no step, no clock, no rng draw), and with the profile's
+``admission`` every replica gets an
+:class:`~hyperdrive_tpu_torch.load.AdmissionGate` on one
+:class:`~hyperdrive_tpu_torch.load.BackpressureController` on the
+virtual clock, which with ``pin=False`` watches the device-work queue
+(:meth:`Simulation.overload_snapshot`).
+
 Not ported (a later slice of the port), and refused: the sharded grid
-(``tally_mesh``), the flight recorder (``observe``, ``obs_capacity``),
-chaos (and with it the sweep's chaos branch, the rescue of a stalled
-run and the replay of crash and restore operations) and load. The
-tracer, metrics registry and device telemetry are dropped (tracing
-returns in a later slice).
+(``tally_mesh``) and the flight recorder (``observe``, ``obs_capacity``).
+The tracer, metrics registry and device telemetry are dropped, with the
+recorder's chaos and load events (tracing returns in a later slice).
 """
 
 from __future__ import annotations
@@ -160,7 +180,7 @@ import hashlib
 import heapq
 import random
 import time
-from dataclasses import dataclass, field
+from dataclasses import dataclass, field, replace
 from itertools import repeat
 from typing import Callable, Optional
 
@@ -253,8 +273,6 @@ class ScenarioRecord:
     #: Chaos lifecycle operations ``(kind, pos, replica, aux)``: kind one
     #: of OP_CRASH / OP_RESTORE / OP_RESYNC, ``pos`` the delivered-message
     #: count when the op fired, ``aux`` the resync height (0 for a crash).
-    #: Chaos is not ported: this package round-trips the trailer but
-    #: refuses to replay a record that has one.
     lifecycle: list[tuple[int, int, int, int]] = field(default_factory=list)
     #: ``(epoch_length, committee_size, rekey_per_epoch, seed, stakes)``
     #: of an epoch run, or None: replay rebuilds the same EpochSchedule.
@@ -606,9 +624,14 @@ class Simulation:
     overlay, lock-step with ``delivery_cost > 0``, no ``drop_rate``,
     ``reorder`` or ``verifier_for``, and an epoch committee of all ``n``;
     it resolves ``device`` when signed or with ``bls_partials``.
+    ``chaos`` (a :class:`~hyperdrive_tpu_torch.chaos.FaultPlan`) and
+    ``load`` (a :class:`~hyperdrive_tpu_torch.load.LoadProfile`): the
+    chaos engine and open-loop load, lock-step only, as the module
+    docstring says; ``load`` is refused with ``overlay`` and both need
+    ``delivery_cost > 0`` (chaos only when its plan has partitions).
     ``catchup_every`` (default 256 steps) and ``catchup_lag`` (default 2
-    heights): the laggard sweep of an overlay run. ``record`` (default
-    True) keeps the :class:`ScenarioRecord` that
+    heights): the laggard sweep of an overlay or chaos run. ``record``
+    (default True) keeps the :class:`ScenarioRecord` that
     ``SimulationResult.record`` returns.
 
     The adversaries, as in the reference, all drawing from ``self.rng =
@@ -678,6 +701,8 @@ class Simulation:
         fused_exec_drain: Optional[bool] = None,
         dedup_exec: Optional[bool] = None,
         overlay=None,
+        chaos=None,
+        load=None,
         catchup_every: Optional[int] = None,
         catchup_lag: Optional[int] = None,
         device="cuda",
@@ -688,10 +713,7 @@ class Simulation:
                 f"Simulation options {sorted(unported)} are not ported to "
                 "the PyTorch package yet (a later slice of the port): "
                 "tally_mesh needs the multi-device vote grid; observe and "
-                "obs_capacity the flight recorder; chaos its fault engine, "
-                "checkpoint capture and invariant monitor; load the rest of "
-                "the load/ package (schedules, backpressure, generators), "
-                "which comes with chaos"
+                "obs_capacity the flight recorder"
             )
         #: The adversaries' one random stream: ``reorder`` draws once a
         #: lock-step delivery (or shuffles each superstep), ``drop_rate``
@@ -847,7 +869,7 @@ class Simulation:
         if self._catchup_lag < 0:
             raise ValueError("catchup_lag must be >= 0")
         self._check_overlay(overlay, epochs, burst, drop_rate, reorder,
-                            delivery_cost, verifier_for)
+                            delivery_cost, verifier_for, load)
         bv = self.batch_verifier
         if small_window_host is True and bv is None:
             raise ValueError(
@@ -895,6 +917,7 @@ class Simulation:
         # height or dies.
         self._pending_replicas = {i for i in range(n) if self.alive[i]}
         self.caught: list[tuple[str, int]] = []
+        self._init_chaos(chaos, load, burst, delivery_cost)
         #: Settle accounting: passes, passes whose windows carried votes,
         #: and signatures handed to a verifier (after dedup).
         self.settle_passes = 0
@@ -980,6 +1003,7 @@ class Simulation:
             for r in self.replicas:
                 r.retired = self._retired
         self._init_overlay(overlay, sign, device)
+        self._init_admission()
         #: Device-resident quorum tallies: behavior-neutral by construction
         #: (counts equal the host counters wherever a TallyView answers).
         self.device_tally = device_tally
@@ -1171,10 +1195,124 @@ class Simulation:
             certifier=certifier,
         )
 
+    # -------------------------------------------------------- chaos, load
+
+    def _init_chaos(self, chaos, load, burst, delivery_cost) -> None:
+        """Open-loop load (``load``, a
+        :class:`~hyperdrive_tpu_torch.load.generator.LoadProfile`) and the
+        chaos engine (``chaos``, a
+        :class:`~hyperdrive_tpu_torch.chaos.plan.FaultPlan`), with their
+        refusals (``ValueError``).
+
+        Load arrivals are checked against the virtual clock at every
+        delivered vote, and each due arrival re-delivers that vote inline as
+        a gossip duplicate, consuming no step, no virtual time and no rng
+        draw. Chaos faults draw from a stream of their own (not
+        ``self.rng``), so a plan never perturbs the adversaries' draws. The
+        checkpoint store and capture set exist without a plan too: replay
+        of a chaos record re-derives its victims' checkpoints."""
+        from hyperdrive_tpu_torch.utils.checkpoint import CheckpointStore
+
+        self._load = None
+        self.load_controller = None
+        if load is not None:
+            if burst:
+                raise ValueError(
+                    "open-loop load injects per delivery; use lock-step "
+                    "mode (burst=False)"
+                )
+            if delivery_cost <= 0.0:
+                raise ValueError(
+                    "load arrivals are scheduled on the virtual clock, and "
+                    "without delivery pacing a busy network never advances "
+                    "it: pass delivery_cost > 0"
+                )
+            from hyperdrive_tpu_torch.load.generator import LoadRuntime
+
+            self._load = LoadRuntime(load)
+        self._chaos = chaos
+        self._chaos_monitor = None
+        self._ckpt_store = CheckpointStore()
+        self._ckpt_capture: set[int] = set()
+        if chaos is None:
+            return
+        if burst:
+            raise ValueError(
+                "chaos faults apply per delivery; use lock-step mode "
+                "(burst=False)"
+            )
+        chaos.validate(self.n)
+        if chaos.partitions and delivery_cost <= 0.0:
+            raise ValueError(
+                "partitions are scheduled on the virtual clock, and without "
+                "delivery pacing a busy network never advances it: pass "
+                "delivery_cost > 0 (the reference harness paces at 1 ms)"
+            )
+        self._chaos_rng = random.Random((self.seed << 1) ^ 0x43484F53)
+        self._chaos_links = {(lf.src, lf.dst): lf for lf in chaos.links}
+        self._chaos_parts = [_PartitionRT(p) for p in chaos.partitions]
+        self._chaos_crashes = {c.replica: c for c in chaos.crashes}
+        self._chaos_restores: dict[int, int] = {}
+        self._ckpt_capture = set(self._chaos_crashes)
+
+    def _init_admission(self) -> None:
+        """The backpressure spine of a loaded run whose profile has
+        ``admission``: one shared controller pinned at the profile's floor
+        on the virtual clock (``pin=False`` also has it watch the
+        device-work queue's depth and drain latency), and one
+        AdmissionGate a replica, so dedup memory stays a local property of
+        each ingress."""
+        if self._load is None or not self._load.profile.admission:
+            return
+        from hyperdrive_tpu_torch.load.backpressure import (
+            AdmissionGate,
+            BackpressureController,
+        )
+
+        p = self._load.profile
+        ctrl = BackpressureController(time_fn=lambda: self.clock.now)
+        ctrl.floor = p.floor
+        if not p.pin and self._sched is not None:
+            ctrl.watch(self._sched)
+        ctrl.poll()
+        self.load_controller = ctrl
+        for r in self.replicas:
+            r.admission = AdmissionGate(ctrl, height_fn=r.current_height)
+
+    def overload_snapshot(self) -> dict:
+        """Aggregated overload accounting for a loaded run: injected
+        duplicates, the network-wide offered/admitted/shed-by-class gate
+        counters, and the controller's level and transition count."""
+        lr = self._load
+        out: dict = {
+            "injected": lr.offered if lr is not None else 0,
+            #: Vote duplicates injected at un-advanced heights: the storm
+            #: fraction the gate must shed.
+            "injected_sheddable": lr.sheddable if lr is not None else 0,
+            "offered": 0,
+            "admitted": 0,
+            "shed": {},
+            "level": 0,
+            "transitions": 0,
+        }
+        for r in self.replicas:
+            gate = r.admission
+            if gate is None:
+                continue
+            snap = gate.snapshot()
+            out["offered"] += snap["offered"]
+            out["admitted"] += snap["admitted"]
+            for cls, v in snap["shed"].items():
+                out["shed"][cls] = out["shed"].get(cls, 0) + v
+        if self.load_controller is not None:
+            out["level"] = self.load_controller.level
+            out["transitions"] = self.load_controller.transitions
+        return out
+
     # ------------------------------------------------------------ overlay
 
     def _check_overlay(self, overlay, epochs, burst, drop_rate, reorder,
-                       delivery_cost, verifier_for) -> None:
+                       delivery_cost, verifier_for, load) -> None:
         """The reference's refusals of an overlay run (``ValueError``)."""
         self._overlay = None
         self._overlay_coalesce = False
@@ -1184,6 +1322,11 @@ class Simulation:
             raise ValueError(
                 "the overlay disseminates per delivery on the shared virtual "
                 "clock; use lock-step mode (burst=False)"
+            )
+        if load is not None:
+            raise ValueError(
+                "open-loop load injection bypasses the overlay's broadcast "
+                "path; run overload and overlay scenarios separately"
             )
         if drop_rate or reorder:
             raise ValueError(
@@ -1280,6 +1423,21 @@ class Simulation:
             raise ValueError("overlay_snapshot() on a run without overlay=")
         return self._overlay.snapshot()
 
+    def _overlay_blocked(self, frame, to: int) -> bool:
+        """Chaos faults for overlay frames: partitions block on the
+        (contributor, receiver) pair exactly as :meth:`_chaos_deliver`
+        blocks vote senders; link faults apply their drop rate (duplication
+        and delay stay vote-only: frame bookkeeping is idempotent, but the
+        clock cost of a ghost frame is not)."""
+        src = frame.src
+        for p in self._chaos_parts:
+            if p.engaged and p.blocks(src, to):
+                return True
+        lf = self._chaos_links.get((src, to))
+        if lf is not None and lf.drop and self._chaos_rng.random() < lf.drop:
+            return True
+        return False
+
     def _overlay_deliver(self, to: int, votes) -> None:
         """Constituent votes reaching replica ``to`` from one overlay
         frame, recorded as plain ``(to, vote)`` tuples (replay is
@@ -1297,6 +1455,8 @@ class Simulation:
         else:
             for v in votes:
                 r.handle(v)
+        if to in self._ckpt_capture:
+            self._ckpt_store.save(to, r.proc)
 
     # ----------------------------------------------------- laggard sweep
 
@@ -1308,9 +1468,10 @@ class Simulation:
         overlay prunes slots at the commit floor, so a replica that misses
         a quorum while the rest move on is stranded, and in lock-step
         delivery its round timeout cannot fire while the busy majority
-        keeps the queue full. Runs on overlay frame and tick deliveries;
-        each resync is recorded as an ``OP_RESYNC`` lifecycle op, so replay
-        needs no cadence."""
+        keeps the queue full. Runs at the end of every chaos tick, and on
+        overlay frame and tick deliveries of a run without chaos; each
+        resync is recorded as an ``OP_RESYNC`` lifecycle op, so replay needs
+        no cadence."""
         if steps % self._catchup_every == 0:
             net = self._net_height()
             if net > self._catchup_lag + 1:
@@ -1351,13 +1512,176 @@ class Simulation:
             )
 
     def _replay_lifecycle(self, op: tuple) -> None:
-        """Replay one ``OP_RESYNC`` operation (:meth:`replay` refuses the
-        others before it starts)."""
-        _, _, replica, aux = op
-        self._apply_epoch_state(replica, aux)
-        self.replicas[replica].handle(
-            ResetHeight(height=aux, signatories=self._resync_sigs(aux))
-        )
+        """Replay one recorded crash, restore or resync operation."""
+        kind, _, replica, aux = op
+        if kind == ScenarioRecord.OP_CRASH:
+            self.alive[replica] = False
+        elif kind == ScenarioRecord.OP_RESTORE:
+            self._apply_restore(replica, aux)
+        else:  # OP_RESYNC
+            self._apply_epoch_state(replica, aux)
+            self.replicas[replica].handle(
+                ResetHeight(height=aux, signatories=self._resync_sigs(aux))
+            )
+
+    # ---------------------------------------------------------------- chaos
+
+    def _chaos_tick(self, steps: int) -> None:
+        """Advance the FaultPlan's schedule: engage and heal partitions by
+        virtual time, crash and restore replicas by delivery step; then the
+        laggard sweep."""
+        now = self.clock.now
+        for p in self._chaos_parts:
+            if not p.engaged and not p.healed and now >= p.spec.at:
+                p.engaged = True
+            if p.engaged and now >= p.spec.heal:
+                p.engaged = False
+                p.healed = True
+                self._chaos_heal(p)
+        for victim, c in list(self._chaos_crashes.items()):
+            if steps >= c.crash_at_step:
+                del self._chaos_crashes[victim]
+                if not self.alive[victim]:
+                    continue
+                self.alive[victim] = False
+                # Unlike kill_at_step's permanent kills, the victim STAYS
+                # in _pending_replicas: a restart is scheduled, so the run
+                # must not complete while it is down.
+                self._chaos_restores[victim] = steps + c.restart_after_steps
+                self._note_lifecycle(ScenarioRecord.OP_CRASH, victim, 0)
+                m = self._chaos_monitor
+                if m is not None:
+                    m.note_crash(victim, now)
+        for victim, due in list(self._chaos_restores.items()):
+            if steps >= due:
+                del self._chaos_restores[victim]
+                target = self._net_height()
+                self._note_lifecycle(ScenarioRecord.OP_RESTORE, victim, target)
+                self._apply_restore(victim, target)
+                m = self._chaos_monitor
+                if m is not None:
+                    m.note_restore(victim, target)
+        self._laggard_sweep(steps)
+
+    def _chaos_deliver(self, to: int, msg):
+        """Apply the fault plan to one pending delivery. Returns the message
+        to deliver, or None when a fault swallowed it (dropped, blocked by
+        an engaged partition, or deferred on the clock). Timeouts are local
+        events, never faulted. The chaos stream draws once a fault check, in
+        the order drop, duplicate, delay. Delayed and duplicated copies ride
+        a :class:`_ChaosEnvelope`, so they are never faulted again, though
+        partitions still apply at their eventual delivery."""
+        if isinstance(msg, Timeout):
+            return msg
+        immune = type(msg) is _ChaosEnvelope
+        if immune:
+            msg = msg.msg
+        src = self._order_pos.get(getattr(msg, "sender", None))
+        for p in self._chaos_parts:
+            if p.engaged and src is not None and p.blocks(src, to):
+                return None
+        if immune or src is None:
+            return msg
+        lf = self._chaos_links.get((src, to))
+        if lf is None:
+            return msg
+        rng = self._chaos_rng
+        if lf.drop and rng.random() < lf.drop:
+            return None
+        if lf.duplicate and rng.random() < lf.duplicate:
+            self.queue.append((to, _ChaosEnvelope(msg)))
+        if lf.delay and rng.random() < lf.delay:
+            self.clock.schedule(
+                rng.uniform(lf.delay_min, lf.delay_max), _ChaosEnvelope(msg), to
+            )
+            return None
+        return msg
+
+    def _chaos_heal(self, p: "_PartitionRT") -> None:
+        """A partition healed: tell the monitor, then (``resync_on_heal``)
+        jump every alive laggard to an active join of the network's working
+        height. The protocol has no retransmission, so what a replica missed
+        while cut off is gone for good (the reference's catch-up path,
+        replica/replica.go:222-235)."""
+        m = self._chaos_monitor
+        if m is not None:
+            m.note_heal(self.clock.now)
+        if p.spec.resync_on_heal:
+            self._resync(self._net_height())
+
+    def _chaos_rescue(self, steps: int) -> bool:
+        """The delivery queue and the virtual clock drained mid-run. Both
+        chaos timelines are delivery-driven, so a deadlocked network would
+        freeze the plan's remaining schedule: jump to the next scheduled
+        event (the nearest partition boundary in virtual time, then a
+        step-scheduled crash or restore pulled to the present) and re-tick;
+        with no schedule left, resync stranded laggards. Returns True when
+        anything was applied. Every rescue consumes schedule or raises a
+        height, so a run that cannot progress still stops. Its lifecycle
+        ops carry the current record position like any other."""
+        if self._chaos is None:
+            return False
+        boundary = None
+        for p in self._chaos_parts:
+            if p.healed:
+                continue
+            b = p.spec.heal if p.engaged else p.spec.at
+            if boundary is None or b < boundary:
+                boundary = b
+        if boundary is not None:
+            if boundary > self.clock.now:
+                self.clock.now = boundary
+            self._chaos_tick(steps)
+            return True
+        if self._chaos_crashes:
+            victim = min(
+                self._chaos_crashes,
+                key=lambda v: self._chaos_crashes[v].crash_at_step,
+            )
+            c = self._chaos_crashes[victim]
+            if c.crash_at_step > steps:
+                self._chaos_crashes[victim] = replace(c, crash_at_step=steps)
+            self._chaos_tick(steps)
+            return True
+        if self._chaos_restores:
+            victim = min(self._chaos_restores, key=self._chaos_restores.get)
+            if self._chaos_restores[victim] > steps:
+                self._chaos_restores[victim] = steps
+            self._chaos_tick(steps)
+            return True
+        return self._resync(self._net_height()) > 0
+
+    def _apply_restore(self, victim: int, net_height: Height) -> None:
+        """The revive path, shared by the live chaos engine and replay:
+        restore the Process from the victim's latest checkpoint (None: it
+        crashed before its first one, so genesis state), then rejoin.
+
+        If the network has committed past the checkpoint (``net_height``,
+        its working height at restore time, is above the victim's), the
+        victim makes an active join of it through a signatory-carrying
+        ResetHeight, as a heal resync does; otherwise
+        :meth:`~hyperdrive_tpu_torch.process.Process.resume` re-arms the
+        current step's timeout in place and broadcasts nothing, so the
+        restored locked and valid values steer its next votes. Epoch state
+        is applied first in both branches. Both are functions of the
+        restored state and ``net_height``, which replay reproduces."""
+        r = self.replicas[victim]
+        r.restore(self._ckpt_store.latest(victim))
+        self.alive[victim] = True
+        if net_height > r.proc.current_height:
+            self._apply_epoch_state(victim, net_height)
+            r.handle(
+                ResetHeight(
+                    height=net_height, signatories=self._resync_sigs(net_height)
+                )
+            )
+        else:
+            # The checkpoint's identity may predate a rotation that happened
+            # while the victim was down (epoch mode).
+            self._apply_epoch_state(victim, r.proc.current_height)
+            r.proc.resume()
+        if not any(h >= self.target_height for h in self.commits[victim]):
+            self._pending_replicas.add(victim)
 
     # -------------------------------------------------- BLS certificates
 
@@ -1628,6 +1952,11 @@ class Simulation:
             raise ValueError(
                 "execution blocks and MPC payload bundles both define the "
                 "proposed value's content; run one content layer at a time"
+            )
+        if self._load is not None:
+            raise ValueError(
+                "open-loop load re-injects recorded votes with no block "
+                "content; run load and execution separately"
             )
         import dataclasses
 
@@ -1975,10 +2304,14 @@ class Simulation:
                 # The network drained: advance virtual time to the next
                 # timeout.
                 if self.clock.pending() == 0:
+                    if self._chaos_rescue(steps):
+                        continue
                     break  # genuine stall
                 if self.clock.pending() > 65536:
                     self._prune_clock()
                     if self.clock.pending() == 0:
+                        if self._chaos_rescue(steps):
+                            continue
                         break
                 event, owner = self.clock.fire_next()
                 queue.append((owner, event))
@@ -2000,7 +2333,12 @@ class Simulation:
             if ov is not None:
                 t = type(msg)
                 if t is OverlayFrame:
-                    self._laggard_sweep(steps)
+                    if self._chaos is not None:
+                        self._chaos_tick(steps)
+                        if self._overlay_blocked(msg, to):
+                            continue
+                    else:
+                        self._laggard_sweep(steps)
                     if not alive[to]:
                         continue
                     # One delivery_cost a frame, whatever its mask carries:
@@ -2009,13 +2347,21 @@ class Simulation:
                     ov.on_frame(to, msg)
                     continue
                 if t is OverlayTick:
-                    self._laggard_sweep(steps)
+                    if self._chaos is not None:
+                        self._chaos_tick(steps)
+                    else:
+                        self._laggard_sweep(steps)
                     # A tick is a local timer, not a network message: no
                     # delivery cost and no liveness gate (the runtime
                     # disarms dead owners itself).
                     ov.on_tick(to, msg)
                     continue
 
+            if self._chaos is not None:
+                self._chaos_tick(steps)
+                msg = self._chaos_deliver(to, msg)
+                if msg is None:
+                    continue
             if self.drop_rate and not isinstance(msg, Timeout):
                 if self.rng.random() < self.drop_rate:
                     continue
@@ -2032,6 +2378,41 @@ class Simulation:
                 self.clock.now += self.delivery_cost
             record_messages.append((to, msg))
             replicas[to].handle(msg)
+            capture = to in self._ckpt_capture
+            if capture:
+                # "State should be saved after every method call"
+                # (process/state.go:18-20): a scheduled crash victim
+                # checkpoints its Process after every delivery it handles,
+                # so the restore image is its state at the last message it
+                # survived.
+                self._ckpt_store.save(to, replicas[to].proc)
+            lr = self._load
+            if lr is not None and (
+                type(msg) is Prevote
+                or type(msg) is Precommit
+                or type(msg) is Propose
+            ):
+                # Open-loop injection point: every schedule arrival due at
+                # this virtual instant re-delivers the CURRENT vote to the
+                # same replica as a gossip duplicate, inline, after the real
+                # delivery, with no step, no clock advance and no rng draw,
+                # so the unloaded trajectory is untouched. Duplicates are
+                # recorded (replay is exact) and checkpointed like any
+                # handled delivery.
+                k = lr.due(self.clock.now)
+                if k:
+                    r = replicas[to]
+                    # Vote duplicates at an un-advanced height are the
+                    # gate's guaranteed prey; proposal duplicates and votes
+                    # behind the commit edge are admitted or height-filtered
+                    # by doctrine.
+                    if type(msg) is not Propose and msg.height >= r.current_height():
+                        lr.sheddable += k
+                    for _ in range(k):
+                        record_messages.append((to, msg))
+                        r.handle(msg)
+                        if capture:
+                            self._ckpt_store.save(to, r.proc)
 
         if sched is not None:
             sched.drain()
@@ -3019,17 +3400,12 @@ class Simulation:
         verify during replay). The epoch and execution trailers rebuild
         the run's ``EpochConfig`` and ``ExecutionConfig`` unless ``kwargs``
         names them. A record's ``OP_RESYNC`` lifecycle operations (the
-        laggard sweep's) are applied at their recorded positions; a crash
-        or restore operation raises ``NotImplementedError``: its replay
-        needs the checkpoint capture of chaos, which is not ported."""
+        laggard sweep's) and the chaos engine's ``OP_CRASH`` and
+        ``OP_RESTORE`` are applied at their recorded positions. A restore
+        victim's checkpoints are re-derived during the replay (the same
+        delivery stream gives the same Process bytes), so the dump stores
+        none."""
         ops = list(record.lifecycle)
-        if any(op[0] != ScenarioRecord.OP_RESYNC for op in ops):
-            raise NotImplementedError(
-                "record carries chaos crash/restore lifecycle operations; "
-                "their replay needs the checkpoint capture of chaos, which "
-                "is not ported to the PyTorch package yet (a later slice of "
-                "the port)"
-            )
         if record.epochs is not None and "epochs" not in kwargs:
             from hyperdrive_tpu_torch.epochs import EpochConfig
 
@@ -3074,6 +3450,9 @@ class Simulation:
                 sim._qhead = 0
                 sim._settle()
         else:
+            sim._ckpt_capture = {
+                rep for kind, _, rep, _ in ops if kind == ScenarioRecord.OP_RESTORE
+            }
             optr = 0
             for j, (to, msg) in enumerate(record.messages):
                 while optr < len(ops) and ops[optr][1] <= j:
@@ -3082,6 +3461,8 @@ class Simulation:
                 if not sim.alive[to]:
                     continue
                 sim.replicas[to].handle(msg)
+                if to in sim._ckpt_capture:
+                    sim._ckpt_store.save(to, sim.replicas[to].proc)
                 steps += 1
             for op in ops[optr:]:
                 sim._replay_lifecycle(op)
@@ -3089,6 +3470,41 @@ class Simulation:
         res.record = record
         res.sim = sim
         return res
+
+
+class _ChaosEnvelope:
+    """Marks a delayed or duplicated delivery that already passed the
+    link-fault stage, so its re-delivery meets partitions only (a delayed
+    frame must not be delayed or duplicated again forever). Not a Timeout,
+    so a pending delayed delivery survives :meth:`Simulation._prune_clock`."""
+
+    __slots__ = ("msg",)
+
+    def __init__(self, msg):
+        self.msg = msg
+
+
+class _PartitionRT:
+    """Runtime state of one scheduled
+    :class:`~hyperdrive_tpu_torch.chaos.plan.Partition`: group membership
+    resolved to a dict, and the engaged/healed latch (each partition fires
+    once)."""
+
+    __slots__ = ("spec", "engaged", "healed", "gid")
+
+    def __init__(self, spec):
+        self.spec = spec
+        self.engaged = False
+        self.healed = False
+        self.gid: dict[int, int] = {}
+        for g, members in enumerate(spec.groups):
+            for m in members:
+                self.gid[m] = g
+
+    def blocks(self, a: int, b: int) -> bool:
+        # Replicas absent from every listed group share the implicit
+        # remainder group (-1).
+        return self.gid.get(a, -1) != self.gid.get(b, -1)
 
 
 class _PayloadProposer:

@@ -35,11 +35,11 @@ The classes form a closed vocabulary (mirroring ``SHED_CLASSES``):
     outrank queries by doctrine.
 
 Port copy of ``hyperdrive_tpu/load/frames.py``, whole. In the port its
-callers are the overlay's contribution scorer
-(:mod:`hyperdrive_tpu_torch.overlay`) and the stale-generation filter on
-:class:`~hyperdrive_tpu_torch.transport.TcpNode`'s wire ingress; the
-admission gate named above is the JAX package's (the rest of ``load/``
-comes to the port with chaos).
+callers are the admission gate
+(:mod:`hyperdrive_tpu_torch.load.backpressure`), the overlay's
+contribution scorer (:mod:`hyperdrive_tpu_torch.overlay`) and the
+stale-generation filter on
+:class:`~hyperdrive_tpu_torch.transport.TcpNode`'s wire ingress.
 """
 
 from __future__ import annotations

@@ -22,8 +22,9 @@ Public surface:
 Port copy of ``hyperdrive_tpu/overlay/``: the topology and the scores are
 the reference's unchanged; the runtime drops the analysis hooks, the
 recorder and the registry (see :mod:`.runtime`). ``OverlayFaults`` is
-used directly by ``Simulation(overlay=OverlayConfig(faults=...))``; the
-``FaultPlan.overlay`` composition comes with chaos.
+used by ``Simulation(overlay=OverlayConfig(faults=...))``, and
+:meth:`~hyperdrive_tpu_torch.chaos.FaultPlan.overlay` composes it with a
+tree-slicing partition and a crash.
 """
 
 from hyperdrive_tpu_torch.overlay.runtime import (

@@ -21,8 +21,8 @@ back over the demotion threshold — chaos asserts that honest peers
 demoted during a fault window recover after it heals.
 
 Port copy of ``hyperdrive_tpu/overlay/score.py``, unchanged (pure integer
-Python). The chaos monitor named above is the JAX package's; it comes to
-the port with chaos.
+Python). The chaos monitor named above is
+:class:`~hyperdrive_tpu_torch.chaos.InvariantMonitor` (``_check_overlay``).
 """
 
 from __future__ import annotations

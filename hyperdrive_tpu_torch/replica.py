@@ -30,9 +30,11 @@ Port copy of ``hyperdrive_tpu/replica.py``, plus :func:`merge_drain`.
 Removed: the tracer, logger, metrics recorder (``obs``) and sanitizer
 hooks (``utils.trace``, ``utils.log``, ``obs.recorder``,
 ``analysis.sanitizer``, ``@hot_path``) and the committer/catcher wrappers
-that only fed them, the stale-vote warning log line, and the admission
-gate (``load/`` is not ported yet). The epoch stale-key filter
-(``retired``, ``stale_votes``) is the reference's. A ``certifier``
+that only fed them, and the stale-vote warning log line. The epoch
+stale-key filter (``retired``, ``stale_votes``) and the admission gate
+(``admission``, a :class:`~hyperdrive_tpu_torch.load.backpressure.
+AdmissionGate` consulted after the height and stale-key filters) are the
+reference's. A ``certifier``
 (:class:`~hyperdrive_tpu_torch.certificates.Certifier`) goes to the
 Process, which mints a certificate at every commit.
 """
@@ -214,6 +216,12 @@ class Replica:
         self.retired: dict = {}
         #: Stale-generation votes rejected.
         self.stale_votes = 0
+        #: Optional AdmissionGate (:mod:`~hyperdrive_tpu_torch.load.
+        #: backpressure`): consulted after the height and stale-key filters
+        #: in :meth:`_buffer_vote` and the inlined :meth:`handle_burst`
+        #: rule. Under pressure, classified traffic (duplicates, over-share
+        #: prevotes) sheds here before it can buffer. None = admit all.
+        self.admission = None
 
     # ------------------------------------------------------------ sync driving
 
@@ -283,6 +291,7 @@ class Replica:
         cur = self.proc.current_height
         dh = self.did_handle_message
         retired = self.retired
+        adm = self.admission
         for msg in msgs:
             t = type(msg)
             if t is Prevote or t is Precommit or t is Propose:
@@ -295,6 +304,10 @@ class Replica:
                             dh()
                         continue
                 if h >= cur:
+                    if adm is not None and not adm.admit(msg):
+                        if dh is not None:
+                            dh()
+                        continue
                     if h == cur:
                         c = counts.get(msg.sender, 0)
                         if c < cap:
@@ -352,7 +365,7 @@ class Replica:
 
     def _buffer_vote(self, msg) -> None:
         """Height-filter + buffer one vote: below-height and stale-key
-        drops, the current-height fast lane in ``external_flush`` mode, the
+        drops, the admission gate's sheds, the current-height fast lane in ``external_flush`` mode, the
         sorted queue otherwise. :meth:`handle_burst` inlines the same
         rule."""
         h = msg.height
@@ -366,6 +379,8 @@ class Replica:
                 # the rotation binds: dropped before it can buffer.
                 self.stale_votes += 1
                 return
+        if self.admission is not None and not self.admission.admit(msg):
+            return
         if h == cur and self.opts.external_flush:
             c = self._lane_counts.get(msg.sender, 0)
             if c < self.opts.max_capacity:

@@ -41,7 +41,8 @@ boundary's hot swap) and the :attr:`~DeviceTallyFlusher.generation` that
 queue-mode commands carry are the reference's. Dropped, as the port's
 conventions say: the metrics recorder (``obs``), the ``@async_scope`` and
 ``device_fetch`` analysis hooks, and the sanitizer's default
-``tally_check`` (``analysis.sanitizer.maybe_tally_check``).
+``tally_check`` (``analysis.sanitizer.maybe_tally_check``). Added: the
+``cancelled`` and ``plane_resets`` counts.
 
 A ``certifier`` (:class:`~hyperdrive_tpu_torch.certificates.Certifier`,
 shared with the replica's Process) is bound to the verifier's
@@ -143,6 +144,12 @@ class DeviceTallyFlusher:
         #: Futures of submitted-but-unsettled windows, in submission order
         #: (crash-restart :meth:`reset` cancels them).
         self._inflight: list = []
+        #: Windows :meth:`reset` cancelled in flight, and settles that reset
+        #: this replica's grid plane (a height move, or the first settle
+        #: after a reset dropped the height claim). Port additions: the
+        #: card's crash-restart check reads them.
+        self.cancelled = 0
+        self.plane_resets = 0
 
     def warmup(self) -> None:
         """Run the grid program once (an empty scatter) and the verifier's
@@ -171,6 +178,7 @@ class DeviceTallyFlusher:
         on top of its checkpoint) and drop the height claim, so the next
         settle resets the grid plane instead of trusting pre-crash
         scatters."""
+        self.cancelled += len(self._inflight)
         for fut in self._inflight:
             fut.cancel()
         self._inflight.clear()
@@ -348,6 +356,7 @@ class DeviceTallyFlusher:
         h = proc.current_height
         if self._height != h:
             reset[0] = True
+            self.plane_resets += 1
             self._height = h
             self._dirty = set()
 

@@ -26,16 +26,19 @@ package's. Dropped, as the port's conventions say: the wire-codec lint
 markers (``analysis.annotations``), the sanitizer's wire reader
 (``analysis.sanitizer``), the causal trace stamp (``trace=``,
 ``obs.tracectx``), the metrics recorder (the ``obs=`` argument), the
-metrics registry (``registry=``), the logger (``utils.log``; the counters stay), the
-admission gate (``admission=``, the rest of the ``load/`` package) and
-with it the priority-aware prevote shedding. Epoch rotation is the
+metrics registry (``registry=``) and the logger (``utils.log``; the
+counters stay). The admission gate (``admission=``, an
+:class:`~hyperdrive_tpu_torch.load.backpressure.AdmissionGate` on wire
+ingress, attributed to the sending peer, the node's own broadcasts
+ungated) and the priority-aware shedding of a full peer backlog are the
+reference's. Epoch rotation is the
 reference's: :meth:`TcpNode.rotate_epoch` installs the new table on every
 registered wire verifier, and wire ingress drops (and counts in
 ``stale_frames``) frames signed under a retired identity, classified by
 :mod:`hyperdrive_tpu_torch.load.frames`; the ``epoch.switch`` and
 ``wire.frame.stale`` events and the registry count went with the
-recorder and the registry. The constructor's ``trace``, ``admission`` and
-``registry`` raise ``NotImplementedError`` when they are not None.
+recorder and the registry. The constructor's ``trace`` and ``registry``
+raise ``NotImplementedError`` when they are not None.
 """
 
 from __future__ import annotations
@@ -47,6 +50,7 @@ import struct
 import threading
 
 from hyperdrive_tpu_torch.codec import Reader, SerdeError, Writer
+from hyperdrive_tpu_torch.load.backpressure import SHED_LOW_PRIORITY
 from hyperdrive_tpu_torch.load.frames import STALE_GENERATION, classify_frame
 from hyperdrive_tpu_torch.messages import (
     Precommit,
@@ -138,11 +142,18 @@ class TcpNode:
     def __init__(self, listen_port: int = 0, host: str = "127.0.0.1",
                  admission=None, registry=None, seed: int = 0,
                  backoff=None, trace=None):
-        for name, value in (("trace", trace), ("admission", admission),
-                            ("registry", registry)):
+        for name, value in (("trace", trace), ("registry", registry)):
             if value is not None:
                 raise NotImplementedError(f"TcpNode({name}=...) is {_LATER}")
         self._host = host
+        #: Optional AdmissionGate (:mod:`~hyperdrive_tpu_torch.load.
+        #: backpressure`) applied to WIRE ingress only: frames decoded off
+        #: peer connections pass through it before delivery, attributed to
+        #: the sending peer for fairness; a node's own broadcasts
+        #: self-deliver ungated (a replica never sheds its own votes).
+        #: Build the gate with ``threadsafe=True``: read loops run one
+        #: thread per peer.
+        self.admission = admission
         #: Reconnect-backoff shaping overrides (``base`` / ``factor`` /
         #: ``cap`` / ``jitter`` of :func:`reconnect_schedule`), validated
         #: here, not on the first outage.
@@ -273,6 +284,10 @@ class TcpNode:
             t.start()
 
     def _read_loop(self, conn: socket.socket) -> None:
+        try:
+            peer = conn.getpeername()
+        except OSError:
+            peer = None
         with conn:
             while not self._stop.is_set():
                 try:
@@ -297,9 +312,9 @@ class TcpNode:
                     continue  # malformed envelope: drop the frame
                 if self._stop.is_set():
                     return
-                self._deliver(msg)
+                self._deliver(msg, peer=peer)
 
-    def _deliver(self, msg, local: bool = False) -> None:
+    def _deliver(self, msg, peer=None, local: bool = False) -> None:
         # Timeouts are LOCAL events (each replica's own LinearTimer
         # enqueues them); one arriving off the wire is a forgery attempt
         # that could drive honest replicas into premature round changes.
@@ -313,6 +328,12 @@ class TcpNode:
                 with self._lock:
                     self.stale_frames += 1
                 return  # counted, never fatal to the connection
+        if (
+            not local
+            and self.admission is not None
+            and not self.admission.admit(msg, peer)
+        ):
+            return
         for r in self._replicas:
             if t is Propose:
                 r.propose(msg, self._stop)
@@ -332,9 +353,10 @@ class TcpNode:
         sched = reconnect_schedule(self.seed, key, **self.backoff)
         attempts = 0
         while not self._stop.is_set():
-            frame = q.get()
-            if frame is None or self._stop.is_set():
+            item = q.get()
+            if item is None or self._stop.is_set():
                 break
+            frame = item[1]
             while not self._stop.is_set():
                 if sock is None:
                     try:
@@ -370,21 +392,46 @@ class TcpNode:
     def broadcast(self, msg) -> None:
         """Fan out to all: local replicas directly, remote peers via their
         sender queues (never blocks on a slow or dead peer). A full peer
-        queue sheds its oldest frame, counted per peer in
-        ``dropped_frames``."""
+        queue sheds priority-aware: under admission pressure (level >=
+        SHED_LOW_PRIORITY) a new *prevote* frame is itself dropped
+        (backlogged proposals and precommits are worth more than a fresh
+        prevote); otherwise the oldest frame is evicted. Every shed counts
+        per peer in ``dropped_frames``, and with a gate the worst peer
+        occupancy is fed back to its controller."""
         self._deliver(msg, local=True)
         frame = encode_frame(msg)
+        # Frames queue with the class they would shed under: prevotes are
+        # the low-priority tier; everything else only ever sheds as
+        # best-effort backlog eviction.
+        cls = "low_priority" if type(msg) is Prevote else "backlog"
+        level = 0
+        ctrl = self.admission.controller if self.admission is not None else None
+        if ctrl is not None:
+            level = ctrl.level
+        worst = 0.0
         for key, q in self._peer_queues.items():
-            while True:
+            if level >= SHED_LOW_PRIORITY and cls == "low_priority":
+                # A full queue drops the new prevote instead of evicting
+                # older (higher-value) frames.
                 try:
-                    q.put_nowait(frame)
-                    break
+                    q.put_nowait((cls, frame))
                 except queue.Full:
-                    try:
-                        q.get_nowait()  # shed the oldest frame
-                    except queue.Empty:
-                        continue
                     self._count_shed(key)
+            else:
+                while True:
+                    try:
+                        q.put_nowait((cls, frame))
+                        break
+                    except queue.Full:
+                        try:
+                            q.get_nowait()  # shed the oldest frame
+                        except queue.Empty:
+                            continue
+                        self._count_shed(key)
+            if ctrl is not None:
+                worst = max(worst, q.qsize() / _PEER_QUEUE)
+        if ctrl is not None:
+            ctrl.note_peer_occupancy(worst)
 
     def _count_shed(self, key) -> None:
         with self._lock:

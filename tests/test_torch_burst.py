@@ -248,11 +248,12 @@ def test_knobs_take_the_reference_defaults_and_errors():
         with pytest.raises(ValueError):
             RefSimulation(n=4, target_height=1, **kw)
     # Lock-step delivery and its knobs are ported (the lock-step tests
-    # hold them to the JAX runs); in burst mode the per-replica seams and
-    # epochs and the overlay raise the reference's ValueError; the laggard
+    # hold them to the JAX runs); in burst mode the per-replica seams,
+    # epochs, the overlay, chaos and load raise the reference's ValueError; the laggard
     # sweep's knobs are accepted, as in the reference.
     for kw in (dict(verifier_for=lambda i: None), dict(flusher_for=lambda i, s: None),
-               dict(epochs=object()), dict(overlay=object())):
+               dict(epochs=object()), dict(overlay=object()), dict(chaos=object()),
+               dict(load=object())):
         with pytest.raises(ValueError):
             Simulation(n=4, target_height=1, burst=True, **kw)
         with pytest.raises(ValueError):
@@ -261,8 +262,7 @@ def test_knobs_take_the_reference_defaults_and_errors():
                dict(record=False), dict(catchup_every=4), dict(catchup_lag=2)):
         kw.setdefault("burst", True)
         Simulation(n=4, target_height=1, **kw)
-    for kw in (dict(tally_mesh=object()), dict(observe=True), dict(obs_capacity=16),
-               dict(chaos=object()), dict(load=object())):
+    for kw in (dict(tally_mesh=object()), dict(observe=True), dict(obs_capacity=16)):
         with pytest.raises(NotImplementedError):
             Simulation(n=4, target_height=1, burst=True, **kw)
 

@@ -39,6 +39,7 @@ from hyperdrive_tpu.exec.ledger import BlockSource as RefBlockSource
 from hyperdrive_tpu.exec.ledger import HostLedgerExecutor as RefHostExecutor
 from hyperdrive_tpu.epochs import EpochConfig as RefEpochConfig
 from hyperdrive_tpu.harness import Simulation as RefSimulation
+from hyperdrive_tpu.load import LoadProfile as RefLoadProfile
 from hyperdrive_tpu.ops import ledger as ref_ledger
 from hyperdrive_tpu.ops import merkle as ref_merkle
 from hyperdrive_tpu.ops import rootmix as ref_rootmix
@@ -54,6 +55,7 @@ from hyperdrive_tpu_torch.exec.ledger import (
     HostLedgerExecutor,
 )
 from hyperdrive_tpu_torch.harness import ScenarioRecord, Simulation
+from hyperdrive_tpu_torch.load import LoadProfile
 from hyperdrive_tpu_torch.ops import ledger, rootmix
 from hyperdrive_tpu_torch.verifier import HostVerifier
 
@@ -502,19 +504,30 @@ def test_fused_drain_issues_fewer_launches_than_two_kind():
           batch_verifier=None,
           execution=ExecutionConfig(accounts=2, txs_per_block=4, stake_every=0)),
      ValueError),
-    (dict(load=object()), NotImplementedError),
+    # Open-loop load injects per lock-step delivery: in burst mode it is
+    # the reference's ValueError (checked in both packages below).
+    (dict(load=LoadProfile(rate=10.0)), ValueError),
+    # In lock-step too: load re-injects votes with no block content.
+    (dict(load=LoadProfile(rate=10.0), burst=False, sign=False, batch_verifier=None,
+          delivery_cost=1e-3), ValueError),
     # Execution runs under lock-step delivery; a batch verifier does not.
     (dict(burst=False), ValueError),
     (dict(payload_bytes=31), ValueError),
     (dict(exec_speculate=True), ValueError),
     (dict(fused_exec_drain=True, pipeline_heights=True), ValueError),
-], ids=["epochs", "load", "lockstep", "payload", "speculate_sequential", "fused_unsigned"])
+], ids=["epochs", "load", "load_lockstep", "lockstep", "payload", "speculate_sequential",
+        "fused_unsigned"])
 def test_refused_option_combinations(opts, error):
     kw = dict(SIM, device="cpu", batch_verifier=HostVerifier(),
               execution=ExecutionConfig(**SIM_LEDGER))
     kw.update(opts)
     with pytest.raises(error):
         Simulation(**kw)
+    if "load" in opts:
+        ref_kw = dict(SIM, batch_verifier=RefHostVerifier(), execution=RefConfig(**SIM_LEDGER))
+        ref_kw.update(opts, load=RefLoadProfile(rate=10.0))
+        with pytest.raises(error, match="load"):
+            RefSimulation(**ref_kw)
 
 
 # ------------------------------------------------------ stake-driven epochs

@@ -21,17 +21,21 @@ the injected queue. The tolerance is exact equality throughout.
 import pytest
 import torch
 
+from hyperdrive_tpu.chaos import FaultPlan as RefFaultPlan
 from hyperdrive_tpu.devsched import DeviceWorkQueue as RefQueue
 from hyperdrive_tpu.devsched import QueueFlusher as RefQueueFlusher
 from hyperdrive_tpu.exec import ExecutionConfig as RefExecutionConfig
 from hyperdrive_tpu.harness import Simulation as RefSimulation
+from hyperdrive_tpu.load import LoadProfile as RefLoadProfile
 from hyperdrive_tpu.overlay import OverlayConfig as RefOverlayConfig
 from hyperdrive_tpu.verifier import HostVerifier as RefHostVerifier
 from hyperdrive_tpu.verifier import NullVerifier as RefNullVerifier
+from hyperdrive_tpu_torch.chaos import FaultPlan
 from hyperdrive_tpu_torch.devsched import DeviceWorkQueue, QueueFlusher
 from hyperdrive_tpu_torch.devsched.__main__ import main as devsched_main
 from hyperdrive_tpu_torch.exec import ExecutionConfig
 from hyperdrive_tpu_torch.harness import Simulation
+from hyperdrive_tpu_torch.load import LoadProfile
 from hyperdrive_tpu_torch.ops.ed25519 import TorchBatchVerifier
 from hyperdrive_tpu_torch.overlay import OverlayConfig
 from hyperdrive_tpu_torch.verifier import HostVerifier, NullVerifier
@@ -209,10 +213,15 @@ def test_lockstep_refusals(kw, match):
 @pytest.mark.parametrize("opt", ["tally_mesh", "observe", "obs_capacity", "chaos", "load",
                                  "overlay", "catchup_every", "catchup_lag"])
 def test_unported_subsystems_refused_with_reason(opt):
-    # The overlay and the laggard sweep are ported: their cases are the
-    # reference's ValueErrors (an overlay in burst mode, a sweep every 0
-    # steps, a negative lag), raised by both packages.
+    # Chaos, load, the overlay and the laggard sweep are ported: their
+    # cases are the reference's ValueErrors (chaos or an overlay in burst
+    # mode, load without delivery pacing, a sweep every 0 steps, a negative
+    # lag), raised by both packages.
     lifted = {
+        "chaos": (dict(chaos=FaultPlan(), burst=True), dict(chaos=RefFaultPlan(), burst=True),
+                  "lock-step"),
+        "load": (dict(load=LoadProfile(rate=10.0)), dict(load=RefLoadProfile(rate=10.0)),
+                 "delivery_cost"),
         "overlay": (dict(overlay=OverlayConfig(), burst=True, delivery_cost=1e-3),
                     dict(overlay=RefOverlayConfig(), burst=True, delivery_cost=1e-3),
                     "lock-step"),

@@ -17,11 +17,15 @@ import hashlib
 import pytest
 import torch
 
+from hyperdrive_tpu.chaos import CrashRestart as RefCrashRestart
+from hyperdrive_tpu.chaos import FaultPlan as RefFaultPlan
 from hyperdrive_tpu.codec import Reader as RefReader
+from hyperdrive_tpu.codec import Writer as RefWriter
 from hyperdrive_tpu.exec import ExecutionConfig as RefExecutionConfig
 from hyperdrive_tpu.harness.sim import ScenarioRecord as RefScenarioRecord
 from hyperdrive_tpu.harness.sim import Simulation as RefSimulation
 from hyperdrive_tpu.verifier import HostVerifier as RefHostVerifier
+from hyperdrive_tpu_torch.chaos import CrashRestart, FaultPlan
 from hyperdrive_tpu_torch.codec import Reader, SerdeError, Writer
 from hyperdrive_tpu_torch.crypto.keys import KeyRing
 from hyperdrive_tpu_torch.exec import ExecutionConfig
@@ -200,10 +204,26 @@ def test_recorded_messages_list_compatibility():
 
 
 def test_chaos_lifecycle_record_refused():
-    rec = ScenarioRecord(seed=1, n=4, f=1, target_height=1,
-                         lifecycle=[(ScenarioRecord.OP_CRASH, 3, 1, 0)])
-    w = Writer()
-    rec.marshal(w)
-    assert ScenarioRecord.unmarshal(Reader(w.data())).lifecycle == rec.lifecycle
-    with pytest.raises(NotImplementedError, match="chaos"):
-        Simulation.replay(rec)
+    # Chaos is ported: a record with crash and restore operations is no
+    # longer refused but replayed, the victim's checkpoints re-derived. The
+    # same n = 4 run in both packages gives the same record bytes, and each
+    # package's replay of it gives the live run's commits.
+    plans = (FaultPlan(crashes=(CrashRestart(replica=1, crash_at_step=60,
+                                             restart_after_steps=80),)),
+             RefFaultPlan(crashes=(RefCrashRestart(replica=1, crash_at_step=60,
+                                                   restart_after_steps=80),)))
+    live = Simulation(n=4, target_height=4, seed=1, delivery_cost=1e-3,
+                      chaos=plans[0]).run()
+    ref = RefSimulation(n=4, target_height=4, seed=1, delivery_cost=1e-3,
+                        chaos=plans[1], observe=False).run()
+    w, rw = Writer(), RefWriter()
+    live.record.marshal(w)
+    ref.record.marshal(rw)
+    assert w.data() == rw.data()
+    rec = ScenarioRecord.unmarshal(Reader(w.data()))
+    kinds = [op[0] for op in rec.lifecycle]
+    assert ScenarioRecord.OP_CRASH in kinds and ScenarioRecord.OP_RESTORE in kinds
+    assert live.completed and live.commits == ref.commits
+    assert Simulation.replay(rec).commits == live.commits
+    assert RefSimulation.replay(RefScenarioRecord.unmarshal(RefReader(w.data()))).commits \
+        == live.commits

@@ -12,12 +12,15 @@ import numpy as np
 import pytest
 import torch
 
+from hyperdrive_tpu.chaos import FaultPlan as RefFaultPlan
+from hyperdrive_tpu.chaos import Partition as RefPartition
 from hyperdrive_tpu.crypto.keys import KeyRing as RefKeyRing
 from hyperdrive_tpu.harness import Simulation as RefSimulation
 from hyperdrive_tpu.messages import Prevote as RefPrevote
 from hyperdrive_tpu.ops.votegrid import CheckedTallyView as RefCheckedTallyView
 from hyperdrive_tpu.verifier import HostVerifier as RefHostVerifier
 from hyperdrive_tpu_torch import native
+from hyperdrive_tpu_torch.chaos import FaultPlan, Partition
 from hyperdrive_tpu_torch.crypto import ed25519 as port_ed
 from hyperdrive_tpu_torch.harness import Simulation
 from hyperdrive_tpu_torch.messages import Prevote
@@ -84,8 +87,13 @@ def test_unported_options_are_refused():
         Simulation(n=4, target_height=1, burst=True, tally_mesh=object())
     with pytest.raises(NotImplementedError, match="observe"):
         Simulation(n=4, target_height=1, burst=True, observe=True)
-    with pytest.raises(NotImplementedError):
-        Simulation(n=4, target_height=1, burst=False, chaos=object())
+    # Chaos is ported: a plan with a partition needs delivery pacing, the
+    # reference's ValueError in both packages.
+    for sim_cls, plan_cls, part_cls in ((Simulation, FaultPlan, Partition),
+                                        (RefSimulation, RefFaultPlan, RefPartition)):
+        plan = plan_cls(partitions=(part_cls(at=0.1, heal=1.0, groups=((0,),)),))
+        with pytest.raises(ValueError, match="delivery_cost"):
+            sim_cls(n=4, target_height=1, burst=False, chaos=plan)
     with pytest.raises(ValueError):
         Simulation(n=4, target_height=1, burst=True, small_window_host=True)
     # Unsigned burst mode runs with no verifier at all.

@@ -199,7 +199,9 @@ def test_peer_backlog_overflow_sheds_the_oldest_frames():
         assert node.dropped_frames == {key: 3}
         q = node._peer_queues[key]
         assert q.qsize() == _PEER_QUEUE
-        assert q.get_nowait() == encode_frame(frames[3])
+        # Frames queue with the class they would shed under, as in the
+        # reference: a prevote is the low-priority tier.
+        assert q.get_nowait() == ("low_priority", encode_frame(frames[3]))
     finally:
         node.stop()
 
@@ -226,8 +228,20 @@ def test_inbox_methods_enqueue_and_reset_height_jumps():
 
 
 def test_unported_node_features_refuse():
-    with pytest.raises(NotImplementedError):
-        TcpNode(admission=object())
+    # The admission gate is ported: both packages take it (the admission
+    # cases run in tests/test_torch_load.py); the trace stamp and the
+    # registry still refuse.
+    from hyperdrive_tpu.load import AdmissionGate as RefAdmissionGate
+    from hyperdrive_tpu.load import BackpressureController as RefController
+    from hyperdrive_tpu_torch.load import AdmissionGate, BackpressureController
+
+    for node_cls, gate in ((TcpNode, AdmissionGate(BackpressureController())),
+                           (RefTcpNode, RefAdmissionGate(RefController()))):
+        node = node_cls(admission=gate)
+        try:
+            assert node.admission is gate
+        finally:
+            node.stop()
     with pytest.raises(NotImplementedError):
         TcpNode(trace=object())
     with pytest.raises(NotImplementedError):
