@@ -191,7 +191,34 @@ Phases, each printing its lines:
    overload snapshot, launches and verified rows beside the queue leg's);
    ``escalation`` (the same with ``pin=False``: the controller watches
    the card queue; the JAX run's level and transitions);
-11. the deployment path: threaded replicas on a loopback-TCP full mesh,
+11. attack campaigns (``phase_campaign``, lines ``campaign``): the storm,
+   capture and coincidence families at ``CampaignConfig()`` (1,024
+   validators, committee 64, seed 0) through ``run_campaign`` on a card
+   ``TorchBatchVerifier`` (one ``ed25519_verify`` launch a wave), each on
+   the JAX run's digest with no violation, its launches equal to its
+   verify calls and their rows, and replayed (``replay_campaign(device=
+   "cuda")``) to the same digest; then the storm at the campaign bench's
+   shape (committee 32, 8 attackers, 120 waves) with the reputation loop
+   on and off: digests, launches, rows verified and failed, demotions,
+   wall and verify share; one wave of every storm leg with its card mask
+   against ``verify_plain``'s and ``HostVerifier``'s;
+12. the multi-tenant verify service (``phase_service``, lines
+   ``service``): the multi-tenant bench's series (16-validator tenants, M
+   = 1, 2, 4, 8, 16, a warm-up wave and 4 heights) through one shared
+   ``ShardVerifyService`` and through M dedicated ones on the same card
+   verifier: digests equal to a ``HostVerifier`` run, 5 launches shared
+   (16 M rows each) and 5 M dedicated, walls and votes/s; the fairness
+   leg (a 48-validator firehose and a 4-validator victim, FIFO against
+   ``DeficitRoundRobin``, 3 repetitions): the starvation bound, the
+   victim's p99; a ``ServicePort`` on 127.0.0.1 with a
+   ``RemoteServiceClient`` tenant beside three local ones, pinned at
+   CRITICAL_ONLY until the first busy answer: its digest equal to its
+   local run, fewer launches than submissions, every certificate
+   verified, the shed window resubmitted; execution-attached tenants:
+   roots equal to the host executor's, a proof query verified against
+   the certified root, a rotation to generation 1 mid-serve reaching the
+   card verifier's ``set_generation`` with roots and digest unchanged;
+13. the deployment path: threaded replicas on a loopback-TCP full mesh,
    one worker process per port (``python -m
    hyperdrive_tpu_torch.harness.deploy ... card``), each process with one
    ``TorchWireVerifier`` (a ``ValidatorTable`` of the network's keys:
@@ -210,7 +237,7 @@ Phases, each printing its lines:
    begin ``deploy``. Before them, ``deploy contention:`` lines: a flush's
    grid call (n = 1, V = 256) and verify call (100 grouped lanes), host
    wall per call from one thread and from 64 threads of this process;
-12. Shamir reconstruct (``ops/shamir.py``, PyTorch ops, no hand-written
+14. Shamir reconstruct (``ops/shamir.py``, PyTorch ops, no hand-written
    kernel): ``BatchReconstructor`` on the card at k = 171 (n = 256, f =
    85) for 16, 64 and 1,024 blocks, every payload equal byte for byte to
    the oracle's ``reconstruct_payload`` (at 1,024 blocks: to the payload,
@@ -219,7 +246,7 @@ Phases, each printing its lines:
    CUDA kernels a call, the bound and its share, the wrapper's and the
    host leg's wall; ``AdaptiveReconstructor``'s calibration record at
    1,024 blocks; on lines that begin ``programs: shamir``;
-13. the RLC batch equation (``rlc_check`` on ``ops/msm.py``, PyTorch ops):
+15. the RLC batch equation (``rlc_check`` on ``ops/msm.py``, PyTorch ops):
    one 64-lane MSM equal to the oracle's point sum; then
    ``TorchBatchVerifier(rlc=True)`` at 64, 256, 1,024 and 4,096 lanes: a
    clean batch accepted by one check with no fallback and no ladder
@@ -228,7 +255,7 @@ Phases, each printing its lines:
    order-8 torsion vector accepted by the RLC and rejected by the ladder;
    ms and CUDA kernels of ``rlc_check`` beside the ladder's time at the
    same lanes; on lines that begin ``programs: rlc``;
-14. config 5 (BASELINE configs[4]) as the JAX package's bench runs it
+16. config 5 (BASELINE configs[4]) as the JAX package's bench runs it
    (n = 256, k = 171, 496-byte payloads, seed 1005, 20 s timeouts,
    burst, 10 heights), signed (every settle on ``ed25519_verify``): the
    host run (``HostVerifier``), a run with
@@ -237,13 +264,13 @@ Phases, each printing its lines:
    on the host leg: no launch); each equal to the host run in digest,
    steps and every replica's reconstructed payloads; heights/s, the
    reconstruct share of wall and its p50, launches; lines ``config5``;
-15. certificates: the main path with ``certificates=True`` through the
+17. certificates: the main path with ``certificates=True`` through the
    packed verifier with ``rlc=False`` and ``rlc=True``: digest
    ``215413db54656240`` in 656,640 steps, chain digests equal across
    replicas and to a host run's, every certificate re-verified and
    round-tripped through its codec, the RLC run's checks, fallbacks and
    wall; lines ``certs``;
-16. the execution layer (``exec/``, ``ops/ledger.py``, ``ops/merkle.py``,
+18. the execution layer (``exec/``, ``ops/ledger.py``, ``ops/merkle.py``,
    PyTorch ops, no hand-written kernel) at the JAX package's documented
    sizes: one Merkleized apply step at 65,536 accounts and 16,384
    (incremental tree update) and 65,536 txs (full rebuild), every output
@@ -259,7 +286,7 @@ Phases, each printing its lines:
    equal across the three and the JAX package's digest, fewer
    ``ed25519_verify`` launches fused, and the blocks' signature rows
    verified by ``ed25519_verify``; lines ``exec``;
-17. BLS12-381 (``phase_bls``): ``fp381.mul`` (PyTorch ops) on 4,096 products
+19. BLS12-381 (``phase_bls``): ``fp381.mul`` (PyTorch ops) on 4,096 products
    against Python ints; the ``g1_aggregate`` kernel (``csrc/g1_aggregate.cu``,
    built in phase 1 beside the ed25519 library, one nvcc a unit, both
    started together) against its plain version ``aggregate_kernel`` at the
@@ -286,7 +313,7 @@ Phases, each printing its lines:
    ``bls``, ``kernel g1_aggregate`` and ``programs: bls``, after the
    card's name and power limit.
 
-Each path of phases 5, 6, 7, 8, 10, 13, 14, 15 and 16 is driven with
+Each path of phases 5, 6, 7, 8, 10, 11, 12, 15, 16, 17 and 18 is driven with
 the kernel counts set to 0 just before it and read just after.
 
 The line before the last is the kernel table as JSON; the last line is
@@ -3046,6 +3073,449 @@ def phase_chaos() -> None:
              f"transitions={snap['transitions']}")
 
 
+#: ``CampaignConfig()`` (1,024 validators, committee 64, 8 epochs x 4
+#: heights, seed 0): each family's digest prefix and verify calls, the
+#: JAX package's run on the CPU (its ``HostVerifier``).
+CAMPAIGN_A = {
+    "storm": dict(digest="c664eb809469ffb3", rows=[352, 96, 96, 96, 96, 96]),
+    "capture": dict(digest="958189e10b1d775a", rows=[]),
+    "coincidence": dict(digest="6caa95725a68985c", calls=8, total=1_084, widest=282),
+}
+#: The storm at the campaign bench's shape (``benches/campaign_bench.py``:
+#: committee 32, 8 attackers, 120 waves, 2 votes, attack rate 8), with the
+#: reputation loop on and off: digest, verify calls, rows verified and
+#: failed, demotions (the JAX run on the CPU).
+CAMPAIGN_B = {
+    True: dict(digest="13fe190186500e8c", calls=120, rows=6_144, failed=384, demotions=24),
+    False: dict(digest="a020be739b407aac", calls=120, rows=21_120, failed=15_360,
+                demotions=0),
+}
+CAMPAIGN_BENCH = dict(committee_size=32, attackers=8, waves=120, wave_votes=2, attack_rate=8)
+
+
+class _TimedVerifier:
+    """A card verifier seen from outside: the rows and host seconds of
+    each ``verify_signatures`` call (the mask comes back on the host, so
+    the call ends synchronised), and the items and mask of the first call
+    that both accepts and rejects rows. Every other attribute is the inner
+    verifier's."""
+
+    def __init__(self, inner):
+        self.inner = inner
+        self.rows: list = []
+        self.seconds = 0.0
+        self.sample = None
+
+    def __getattr__(self, name):
+        return getattr(self.inner, name)
+
+    def verify_signatures(self, items):
+        t0 = time.perf_counter()
+        mask = self.inner.verify_signatures(items)
+        self.seconds += time.perf_counter() - t0
+        self.rows.append(len(items))
+        if self.sample is None and mask.any() and not mask.all():
+            self.sample = (list(items), np.asarray(mask).copy())
+        return mask
+
+
+def _plain_mask_check(label: str, verifier) -> int:
+    """The sampled call's card mask against the plain version's
+    (``verify_plain`` on the same packed rows, on the card) and the host
+    verifier's; returns the rows compared. The plain run counts no
+    launch."""
+    from hyperdrive_tpu_torch.ops import ed25519 as ted
+    from hyperdrive_tpu_torch.verifier import HostVerifier
+
+    if verifier.sample is None:
+        raise AssertionError(f"{label}: no call both accepted and rejected rows")
+    items, mask = verifier.sample
+    arrays, prevalid, n = verifier.inner.host.pack(items)
+    plain = ted.verify_plain(*(torch.from_numpy(a).to("cuda") for a in arrays)).cpu().numpy()
+    plain = (plain & prevalid)[:n]
+    host = np.asarray(HostVerifier().verify_signatures(items), dtype=bool)
+    if not (np.array_equal(mask, plain) and np.array_equal(mask, host)):
+        raise AssertionError(f"{label}: card mask differs from the plain version's "
+                             f"or the host's on a {n}-row wave")
+    return n
+
+
+def phase_campaign() -> None:
+    """Attack campaigns on the card (``phase_campaign``, lines
+    ``campaign``): the storm and coincidence families batch-verify through
+    ``TorchBatchVerifier`` (``ed25519_verify``, one launch a wave).
+
+    - A, ``campaign defaults``: the three families at ``CampaignConfig()``
+      through ``run_campaign`` on the card verifier: the JAX run's digest, no
+      violation, launches equal to verify calls and their rows (storm
+      352 + 5 x 96, capture none, coincidence 1,084 over 8 calls); then
+      ``replay_campaign(record, device="cuda")`` of each record (its own
+      card verifier) to the same digest;
+    - B, ``campaign storm``: the campaign bench's storm shape, reputation
+      on and off: digests, 120 launches, rows verified and failed,
+      demotions, wall and verify share;
+    - in every storm leg one wave's card mask against the plain version's
+      and the host's."""
+    from hyperdrive_tpu_torch.campaign import CampaignConfig
+    from hyperdrive_tpu_torch.campaign.runner import replay_campaign, run_campaign
+    from hyperdrive_tpu_torch.ops import ed25519_cuda
+    from hyperdrive_tpu_torch.ops.ed25519 import TorchBatchVerifier
+
+    card = TorchBatchVerifier(device="cuda")
+    card.warmup()
+    torch.cuda.synchronize()
+
+    def leg(cfg, timed):
+        ed25519_cuda.reset_stats()
+        t0 = time.perf_counter()
+        out = run_campaign(cfg, verifier=timed)
+        wall = time.perf_counter() - t0
+        launched = {k: v.launches for k, v in ed25519_cuda.stats.items() if v.launches}
+        if not out.ok:
+            raise AssertionError(f"campaign {cfg.family}: violations {out.violations}")
+        if launched.get("ed25519_verify", 0) != len(timed.rows) or set(launched) - {
+                "ed25519_verify"}:
+            raise AssertionError(f"campaign {cfg.family}: launched {launched} for "
+                                 f"{len(timed.rows)} verify calls")
+        return out, wall
+
+    for family, want in CAMPAIGN_A.items():
+        cfg = CampaignConfig(family=family)
+        timed = _TimedVerifier(card)
+        out, wall = leg(cfg, timed)
+        digest = out.digest.hex()[:16]
+        rows = timed.rows
+        if "rows" in want:
+            ok = rows == want["rows"]
+        else:
+            ok = (len(rows), sum(rows), max(rows)) == (want["calls"], want["total"],
+                                                      want["widest"])
+        if digest != want["digest"] or not ok:
+            raise AssertionError(f"campaign {family}: digest {digest}, verify rows {rows}, "
+                                 f"want {want}")
+        compared = _plain_mask_check(f"campaign {family}", timed) if family == "storm" else 0
+        ed25519_cuda.reset_stats()
+        t0 = time.perf_counter()
+        same, fresh = replay_campaign(out.record, device="cuda")
+        replay_s = time.perf_counter() - t0
+        if not same or ed25519_cuda.stats["ed25519_verify"].launches != len(rows):
+            raise AssertionError(f"campaign {family}: replay digest {fresh.digest.hex()[:16]}, "
+                                 f"{ed25519_cuda.stats['ed25519_verify'].launches} launches")
+        print(f"campaign defaults {family}: digest={digest} violations=0 "
+              f"launches={len(rows)} rows={sum(rows)} widest={max(rows, default=0)} "
+              f"wall_s={wall:.3f} verify_s={timed.seconds:.3f} replay_s={replay_s:.3f} "
+              f"replay_digest_equal=True mask_rows_vs_plain={compared}", flush=True)
+
+    for reputation, want in CAMPAIGN_B.items():
+        cfg = CampaignConfig(reputation=reputation, **CAMPAIGN_BENCH)
+        timed = _TimedVerifier(card)
+        out, wall = leg(cfg, timed)
+        waves = out.summary["waves"]
+        got = dict(digest=out.digest.hex()[:16], calls=len(timed.rows),
+                   rows=sum(w["verified_rows"] for w in waves),
+                   failed=sum(w["failed_rows"] for w in waves),
+                   demotions=out.summary["gate"]["demotions"])
+        if got != want or got["rows"] != sum(timed.rows):
+            raise AssertionError(f"campaign storm reputation={reputation}: {got}, "
+                                 f"want {want}")
+        compared = _plain_mask_check(f"campaign storm reputation={reputation}", timed)
+        print(f"campaign storm reputation={reputation}: digest={got['digest']} "
+              f"launches={got['calls']} rows={got['rows']} failed={got['failed']} "
+              f"demotions={got['demotions']} wall_s={wall:.3f} verify_s={timed.seconds:.3f} "
+              f"verify_share={timed.seconds / wall:.4f} mask_rows_vs_plain={compared}",
+              flush=True)
+
+
+#: ``benches/multitenant_bench.py``'s shapes: 16-validator tenants at
+#: M = 1..16 (a warm-up wave, then 4 heights), and the fairness leg's
+#: firehose (48 validators) and victim (4 validators, 10 heights) under
+#: FIFO and ``DeficitRoundRobin``, 3 repetitions.
+SERVICE_M = (1, 2, 4, 8, 16)
+SERVICE_VALIDATORS = 16
+SERVICE_HEIGHTS = 4
+SERVICE_DRR = dict(capacity_rows=16, quantum_rows=4, starve_after=3)
+SERVICE_FAIR = dict(fire=48, victim=4, heights=10, reps=3)
+
+
+def _waves(services, tenants, heights: int) -> float:
+    """Lock-step waves, the bench's drive: every tenant submits one
+    window, then every service drains once. Wall seconds."""
+    t0 = time.perf_counter()
+    for _ in range(heights):
+        for t in tenants:
+            t.pump(max_inflight=1)
+        for svc in services:
+            svc.drain()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def _p99(xs) -> float:
+    xs = sorted(xs)
+    return xs[min(len(xs) - 1, int(0.99 * len(xs)))]
+
+
+def phase_service() -> None:
+    """The multi-tenant verify service on the card (``phase_service``,
+    lines ``service``): tenants share one card ``TorchBatchVerifier``
+    behind one ``DeviceWorkQueue``, every drain one ``ed25519_verify``
+    launch.
+
+    - A, ``service M=``: the multi-tenant bench's series, one shared
+      service against M dedicated services on the same verifier object:
+      every tenant's digest equal across the two and to a ``HostVerifier``
+      run, 5 launches shared (16 M rows each) and 5 M dedicated; walls,
+      votes/s and their ratio;
+    - B, ``service fairness``: the firehose and the victim under FIFO and
+      ``DeficitRoundRobin``: the starvation bound held
+      (``InvariantMonitor.check_tenant_fairness``), the victim's p99;
+    - C, ``service remote``: a ``ServicePort`` on 127.0.0.1 and an
+      in-process ``RemoteServiceClient`` tenant beside three local ones,
+      the controller pinned at CRITICAL_ONLY until the first busy answer:
+      the remote digest equal to its local run, fewer launches than
+      submissions, every certificate verified, the shed window resubmitted;
+    - D, ``service exec``: an execution-attached remote tenant's roots
+      equal to the host executor's, a proof query verified against the
+      certified root; a local one rotated to generation 1 mid-serve
+      (``set_generation`` on the card verifier), roots and digest equal to
+      the rotation-free run."""
+    import threading
+
+    from hyperdrive_tpu_torch.chaos import InvariantMonitor
+    from hyperdrive_tpu_torch.devsched import DeficitRoundRobin
+    from hyperdrive_tpu_torch.exec import ExecutionConfig
+    from hyperdrive_tpu_torch.exec.ledger import HostLedgerExecutor
+    from hyperdrive_tpu_torch.load.backpressure import CRITICAL_ONLY, BackpressureController
+    from hyperdrive_tpu_torch.ops import ed25519_cuda
+    from hyperdrive_tpu_torch.ops.ed25519 import TorchBatchVerifier
+    from hyperdrive_tpu_torch.parallel.service import (
+        STATUS_COMMITTED,
+        RemoteServiceClient,
+        ShardVerifyService,
+        TenantShard,
+    )
+    from hyperdrive_tpu_torch.verifier import HostVerifier
+
+    card = TorchBatchVerifier(device="cuda")
+    card.warmup()
+    torch.cuda.synchronize()
+
+    def launches():
+        got = {k: v.launches for k, v in ed25519_cuda.stats.items() if v.launches}
+        if set(got) - {"ed25519_verify"}:
+            raise AssertionError(f"service: launched {got}")
+        return got.get("ed25519_verify", 0)
+
+    def tenants(svcs, m, heights, prefix="tenant"):
+        return [TenantShard(f"{prefix}-{i}", n_validators=SERVICE_VALIDATORS,
+                            target_height=heights).attach_local(svcs[i % len(svcs)])
+                for i in range(m)]
+
+    # A: shared against dedicated, both on the one card verifier.
+    total = {"shared": 0, "dedicated": 0}
+    for m in SERVICE_M:
+        heights = SERVICE_HEIGHTS + 1
+        host_svc = ShardVerifyService(HostVerifier(), max_depth=0)
+        host = tenants([host_svc], m, heights)
+        _waves([host_svc], host, heights)
+        legs = {}
+        for label in ("shared", "dedicated"):
+            timed = _TimedVerifier(card)
+            svcs = [ShardVerifyService(timed, max_depth=0)
+                    for _ in range(1 if label == "shared" else m)]
+            ts = tenants(svcs, m, heights)
+            ed25519_cuda.reset_stats()
+            _waves(svcs, ts, 1)
+            wall = _waves(svcs, ts, SERVICE_HEIGHTS)
+            n = launches()
+            if not all(t.done and not t.rejected for t in ts) or [
+                    t.commit_digest() for t in ts] != [t.commit_digest() for t in host]:
+                raise AssertionError(f"service M={m} {label}: digests differ from the "
+                                     f"host run's or a tenant did not commit")
+            want_n = heights if label == "shared" else heights * m
+            rows_ok = (label != "shared"
+                       or timed.rows == [SERVICE_VALIDATORS * m] * heights)
+            if n != want_n or len(timed.rows) != n or not rows_ok:
+                raise AssertionError(f"service M={m} {label}: {n} launches, rows "
+                                     f"{timed.rows}, want {want_n}")
+            total[label] += n
+            legs[label] = (wall, n, timed.seconds)
+        votes = m * SERVICE_HEIGHTS * SERVICE_VALIDATORS
+        (sw, sn, sv), (dw, dn, dv) = legs["shared"], legs["dedicated"]
+        print(f"service M={m}: validators={SERVICE_VALIDATORS} heights={SERVICE_HEIGHTS} "
+              f"shared_wall_s={sw:.4f} dedicated_wall_s={dw:.4f} "
+              f"shared_votes_per_s={votes / sw:.1f} dedicated_votes_per_s={votes / dw:.1f} "
+              f"dedicated_over_shared={dw / sw:.4f} shared_launches={sn} "
+              f"dedicated_launches={dn} shared_rows_per_launch={SERVICE_VALIDATORS * m} "
+              f"digests_equal_host=True", flush=True)
+    if total != {"shared": 5 * len(SERVICE_M), "dedicated": 5 * sum(SERVICE_M)}:
+        raise AssertionError(f"service: launches over the series {total}")
+
+    # B: fairness, FIFO against DRR, on the card.
+    fair = SERVICE_FAIR
+    p99 = {"fifo": [], "drr": []}
+    for rep in range(fair["reps"]):
+        for label in ("fifo", "drr"):
+            policy = DeficitRoundRobin(**SERVICE_DRR) if label == "drr" else None
+            svc = ShardVerifyService(card, max_depth=0, policy=policy)
+            fire = TenantShard("firehose", n_validators=fair["fire"],
+                               target_height=fair["heights"] * 2).attach_local(svc)
+            victim = TenantShard("victim", n_validators=fair["victim"],
+                                 target_height=fair["heights"]).attach_local(svc)
+            ed25519_cuda.reset_stats()
+            for _ in range(100 * fair["heights"]):
+                if victim.done:
+                    break
+                fire.pump(max_inflight=4)
+                victim.pump(max_inflight=1)
+                svc.drain()
+            n = launches()
+            if not victim.done or victim.rejected or fire.rejected or n != svc.queue.launches:
+                raise AssertionError(f"service fairness {label}: victim done {victim.done}, "
+                                     f"{n} launches for {svc.queue.launches} queue launches")
+            if policy is not None:
+                InvariantMonitor.check_tenant_fairness(policy)
+                if policy.max_deferrals > policy.starve_after:
+                    raise AssertionError(f"service fairness: {policy.max_deferrals} "
+                                         f"deferrals")
+            p99[label].append(_p99(victim.commit_latencies))
+            extra = (f" deferred={policy.deferred_total} forced={policy.forced_total} "
+                     f"max_deferrals={policy.max_deferrals}" if policy is not None else "")
+            print(f"service fairness rep={rep} {label}: victim_p99_s={p99[label][-1]:.5f} "
+                  f"launches={n} queue_submitted={svc.queue.submitted}{extra}", flush=True)
+    print(f"service fairness: fifo_over_drr_p99="
+          + " ".join(f"{f / d:.4f}" for f, d in zip(p99["fifo"], p99["drr"])), flush=True)
+
+    # C: a remote tenant over localhost TCP beside three local tenants.
+    heights = 6
+    svc = ShardVerifyService(card, max_depth=0)
+    controller = BackpressureController()
+    controller.watch(svc.queue)
+    controller.floor = CRITICAL_ONLY
+    port = svc.remote_port(controller=controller)
+    client = None
+    try:
+        client = RemoteServiceClient(*port.address)
+        remote = TenantShard("remote", n_validators=SERVICE_VALIDATORS,
+                             target_height=heights).attach_remote(client)
+        local = tenants([svc], 3, heights, prefix="local")
+        ed25519_cuda.reset_stats()
+        t0 = time.perf_counter()
+        errors: list = []
+
+        def drive():
+            try:
+                remote.run_remote(max_inflight=4, timeout=20.0)
+            except Exception as err:  # reported by the drive loop below
+                errors.append(err)
+
+        worker = threading.Thread(target=drive, daemon=True)
+        worker.start()
+        while worker.is_alive() and time.perf_counter() - t0 < 60.0:
+            port.pump()
+            if controller.floor and port.remote_sheds:
+                controller.floor = 0
+            for t in local:
+                t.pump(max_inflight=1)
+            svc.drain()
+            time.sleep(0.0005)
+        worker.join(5.0)
+        wall = time.perf_counter() - t0
+        if worker.is_alive() or errors or not remote.done or remote.rejected:
+            raise AssertionError(f"service remote: done {remote.done}, rejected "
+                                 f"{remote.rejected}, errors {errors}")
+    finally:
+        if client is not None:
+            client.close()
+        port.close()
+    while not all(t.done for t in local):
+        for t in local:
+            t.pump(max_inflight=1)
+        svc.drain()
+    n = launches()
+    solo_svc = ShardVerifyService(HostVerifier(), max_depth=0)
+    solo = TenantShard("remote", n_validators=SERVICE_VALIDATORS,
+                       target_height=heights).attach_local(solo_svc)
+    _waves([solo_svc], [solo], heights)
+    q = svc.queue
+    if (remote.commit_digest() != solo.commit_digest() or n != q.launches
+            or not q.launches < q.submitted
+            or port.remote_sheds < 1 or remote.shed_retries < 1
+            or port.remote_resolves != port.remote_submits):
+        raise AssertionError(f"service remote: digest equal "
+                             f"{remote.commit_digest() == solo.commit_digest()}, queue "
+                             f"{q.submitted}/{q.launches}, sheds {port.remote_sheds}, "
+                             f"retries {remote.shed_retries}")
+    print(f"service remote: heights={heights} local_tenants=3 wall_s={wall:.3f} "
+          f"remote_submits={port.remote_submits} remote_resolves={port.remote_resolves} "
+          f"remote_sheds={port.remote_sheds} shed_retries={remote.shed_retries} "
+          f"queue_submitted={q.submitted} queue_launches={q.launches} "
+          f"queue_coalesced={q.coalesced} launches={n} certs_verified={len(remote.commits)} "
+          f"digest_equal_local=True", flush=True)
+
+    # D: execution-attached tenants: remote roots and a proof; rotation.
+    cfg = ExecutionConfig(accounts=1024, txs_per_block=64, stake_every=3,
+                          stake_accounts=64, seed=17)
+    host_ex = HostLedgerExecutor(cfg)
+    svc = ShardVerifyService(card, max_depth=0)
+    svc.attach_execution("rx", cfg)
+    port = svc.remote_port()
+    client = None
+    try:
+        client = RemoteServiceClient(*port.address)
+        remote = TenantShard("rx", n_validators=SERVICE_VALIDATORS,
+                             target_height=4).attach_remote(client)
+        worker = threading.Thread(target=remote.run_remote, kwargs={"timeout": 20.0},
+                                  daemon=True)
+        worker.start()
+        t0 = time.perf_counter()
+        while worker.is_alive() and time.perf_counter() - t0 < 60.0:
+            port.pump()
+            svc.drain()
+            time.sleep(0.0005)
+        worker.join(5.0)
+        fut = client.query(5)
+        while not fut.done() and time.perf_counter() - t0 < 60.0:
+            port.pump()
+            time.sleep(0.0005)
+        status, proof = fut.proof_result(timeout=5.0)
+    finally:
+        if client is not None:
+            client.close()
+        port.close()
+    roots_ok = remote.done and all(remote.state_roots[h] == host_ex.advance_to(h)
+                                   for h in range(1, 5))
+    if (not roots_ok or status != STATUS_COMMITTED
+            or not remote.verify_balance(proof, remote.state_roots[proof.height])):
+        raise AssertionError(f"service exec: roots equal {roots_ok}, proof status {status}")
+
+    def serve(rotate_at):
+        verifier = TorchBatchVerifier(device="cuda")
+        svc = ShardVerifyService(verifier, max_depth=0)
+        t = TenantShard("rot", n_validators=SERVICE_VALIDATORS, target_height=6,
+                        execution=cfg).attach_local(svc)
+        ed25519_cuda.reset_stats()
+        while not t.done:
+            if rotate_at is not None and len(t.commits) >= rotate_at:
+                svc.rotate(generation=1)
+                t.generation, rotate_at = 1, None
+            t.pump(max_inflight=1)
+            svc.drain()
+        return t, verifier.generation, launches()
+
+    rotated, gen, n_rot = serve(3)
+    base, gen0, n_base = serve(None)
+    if (gen, gen0) != (1, 0) or rotated.state_roots != base.state_roots or (
+            rotated.commit_digest() != base.commit_digest()) or n_rot != 6 or n_base != 6 or any(
+            base.state_roots[h] != host_ex.advance_to(h) for h in range(1, 7)):
+        raise AssertionError(f"service exec rotation: generations {gen}/{gen0}, launches "
+                             f"{n_rot}/{n_base}, roots or digest differ")
+    print(f"service exec: accounts={cfg.accounts} remote_heights=4 roots_equal_host=True "
+          f"proof_account=5 proof_height={proof.height} proof_depth={len(proof.siblings)} "
+          f"proof_verified=True rotated_generation={gen} rotation_launches={n_rot} "
+          f"roots_equal_rotation_free=True digest={rotated.commit_digest()[:16]}", flush=True)
+
+
 #: The deployment runs: (label, processes, replicas per process, heights,
 #: seconds until an unfinished run fails, worker options).
 DEPLOY_RUNS = (
@@ -4291,6 +4761,10 @@ def main() -> int:
     mark("overlay")
     phase_chaos()
     mark("chaos")
+    phase_campaign()
+    mark("campaign")
+    phase_service()
+    mark("service")
     phase_deploy()
     mark("deploy")
     phase_shamir()

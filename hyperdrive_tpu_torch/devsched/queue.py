@@ -146,6 +146,11 @@ class VerifyLauncher:
 
     def __init__(self, verifier):
         self.verifier = verifier
+        #: Transcript of the most recent coalesced launch (the verifier's
+        #: RLC binder digest, or b"" for ladder/null verifiers): what a
+        #: certificates.Certifier binds when the quorum was established
+        #: through the queued flush path rather than a blocking verify.
+        self.last_transcript = b""
 
     def launch(self, payloads: list) -> list:
         items: list = []
@@ -155,6 +160,7 @@ class VerifyLauncher:
             items.extend(p)
             bounds.append((start, len(items)))
         mask = self.verifier.verify_signatures(items)
+        self.last_transcript = getattr(self.verifier, "last_transcript", b"")
         mask = mask.tolist() if hasattr(mask, "tolist") else list(mask)
         # Unsigned lanes can pass a padded launch vacuously; apply the same
         # presence filter the sync verify_batch wrappers do, so a launcher
@@ -171,6 +177,9 @@ class NullVerifyLauncher:
     device, no build."""
 
     kind = "verify.null"
+
+    #: No batch equation ran, so there is no transcript to bind.
+    last_transcript = b""
 
     def launch(self, payloads: list) -> list:
         return [[True] * len(p) for p in payloads]

@@ -10,6 +10,8 @@ JAX package's pipelined digest, coalesce launches, fail loudly on a forged
 signature, and take the reference's routes under ``device_tally``.
 """
 
+import dataclasses
+
 import pytest
 import torch
 
@@ -205,6 +207,54 @@ def test_null_launcher_matches_null_verifier_verdicts():
     payload = [(b"\x00" * 32, b"\x01" * 32, None)] * 3
     assert NullVerifyLauncher().launch([payload]) == [[True, True, True]]
     assert NullVerifier().verify_batch(payload) == [True, True, True]
+
+
+def test_launch_transcript_reaches_the_service_certificate():
+    """The launchers carry the verifier's last transcript as the JAX
+    package's do, and a service ``Certifier`` binds it: the certificate
+    and its bytes equal the JAX package's."""
+    from hyperdrive_tpu.certificates import marshal_certificate as ref_marshal
+    from hyperdrive_tpu.codec import Writer as RefWriter
+    from hyperdrive_tpu.devsched import DeviceWorkQueue as RefQueue
+    from hyperdrive_tpu.devsched import NullVerifyLauncher as RefNullLauncher
+    from hyperdrive_tpu.parallel.service import ShardVerifyService as RefService
+    from hyperdrive_tpu_torch.certificates import marshal_certificate
+    from hyperdrive_tpu_torch.codec import Writer
+    from hyperdrive_tpu_torch.crypto.keys import KeyRing
+    from hyperdrive_tpu_torch.parallel.service import ShardVerifyService
+
+    transcript = bytes(range(32))
+
+    class Stub:
+        last_transcript = b""
+
+        def verify_signatures(self, items):
+            self.last_transcript = transcript
+            return [True] * len(items)
+
+    ring = KeyRing.deterministic(4, namespace=b"transcript")
+    items = [(kp.public, b"\x01" * 32, b"\x02" * 64) for kp in ring.pairs]
+    assert NullVerifyLauncher.last_transcript == RefNullLauncher.last_transcript == b""
+    certs = []
+    for queue_cls, service_cls, writer, marshal in (
+            (DeviceWorkQueue, ShardVerifyService, Writer, marshal_certificate),
+            (RefQueue, RefService, RefWriter, ref_marshal)):
+        launcher = queue_cls().verify_launcher(Stub())
+        assert launcher.last_transcript == b""
+        launcher.launch([items])
+        assert launcher.last_transcript == transcript
+        svc = service_cls(Stub(), max_depth=0)
+        fut = svc.submit("t", items)
+        svc.drain()
+        assert fut.result() == [True] * 4
+        cert = svc.certifier(ring.signatories, 1).observe_commit(
+            3, 0, b"\x07" * 32, ring.signatories[:3])
+        assert cert.transcript == transcript
+        w = writer()
+        marshal(cert, w)
+        certs.append((cert, w.data()))
+    assert dataclasses.astuple(certs[0][0]) == dataclasses.astuple(certs[1][0])
+    assert certs[0][1] == certs[1][1]
 
 
 # ------------------------------------------------- tenant drain policies

@@ -48,7 +48,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                  "harness.deploy", "crypto.shamir", "ops.shamir", "ops.msm",
                  "certificates", "ops.rootmix", "ops.merkle", "ops.ledger", "exec",
                  "exec.ledger", "exec.device", "crypto.bls", "ops.limbs", "ops.fp381",
-                 "ops.g1", "ops.g1_cuda", "batch"):
+                 "ops.g1", "ops.g1_cuda", "batch", "campaign", "campaign.record",
+                 "campaign.families", "campaign.runner", "parallel", "parallel.service"):
         assert f"hyperdrive_tpu_torch.{name}" in out["names"]
     assert out["bad"] == []
     assert out["built"] is False
