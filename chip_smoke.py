@@ -311,10 +311,29 @@ Phases, each printing its lines:
    no kernel but it and ``ed25519_verify``, one certificate a height
    re-verified; heights/s and the aggregate's share of wall; lines
    ``bls``, ``kernel g1_aggregate`` and ``programs: bls``, after the
-   card's name and power limit.
+   card's name and power limit;
+20. observability (``phase_obs``, lines ``obs``; it runs right after
+   phase 6): the main path observed (``observe=True``) on the packed
+   route, in turns with unobserved runs (unobserved, observed, observed,
+   unobserved), each on the invariant; the observed run's journal equal,
+   event for event, to an observed ``HostVerifier`` run's once the
+   device-only kinds (``fetch.sync``, ``verify.occupancy.*``) are taken
+   out, one ``verify.occupancy.rows`` a ``ed25519_verify`` launch, one
+   ``fetch.sync`` a device fetch of the verifier (counted apart from the
+   recorder), the same launches observed and not; the pipelined packed
+   run observed under ``utils.trace.profile``: one launch record a
+   kernel launch, each with a sync and its lanes from the bucket ladder,
+   ``devtel.launches`` in ``metrics_snapshot()`` equal to the launches,
+   the profiler's Chrome trace naming ``hd_ed25519_verify_kernel`` and
+   the journal's Perfetto export holding one device launch slice a
+   launch; then a ``DeviceWorkQueue`` probed by ``DeviceTelemetry`` on
+   ``time.perf_counter`` with a ``VerifyLauncher`` on a card verifier, 20
+   drains of 256 and 20 of 4,096 pre-signed lanes: p50 pack / dispatch /
+   sync / unpack ms, the sync share, and the four splits summing to each
+   launch's wall within 5%.
 
-Each path of phases 5, 6, 7, 8, 10, 11, 12, 15, 16, 17 and 18 is driven with
-the kernel counts set to 0 just before it and read just after.
+Each path of phases 5, 6, 7, 8, 10, 11, 12, 15, 16, 17, 18 and 20 is driven
+with the kernel counts set to 0 just before it and read just after.
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``. Any failed check raises, so the script
@@ -4723,6 +4742,257 @@ def phase_bls(clock_mhz: float, sms: int):
     return rows, agg_launches
 
 
+# ------------------------------------------------------------ observability
+
+#: Journal kinds only a device verifier emits: its device-to-host copies
+#: and its per-launch occupancy. An observed card run and an observed host
+#: run of the same network journal everything else event for event.
+OBS_DEVICE_KINDS = ("fetch.sync", "verify.occupancy.rows", "verify.occupancy.lanes",
+                    "verify.occupancy.pct")
+#: Drains a width of the wall-split leg, and the widths (lanes).
+OBS_DRAINS = 20
+OBS_WIDTHS = (256, 4096)
+
+
+def _events_digest(events) -> str:
+    """``Recorder.digest()`` of an event list (the same canonical JSON)."""
+    blob = json.dumps([list(ev) for ev in events], separators=(",", ":")).encode()
+    return hashlib.sha256(blob).hexdigest()
+
+
+def _observed_packed(observe: bool, ref: dict) -> dict:
+    """One main-path run on a card ``TorchBatchVerifier``, observed or
+    not, with the kernel counts set to 0 just before it and read just
+    after, and the device-to-host copies of its verifier counted apart
+    from the recorder (a wrapper on the verifier module's
+    ``device_fetch`` that counts CUDA tensors)."""
+    from hyperdrive_tpu_torch.harness import Simulation
+    from hyperdrive_tpu_torch.ops import ed25519 as ed
+    from hyperdrive_tpu_torch.ops import ed25519_cuda
+
+    verifier = ed.TorchBatchVerifier(device="cuda")
+    verifier.warmup()
+    torch.cuda.synchronize()
+    sim = Simulation(n=N_VALIDATORS, target_height=HEIGHT, seed=1, sign=True, burst=True,
+                     dedup_verify=True, small_window_host=False, batch_verifier=verifier,
+                     observe=observe)
+    fetches: list = []
+    real = ed.device_fetch
+
+    def counting(x, *, why=""):
+        if isinstance(x, torch.Tensor) and x.is_cuda:
+            fetches.append(why)
+        return real(x, why=why)
+
+    ed.device_fetch = counting
+    try:
+        ed25519_cuda.reset_stats()
+        t0 = time.perf_counter()
+        res = sim.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = ed25519_cuda.stats["ed25519_verify"].launches
+        moved = {k: v.launches for k, v in ed25519_cuda.stats.items()
+                 if k != "ed25519_verify" and v.launches}
+    finally:
+        ed.device_fetch = real
+    label = "observed" if observe else "unobserved"
+    if res.commit_digest(up_to=HEIGHT) != ref["digest"] or (
+            res.steps, res.heights) != (ref["steps"], ref["heights"]):
+        raise AssertionError(f"obs {label}: the run left the host run's chain")
+    if (sim.settle_passes, sim.vote_settles, sim.verified_sigs) != MAIN_SETTLES:
+        raise AssertionError(
+            f"obs {label}: settles/vote_settles/verified_sigs = "
+            f"{(sim.settle_passes, sim.vote_settles, sim.verified_sigs)}, "
+            f"want {MAIN_SETTLES}")
+    if moved or launches < sim.vote_settles:
+        raise AssertionError(f"obs {label}: {launches} ed25519_verify launches for "
+                             f"{sim.vote_settles} vote settles, other kernels {moved}")
+    return {"sim": sim, "res": res, "wall": wall, "launches": launches,
+            "fetches": fetches}
+
+
+def phase_obs(ref: dict) -> None:
+    """Observability on the card (lines ``obs``): (1) the main path
+    observed on the packed route against an observed ``HostVerifier``
+    run, and observed against unobserved walls in turns; (2) the
+    pipelined route observed under ``utils.trace.profile``, one launch
+    record a kernel launch; (3) a ``DeviceWorkQueue`` with wall-clock
+    launch telemetry at 256 and 4,096 lanes, its pack / dispatch / sync /
+    unpack split; (4) the profiler's Chrome trace and the journal's
+    Perfetto export. ``ref`` is the main path's host run."""
+    import shutil
+    import tempfile
+
+    from hyperdrive_tpu_torch import obs as hobs
+    from hyperdrive_tpu_torch.crypto.keys import KeyRing
+    from hyperdrive_tpu_torch.devsched import DeviceWorkQueue
+    from hyperdrive_tpu_torch.harness import Simulation
+    from hyperdrive_tpu_torch.ops import bucketing, ed25519_cuda
+    from hyperdrive_tpu_torch.ops.ed25519 import TorchBatchVerifier
+    from hyperdrive_tpu_torch.utils.trace import profile
+    from hyperdrive_tpu_torch.verifier import HostVerifier
+
+    if ref["digest"][:16] != MAIN_DIGEST or ref["steps"] != MAIN_STEPS:
+        raise AssertionError("obs: the main path's host run moved off the invariant")
+    # (1) The packed route, observed, against an observed host run.
+    t0 = time.perf_counter()
+    host = Simulation(n=N_VALIDATORS, target_height=HEIGHT, seed=1, sign=True, burst=True,
+                      dedup_verify=True, small_window_host=False,
+                      batch_verifier=HostVerifier(), observe=True)
+    host.run()
+    host_wall = time.perf_counter() - t0
+    want = host.obs.snapshot()
+    if any(e.kind in OBS_DEVICE_KINDS for e in want):
+        raise AssertionError("obs: the host run journaled a device-only event")
+    legs = [_observed_packed(o, ref) for o in (False, True, True, False)]
+    leg = legs[1]
+    sim = leg["sim"]
+    got = sim.obs.snapshot()
+    kept = [e for e in got if e.kind not in OBS_DEVICE_KINDS]
+    if sim.obs.dropped or kept != want:
+        from collections import Counter
+
+        a = Counter(e.kind for e in kept)
+        b = Counter(e.kind for e in want)
+        diff = {k: (a[k], b[k]) for k in set(a) | set(b) if a[k] != b[k]}
+        first = next((i for i, (x, y) in enumerate(zip(kept, want)) if x != y), None)
+        raise AssertionError(
+            f"obs: packed journal differs from the host run's: dropped={sim.obs.dropped} "
+            f"kinds (card, host)={diff} first differing event={first}")
+    rows = [e for e in got if e.kind == "verify.occupancy.rows"]
+    syncs = [e for e in got if e.kind == "fetch.sync"]
+    if len(rows) != leg["launches"] or sum(e.detail for e in rows) != sim.verified_sigs:
+        raise AssertionError(f"obs: {len(rows)} verify.occupancy.rows for "
+                             f"{leg['launches']} ed25519_verify launches")
+    if [e.detail for e in syncs] != leg["fetches"]:
+        raise AssertionError(f"obs: {len(syncs)} fetch.sync events for "
+                             f"{len(leg['fetches'])} device fetches")
+    if legs[1]["launches"] != legs[0]["launches"]:
+        raise AssertionError("obs: the observed run launched other kernels than the "
+                             "unobserved one")
+    snap = sim.metrics_snapshot()
+    off = [legs[0]["wall"], legs[3]["wall"]]
+    on = [legs[1]["wall"], legs[2]["wall"]]
+    print(f"obs packed: n={N_VALIDATORS} height={HEIGHT} steps={leg['res'].steps} "
+          f"events={len(got)} total={sim.obs.total} dropped={sim.obs.dropped} "
+          f"journal_digest={sim.obs.digest()[:16]} "
+          f"host_journal_digest={_events_digest(want)[:16]} equal_after_filter=True "
+          f"filtered={','.join(OBS_DEVICE_KINDS)} "
+          f"verify_occupancy_rows={len(rows)} ed25519_verify_launches={leg['launches']} "
+          f"fetch_sync={len(syncs)} device_fetches={len(leg['fetches'])} "
+          f"registry_counters={len(snap['counters'])} "
+          f"registry_histograms={len(snap['histograms'])} "
+          f"host_observed_wall_s={host_wall:.3f} "
+          f"wall_unobserved_s={off[0]:.3f},{off[1]:.3f} "
+          f"wall_observed_s={on[0]:.3f},{on[1]:.3f} "
+          f"observed_over_unobserved={sum(on) / sum(off):.3f} "
+          f"digest={leg['res'].commit_digest(up_to=HEIGHT)[:16]}", flush=True)
+
+    build = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "hyperdrive_tpu_torch", "_build")
+    os.makedirs(build, exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="obs-", dir=build)
+    try:
+        # (2) The pipelined route, observed, under the profiler.
+        verifier = TorchBatchVerifier(buckets=PIPE_BUCKETS, device="cuda")
+        verifier.warmup()
+        torch.cuda.synchronize()
+        pipe = Simulation(n=N_VALIDATORS, target_height=HEIGHT, seed=1, sign=True,
+                          burst=True, dedup_verify=True, small_window_host=False,
+                          batch_verifier=verifier, pipeline_heights=True, observe=True)
+        ed25519_cuda.reset_stats()
+        t0 = time.perf_counter()
+        with profile(os.path.join(tmp, "profile")):
+            res = pipe.run()
+        wall = time.perf_counter() - t0
+        stat = ed25519_cuda.stats["ed25519_verify"]
+        if res.commit_digest(up_to=HEIGHT) != ref["digest"] or res.steps != ref["steps"]:
+            raise AssertionError("obs pipe: the run left the host run's chain")
+        recs = pipe.devtel.records
+        q = pipe._sched
+        if len(recs) != stat.launches or len(recs) != q.launches:
+            raise AssertionError(f"obs pipe: {len(recs)} launch records for "
+                                 f"{stat.launches} kernel launches ({q.launches} queue)")
+        for r in recs:
+            if r.syncs < 1 or r.lanes != bucketing.bucket_for(r.rows, PIPE_BUCKETS):
+                raise AssertionError(f"obs pipe: launch record {r.as_dict()}")
+        if sum(r.lanes for r in recs) != stat.lanes:
+            raise AssertionError(f"obs pipe: record lanes {[r.lanes for r in recs]} for "
+                                 f"{stat.lanes} kernel lanes")
+        psnap = pipe.metrics_snapshot()
+        if psnap["counters"].get("devtel.launches") != stat.launches:
+            raise AssertionError(f"obs pipe: devtel.launches="
+                                 f"{psnap['counters'].get('devtel.launches')}")
+        print(f"obs pipe: launches={stat.launches} lanes={stat.lanes} "
+              f"records={[(r.launch_id, r.commands, r.rows, r.lanes, r.syncs) for r in recs]} "
+              f"devtel_launches={psnap['counters']['devtel.launches']} "
+              f"devtel_submitted={psnap['counters']['devtel.submitted']} "
+              f"events={len(pipe.obs)} wall_s={wall:.3f} (under the profiler)", flush=True)
+        # (4) The profiler's trace names the kernel; the journal exports.
+        with open(profile.last_path) as fh:
+            chrome = fh.read()
+        kernel_name = "hd_ed25519_verify_kernel"
+        named = chrome.count(kernel_name)
+        if not named:
+            raise AssertionError(f"obs trace: {profile.last_path} does not name "
+                                 f"{kernel_name}")
+        doc_path = os.path.join(tmp, "journal.trace.json")
+        hobs.export(pipe.obs.snapshot(), doc_path)
+        with open(doc_path) as fh:
+            doc = json.load(fh)
+        slices = [e for e in doc["traceEvents"]
+                  if e.get("tid") == hobs.DEVICE_TID and e.get("ph") == "X"]
+        if len(slices) != stat.launches:
+            raise AssertionError(f"obs trace: {len(slices)} device launch slices for "
+                                 f"{stat.launches} launches")
+        print(f"obs trace: profile_bytes={len(chrome)} kernel_mentions={named} "
+              f"perfetto_events={len(doc['traceEvents'])} launch_slices={len(slices)}",
+              flush=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    # (3) Wall splits of a probed queue on the card.
+    ring = KeyRing.deterministic(N_VALIDATORS, namespace=b"obs-splits")
+    verifier = TorchBatchVerifier(device="cuda")
+    verifier.warmup()
+    torch.cuda.synchronize()
+    tel = hobs.DeviceTelemetry(time_fn=time.perf_counter)
+    q = DeviceWorkQueue(devtel=tel)
+    launcher = q.verify_launcher(verifier)
+    for lanes in OBS_WIDTHS:
+        items = []
+        for j in range(lanes):
+            kp = ring[j % N_VALIDATORS]
+            d = hashlib.sha256(b"obs-%d-%d" % (lanes, j)).digest()
+            items.append((kp.public, d, kp.sign_digest(d)))
+        ed25519_cuda.reset_stats()
+        for _ in range(OBS_DRAINS):
+            fut = q.submit(launcher, items, rows=lanes)
+            q.drain()
+            if not all(fut.result()):
+                raise AssertionError(f"obs splits: a valid signature failed at {lanes}")
+        recs = tel.records[-OBS_DRAINS:]
+        stat = ed25519_cuda.stats["ed25519_verify"]
+        if stat.launches != OBS_DRAINS or any(r.syncs != 1 for r in recs):
+            raise AssertionError(f"obs splits: {stat.launches} launches, syncs "
+                                 f"{[r.syncs for r in recs]}")
+        for r in recs:
+            parts = r.t_pack + r.t_dispatch + r.t_sync + r.t_unpack
+            if abs(parts - r.wall) > 0.05 * r.wall:
+                raise AssertionError(f"obs splits: {parts} s of splits for {r.wall} s wall")
+
+        def p50(attr, recs=recs):
+            return statistics.median(getattr(r, attr) for r in recs) * 1e3
+
+        share = sum(r.t_sync for r in recs) / sum(r.wall for r in recs)
+        print(f"obs splits: lanes={lanes} drains={OBS_DRAINS} "
+              f"pack_ms_p50={p50('t_pack'):.4f} dispatch_ms_p50={p50('t_dispatch'):.4f} "
+              f"sync_ms_p50={p50('t_sync'):.4f} unpack_ms_p50={p50('t_unpack'):.4f} "
+              f"wall_ms_p50={p50('wall'):.4f} sync_share={share:.3f} "
+              f"splits_sum_within_5pct=True card={card_line()}", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs one card",
@@ -4753,6 +5023,8 @@ def main() -> int:
     mark("votegrid")
     launches, ref = phase_main_path()
     mark("main")
+    phase_obs(ref)
+    mark("obs")
     phase_burst(ref)
     mark("burst")
     phase_lockstep(ref)

@@ -10,17 +10,20 @@ heights) into one launch. It is the no-grid sibling of
 :class:`~hyperdrive_tpu_torch.tallyflush.DeviceTallyFlusher`'s queue mode:
 same schedule, no device tally.
 
-Port copy of ``hyperdrive_tpu/devsched/flusher.py``. Dropped, as the
-port's conventions say: the metrics recorder (``obs``), whose replica
-track was the submitted ``origin`` (None with the recorder off), and the
-``@async_scope`` lint marker. The port submits the replica's own
-identity as the ``origin`` a drain policy seats tenants by. Added: the
-``cancelled`` count of windows that :meth:`QueueFlusher.reset` cancelled. Like the
-queue, a flusher is single-threaded: every replica sharing one queue
-must flush and drain on one thread.
+Port copy of ``hyperdrive_tpu/devsched/flusher.py``, with its
+flight-recorder seam (``obs``: one ``flush.launch`` event a submitted
+window). Dropped: the ``@async_scope`` lint marker. The submitted
+``origin`` is the replica's journal track when ``obs`` is bound, as in
+the reference, and otherwise the replica's own identity, which a drain
+policy seats tenants by (the reference submits None). Added: the
+``cancelled`` count of windows that :meth:`QueueFlusher.reset`
+cancelled. Like the queue, a flusher is single-threaded: every replica
+sharing one queue must flush and drain on one thread.
 """
 
 from __future__ import annotations
+
+from hyperdrive_tpu_torch.obs.recorder import NULL_BOUND
 
 __all__ = ["QueueFlusher"]
 
@@ -34,9 +37,10 @@ class QueueFlusher:
     the blocking flush; only the schedule moves.
     """
 
-    def __init__(self, verifier, queue):
+    def __init__(self, verifier, queue, obs=None):
         self.verifier = verifier
         self.queue = queue
+        self.obs = obs if obs is not None else NULL_BOUND
         self._inflight: list = []
         #: Windows submitted / dispatched / cancelled by :meth:`reset` (the
         #: last a port addition: the windows a crash took down in flight).
@@ -55,10 +59,21 @@ class QueueFlusher:
             )
             if not window:
                 return
+            obs = self.obs
+            if obs is not NULL_BOUND:
+                obs.emit(
+                    "flush.launch",
+                    replica.proc.current_height,
+                    replica.proc.current_round,
+                    len(window),
+                )
             fut = queue.submit(
                 launcher,
                 [(m.sender, m.digest(), m.signature) for m in window],
-                origin=replica.proc.whoami,
+                origin=(
+                    obs.replica if obs is not NULL_BOUND
+                    else replica.proc.whoami
+                ),
                 rows=len(window),
             )
             self._inflight.append(fut)

@@ -17,11 +17,15 @@ Commands carry their table generation (``submit``'s third argument, as
 in the reference): a drain groups by ``(launcher, generation)``, so a
 drain that spans an epoch boundary splits into one launch per generation.
 
-Dropped from the copy, as the port's conventions say: the ``drain_point``
-lint marker, the recorder (``obs``), the metrics sink (``tracer``), the
-launch probe (``devtel``, and with it the generation-split count). The
-futures' ``seq`` and ``launch_id`` attribution fields went with the
-probe. The backpressure seam is the reference's: a
+The observability seams are the reference's: the recorder (``obs``:
+``sched.*`` and ``tenant.drain.*`` events), the metrics sink
+(``tracer``: ``sim.sched.*``) and the launch probe (``devtel``, a
+:class:`~hyperdrive_tpu_torch.obs.devtel.DeviceTelemetry`: one
+``LaunchRecord`` a launch, sealed when the launcher raises, and the
+futures' ``seq`` and ``launch_id``). Dropped from the copy: the
+``drain_point`` lint marker. The pending tuple is ``(launcher, payload,
+future, meta, generation)``, where the reference keeps the generation
+fourth. The backpressure seam is the reference's: a
 :class:`~hyperdrive_tpu_torch.load.backpressure.BackpressureController`
 attached with ``watch`` (``queue.controller``) hears every submit's new
 depth and every drain's resolved count and latency, timed by the
@@ -33,7 +37,8 @@ command (the execution layer's speculation resolves there, see
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from hyperdrive_tpu_torch.obs.devtel import NULL_DEVTEL, CmdMeta
+from hyperdrive_tpu_torch.obs.recorder import NULL_BOUND
 
 __all__ = [
     "DeviceFuture",
@@ -59,16 +64,6 @@ class SpeculationMismatch(AssertionError):
     """
 
 
-class CmdMeta(NamedTuple):
-    """What a drain policy reads off a pending command: its submission
-    sequence number, the submitting track (``origin``) and its row
-    count."""
-
-    seq: int
-    origin: object
-    rows: int
-
-
 class DeviceFuture:
     """Handle for one submitted device command.
 
@@ -76,7 +71,10 @@ class DeviceFuture:
     called early (the blocking escape hatch — inside pipelined code prefer
     ``add_done_callback``)."""
 
-    __slots__ = ("_queue", "_value", "_done", "_cancelled", "_callbacks")
+    __slots__ = (
+        "_queue", "_value", "_done", "_cancelled", "_callbacks",
+        "seq", "launch_id",
+    )
 
     def __init__(self, queue: "DeviceWorkQueue"):
         self._queue = queue
@@ -84,6 +82,12 @@ class DeviceFuture:
         self._done = False
         self._cancelled = False
         self._callbacks: list = []
+        #: Device-telemetry attribution (obs/devtel.py): the command's
+        #: submission sequence number and, once resolved, the id of the
+        #: coalesced launch that carried it. Both stay None when the
+        #: queue runs unprobed.
+        self.seq = None
+        self.launch_id = None
 
     def done(self) -> bool:
         return self._done
@@ -195,6 +199,10 @@ class DeviceWorkQueue:
     call. ``max_depth > 0`` bounds in-flight commands by auto-draining on
     the submit that reaches the bound (the pipeline-slot size).
 
+    ``obs``: a bound recorder handle (the sim passes its scoped(-2)
+    devsched track); ``tracer``: metrics sink for ``sim.sched.*``;
+    ``devtel``: the launch probe (default :data:`~hyperdrive_tpu_torch.
+    obs.devtel.NULL_DEVTEL`, off).
     ``on_drain``: callback ``(resolved_count) -> None`` fired after every
     drain that resolved work — the sim's commit-finalization flush hooks
     here, so gated commits land the moment their settle's future does.
@@ -205,8 +213,14 @@ class DeviceWorkQueue:
     default) drains everything, FIFO.
     """
 
-    def __init__(self, max_depth: int = 0, policy=None):
+    def __init__(self, max_depth: int = 0, obs=None, tracer=None,
+                 devtel=None, policy=None):
         self.max_depth = int(max_depth)
+        self.obs = obs if obs is not None else NULL_BOUND
+        self.tracer = tracer
+        #: Launch probe (obs/devtel.py): NULL_DEVTEL = off, and every
+        #: probe touch point below guards on that identity first.
+        self.devtel = devtel if devtel is not None else NULL_DEVTEL
         self.on_drain = None
         #: Backpressure seam (:mod:`~hyperdrive_tpu_torch.load.
         #: backpressure`): once a BackpressureController is attached
@@ -266,7 +280,8 @@ class DeviceWorkQueue:
         ``origin`` and ``rows`` by keyword.
 
         ``origin`` / ``rows`` (the submitting track and the command's lane
-        count, default ``len(payload)``) feed the drain policy only.
+        count, default ``len(payload)``) feed the drain policy and the
+        launch probe; scheduling without a policy ignores them.
         ``callback`` is attached to the future before that auto-drain: a
         callback attached to the returned future runs only after the
         drain's ``on_drain`` hook, which may depend on it having run."""
@@ -276,14 +291,26 @@ class DeviceWorkQueue:
         if callback is not None:
             fut.add_done_callback(callback)
         meta = None
-        if self.policy is not None:
+        if self.devtel is not NULL_DEVTEL:
             if rows is None:
                 rows = len(payload) if hasattr(payload, "__len__") else 0
-            meta = CmdMeta(self.submitted, origin, rows)
+            meta = self.devtel.command(origin, rows)
+            fut.seq = meta.seq
+        elif self.policy is not None:
+            # The drain policy reads origin/rows off the command meta; a
+            # probe-free one when no devtel is installed.
+            if rows is None:
+                rows = len(payload) if hasattr(payload, "__len__") else 0
+            meta = CmdMeta(self.submitted, 0.0, origin, rows)
         self._pending.append((launcher, payload, fut, meta, generation))
         self.submitted += 1
         if self.controller is not None:
             self.controller.note_depth(len(self._pending))
+        if self.obs is not NULL_BOUND:
+            self.obs.emit(
+                "sched.submit", -1, -1,
+                getattr(launcher, "kind", None),
+            )
         if self.max_depth and len(self._pending) >= self.max_depth:
             if not self._draining:
                 self.drain()
@@ -313,13 +340,25 @@ class DeviceWorkQueue:
             while self._pending:
                 batch = self._pending
                 self._pending = []
-                if self.policy is not None:
+                policy = self.policy
+                if policy is not None:
                     live = [c for c in batch if not c[2].cancelled()]
-                    batch, deferred = self.policy.select(live)
-                    # Deferred commands rejoin pending FIRST, so work
-                    # submitted by this cycle's callbacks queues behind
-                    # them — age order survives.
-                    self._pending.extend(deferred)
+                    batch, deferred = policy.select(live)
+                    if deferred:
+                        # Deferred commands rejoin pending FIRST, so work
+                        # submitted by this cycle's callbacks queues
+                        # behind them — age order survives.
+                        self._pending.extend(deferred)
+                        if self.obs is not NULL_BOUND:
+                            self.obs.emit(
+                                "tenant.drain.deferred", -1, -1,
+                                len(deferred),
+                            )
+                    if policy.last_forced and self.obs is not NULL_BOUND:
+                        self.obs.emit(
+                            "tenant.drain.forced", -1, -1,
+                            policy.last_forced,
+                        )
                     if not batch:
                         continue
                 groups: dict = {}
@@ -335,27 +374,72 @@ class DeviceWorkQueue:
                         groups[key] = []
                         order.append(key)
                     groups[key].append(cmd)
+                devtel = self.devtel
+                if devtel is not NULL_DEVTEL and len(order) > 1:
+                    # Generation splits: extra launches the SAME launcher
+                    # pays because its commands straddled an epoch
+                    # boundary (distinct-launcher groups are ordinary
+                    # fan-out, not splits).
+                    per_launcher: dict = {}
+                    for k in order:
+                        per_launcher[k[0]] = per_launcher.get(k[0], 0) + 1
+                    gen_splits = sum(v - 1 for v in per_launcher.values())
+                    if gen_splits:
+                        devtel.splits(gen_splits)
                 for key in order:
                     cmds = groups[key]
                     launcher = cmds[0][0]
                     self.launches += 1
                     self.coalesced += len(cmds) - 1
+                    if self.obs is not NULL_BOUND and len(cmds) > 1:
+                        self.obs.emit("sched.coalesce", -1, -1, len(cmds))
+                    if self.tracer is not None:
+                        self.tracer.observe("sim.sched.coalesce", len(cmds))
                     if key[1] and hasattr(launcher, "set_generation"):
                         # The reference's rule: only a nonzero generation,
                         # and only a launcher that has the method (the
                         # verify launchers have none, so a verifier's
                         # table is never swapped here).
                         launcher.set_generation(key[1])
-                    results = launcher.launch([c[1] for c in cmds])
+                    rec = None
+                    if devtel is not NULL_DEVTEL:
+                        rec = devtel.launch_begin(
+                            getattr(launcher, "kind", "launch"),
+                            key[1],
+                            [c[3] for c in cmds],
+                        )
+                    payloads = [c[1] for c in cmds]
+                    if rec is not None:
+                        devtel.mark_pack(rec)
+                    try:
+                        results = launcher.launch(payloads)
+                    except BaseException:
+                        if rec is not None:
+                            devtel.launch_end(rec)
+                        raise
+                    if rec is not None:
+                        devtel.mark_dispatch(rec)
+                        devtel.launch_lanes(rec, launcher)
                     if len(results) != len(cmds):
+                        if rec is not None:
+                            devtel.launch_end(rec)
                         raise RuntimeError(
                             f"launcher {launcher!r} returned {len(results)} "
                             f"results for {len(cmds)} commands"
                         )
-                    for (_, _, fut, _, _), res in zip(cmds, results):
-                        if not fut.cancelled():
-                            fut._resolve(res)
-                        resolved += 1
+                    try:
+                        for (_, _, fut, _, _), res in zip(cmds, results):
+                            if rec is not None:
+                                fut.launch_id = rec.launch_id
+                            if not fut.cancelled():
+                                fut._resolve(res)
+                            resolved += 1
+                    finally:
+                        # Sealed in a finally, so a callback raising
+                        # (SpeculationMismatch) still closes the record
+                        # and removes the fetch probe.
+                        if rec is not None:
+                            devtel.launch_end(rec)
         finally:
             self._draining = False
         if resolved:
@@ -363,6 +447,10 @@ class DeviceWorkQueue:
                 ctrl.note_drain(
                     resolved, (ctrl.time_fn() - t0) if t0 is not None else 0.0
                 )
+            if self.obs is not NULL_BOUND:
+                self.obs.emit("sched.drain", -1, -1, resolved)
+            if self.tracer is not None:
+                self.tracer.observe("sim.sched.drain", resolved)
             if self.on_drain is not None:
                 self.on_drain(resolved)
         return resolved

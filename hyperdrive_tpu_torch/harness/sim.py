@@ -62,9 +62,10 @@ inserts, then scatters and tallies in a second launch
 (:meth:`Simulation._dispatch_tallied`). ``fused_min_window`` routes
 sub-crossover settles fully to the host and poisons the grid slots they
 bypass; ``route_hysteresis`` drops the grid upkeep over a host-shaped
-stretch and rebuilds it on re-engagement. The reference's tracer spans
-for these paths become three plain counters (``fused_settles``,
-``tally_launches``, ``host_routed_settles``).
+stretch and rebuilds it on re-engagement. Besides the reference's
+tracer series (``sim.tally.launch``, ``sim.settle.host_routed``,
+``sim.fused.*``) three plain counters count these routes
+(``fused_settles``, ``tally_launches``, ``host_routed_settles``).
 
 With ``pipeline_heights=True`` each settle pass dispatches at once on a
 speculative verdict (every parseable, signed row accepted) and submits
@@ -168,10 +169,25 @@ duplicate (no step, no clock, no rng draw), and with the profile's
 virtual clock, which with ``pin=False`` watches the device-work queue
 (:meth:`Simulation.overload_snapshot`).
 
+Observability (:mod:`hyperdrive_tpu_torch.obs`): ``self.tracer``, one
+:class:`~hyperdrive_tpu_torch.utils.trace.Tracer` on the virtual clock,
+always on (``sim.*`` and every replica's ``replica.*`` series), and
+``self.registry``, a :class:`~hyperdrive_tpu_torch.obs.metrics.Registry`
+that :meth:`Simulation.metrics_snapshot` folds the tracer into. With
+``observe=True`` a :class:`~hyperdrive_tpu_torch.obs.recorder.Recorder`
+of ``obs_capacity`` events (``self.obs``) journals the replicas'
+consensus events, the settle layer's passes and launches, the queue's
+``sched.*`` events and the launch probe (``self.devtel``, a
+:class:`~hyperdrive_tpu_torch.obs.devtel.DeviceTelemetry` handed to the
+queue), and, through the device-fetch observer, every device-to-host
+copy (``fetch.sync``); a batch verifier with an unbound ``obs`` is bound
+to the sim's track. Journal and snapshot equal the JAX package's on the
+same run. The hooks inside the chaos monitor, the admission gates, the
+certifiers, the executors and the overlay runtime wait for a later
+slice.
+
 Not ported (a later slice of the port), and refused: the sharded grid
-(``tally_mesh``) and the flight recorder (``observe``, ``obs_capacity``).
-The tracer, metrics registry and device telemetry are dropped, with the
-recorder's chaos and load events (tracing returns in a later slice).
+(``tally_mesh``).
 """
 
 from __future__ import annotations
@@ -196,6 +212,11 @@ from hyperdrive_tpu_torch.messages import (
     marshal_message,
     unmarshal_message,
 )
+from hyperdrive_tpu_torch.analysis.annotations import set_fetch_observer
+from hyperdrive_tpu_torch.obs.devtel import NULL_DEVTEL, DeviceTelemetry
+from hyperdrive_tpu_torch.obs.metrics import Registry
+from hyperdrive_tpu_torch.obs.recorder import NULL_BOUND as _OBS_NULL
+from hyperdrive_tpu_torch.obs.recorder import NULL_RECORDER, Recorder
 from hyperdrive_tpu_torch.overlay.runtime import OverlayFrame, OverlayTick
 from hyperdrive_tpu_torch.replica import Replica, ReplicaOptions, ResetHeight, merge_drain
 from hyperdrive_tpu_torch.scheduler import RoundRobin
@@ -208,6 +229,7 @@ from hyperdrive_tpu_torch.testutil import (
 )
 from hyperdrive_tpu_torch.timer import VirtualTimer
 from hyperdrive_tpu_torch.types import Height, Value
+from hyperdrive_tpu_torch.utils.trace import Tracer
 
 __all__ = ["VirtualClock", "ScenarioRecord", "SimulationResult", "Simulation"]
 
@@ -632,7 +654,10 @@ class Simulation:
     ``catchup_every`` (default 256 steps) and ``catchup_lag`` (default 2
     heights): the laggard sweep of an overlay or chaos run. ``record``
     (default True) keeps the :class:`ScenarioRecord` that
-    ``SimulationResult.record`` returns.
+    ``SimulationResult.record`` returns. ``observe`` (default False)
+    keeps a flight-recorder journal of ``obs_capacity`` events in
+    ``self.obs``, and a launch probe on the device-work queue
+    (``self.devtel``); :meth:`metrics_snapshot` works either way.
 
     The adversaries, as in the reference, all drawing from ``self.rng =
     random.Random(seed)``: ``reorder`` swaps a random pending delivery to
@@ -705,6 +730,8 @@ class Simulation:
         load=None,
         catchup_every: Optional[int] = None,
         catchup_lag: Optional[int] = None,
+        observe: bool = False,
+        obs_capacity: int = 65536,
         device="cuda",
         **unported,
     ):
@@ -712,8 +739,7 @@ class Simulation:
             raise NotImplementedError(
                 f"Simulation options {sorted(unported)} are not ported to "
                 "the PyTorch package yet (a later slice of the port): "
-                "tally_mesh needs the multi-device vote grid; observe and "
-                "obs_capacity the flight recorder"
+                "tally_mesh needs the multi-device vote grid"
             )
         #: The adversaries' one random stream: ``reorder`` draws once a
         #: lock-step delivery (or shuffles each superstep), ``drop_rate``
@@ -809,6 +835,39 @@ class Simulation:
         self.target_height = target_height
         self.seed = seed
         self.clock = VirtualClock()
+        # One shared tracer across all replicas, on virtual time: metrics
+        # (round latencies, verify windows, equivocation counts) are
+        # deterministic and replay-identical. The sim is single-threaded,
+        # so the tracer skips its per-call lock.
+        self.tracer = Tracer(time_fn=lambda: self.clock.now, threadsafe=False)
+        #: Flight recorder (obs/recorder.py): a bounded, deterministic
+        #: event journal on the same virtual clock. Off by default:
+        #: NULL_RECORDER hands every component the shared no-op handle.
+        self.obs = (
+            Recorder(
+                capacity=obs_capacity,
+                time_fn=lambda: self.clock.now,
+                threadsafe=False,
+            )
+            if observe
+            else NULL_RECORDER
+        )
+        #: Sim-level emit handle (replica = -1): settle, verify and tally
+        #: launch events that belong to the harness, not to one replica.
+        self._obs_sim = self.obs.scoped(-1)
+        #: Metrics registry (always; metrics_snapshot() folds the tracer
+        #: in) and the device-launch probe (only when observing), both on
+        #: the virtual clock.
+        self.registry = Registry(time_fn=lambda: self.clock.now)
+        self.devtel = (
+            DeviceTelemetry(
+                recorder=self.obs,
+                registry=self.registry,
+                time_fn=lambda: self.clock.now,
+            )
+            if observe
+            else NULL_DEVTEL
+        )
         self.queue: list[tuple[int, object]] = []
         self._qhead = 0
         #: ``record=False`` drops the replay log (at depth it dominates
@@ -855,6 +914,11 @@ class Simulation:
             ]
         self._init_epochs(epochs, signatories, sign, burst, payload_bytes)
         self.record.signatories = list(self.signatories)
+        # An observed run adopts a device verifier's recorder handle (one
+        # it built itself included) so its occupancy and RLC events land
+        # in this journal; an explicitly bound handle wins.
+        if observe and getattr(self.batch_verifier, "obs", None) is _OBS_NULL:
+            self.batch_verifier.obs = self._obs_sim
         #: Laggard catch-up sweep (overlay runs): every ``catchup_every``
         #: delivery steps, an alive replica more than ``catchup_lag``
         #: heights below the network's working height is jumped to it.
@@ -891,9 +955,23 @@ class Simulation:
         if self._sched is None and self._pipeline_heights:
             from hyperdrive_tpu_torch.devsched import DeviceWorkQueue
 
-            self._sched = DeviceWorkQueue(max_depth=self._pipeline_depth)
+            self._sched = DeviceWorkQueue(
+                max_depth=self._pipeline_depth,
+                obs=self.obs.scoped(-2),
+                tracer=self.tracer,
+                devtel=self.devtel,
+            )
         if self._sched is not None:
             self._sched.on_drain = self._on_sched_drain
+            # An injected queue adopts this run's seams unless they were
+            # bound when it was made: sched.* events on the devsched track (-2),
+            # sim.sched.* metrics on the run's tracer.
+            if self._sched.obs is _OBS_NULL:
+                self._sched.obs = self.obs.scoped(-2)
+            if self._sched.tracer is None:
+                self._sched.tracer = self.tracer
+            if self._sched.devtel is NULL_DEVTEL:
+                self._sched.devtel = self.devtel
         #: Commit finalizations gated on in-flight speculation: (replica,
         #: height, value, covering future) in commit order, flushed by
         #: _on_sched_drain once the covering futures resolve.
@@ -1169,7 +1247,8 @@ class Simulation:
         return Replica(
             ReplicaOptions(
                 max_capacity=capacity, external_flush=self.burst,
-                batch_ingest=self.batch_ingest,
+                batch_ingest=self.batch_ingest, tracer=self.tracer,
+                obs=self.obs.scoped(i),
             ),
             self.signatories[i],
             committee,
@@ -1534,6 +1613,8 @@ class Simulation:
         for p in self._chaos_parts:
             if not p.engaged and not p.healed and now >= p.spec.at:
                 p.engaged = True
+                if self._obs_sim is not _OBS_NULL:
+                    self._obs_sim.emit("chaos.partition", -1, -1, len(p.gid))
             if p.engaged and now >= p.spec.heal:
                 p.engaged = False
                 p.healed = True
@@ -1549,6 +1630,8 @@ class Simulation:
                 # must not complete while it is down.
                 self._chaos_restores[victim] = steps + c.restart_after_steps
                 self._note_lifecycle(ScenarioRecord.OP_CRASH, victim, 0)
+                if self._obs_sim is not _OBS_NULL:
+                    self._obs_sim.emit("chaos.crash", -1, -1, victim)
                 m = self._chaos_monitor
                 if m is not None:
                     m.note_crash(victim, now)
@@ -1558,6 +1641,8 @@ class Simulation:
                 target = self._net_height()
                 self._note_lifecycle(ScenarioRecord.OP_RESTORE, victim, target)
                 self._apply_restore(victim, target)
+                if self._obs_sim is not _OBS_NULL:
+                    self._obs_sim.emit("chaos.restore", -1, -1, victim)
                 m = self._chaos_monitor
                 if m is not None:
                     m.note_restore(victim, target)
@@ -1603,6 +1688,8 @@ class Simulation:
         height. The protocol has no retransmission, so what a replica missed
         while cut off is gone for good (the reference's catch-up path,
         replica/replica.go:222-235)."""
+        if self._obs_sim is not _OBS_NULL:
+            self._obs_sim.emit("chaos.heal", -1, -1, len(p.gid))
         m = self._chaos_monitor
         if m is not None:
             m.note_heal(self.clock.now)
@@ -1723,6 +1810,8 @@ class Simulation:
             # commit effects wait. A mismatch raises out of the drain before
             # any gated commit is finalized.
             self._gated_commits.append((i, height, value, self._spec_last_fut))
+            if self._obs_sim is not _OBS_NULL:
+                self._obs_sim.emit("sched.gated", height, -1, i)
             return (0, None)
         self.commits[i][height] = (
             self._exec_extend(i, height, value) if self.executors else value
@@ -1756,6 +1845,9 @@ class Simulation:
         self.epoch = 0
         self._identity = list(self.signatories)
         self._retired: dict = {}
+        #: The epoch each replica last switched to (for its epoch.switch
+        #: event).
+        self._replica_epoch = [0] * self.n
         if epochs is None:
             return
         if burst:
@@ -1829,6 +1921,17 @@ class Simulation:
             # block in _exec_extend), the same in every replica that
             # committed the same heights.
             stakes = self.executors[i].election_stakes(self.n)
+            sched = self.epoch_schedule
+            if (
+                self._obs_sim is not _OBS_NULL
+                and sched.epoch_of(height) + 1 > sched.latest_epoch
+            ):
+                self._obs_sim.emit(
+                    "exec.stake", height, -1,
+                    "e%d min=%d max=%d" % (
+                        sched.epoch_of(height) + 1, min(stakes), max(stakes),
+                    ),
+                )
         tr = self.epoch_schedule.transition_at(height, value, stakes=stakes)
         if tr.epoch > self.epoch:
             self._epoch_install(tr, height)
@@ -1839,6 +1942,10 @@ class Simulation:
             r.mq.order_of(s)
         # The replica's own identity may have rotated in this transition.
         r.proc.whoami = self._identity[i]
+        if self._replica_epoch[i] != tr.epoch:
+            self._replica_epoch[i] = tr.epoch
+            if r.obs is not _OBS_NULL:
+                r.obs.emit("epoch.switch", height, -1, tr.epoch)
         if self.certifiers and self.certifiers[i].epoch != tr.epoch:
             # EpochCertifier.observe_commit normally rotated itself at this
             # boundary already.
@@ -1863,6 +1970,14 @@ class Simulation:
                 self.epoch_schedule.anchor(tr.epoch), list(self._identity),
                 tr.epoch,
             )
+        if self._obs_sim is not _OBS_NULL:
+            self._obs_sim.emit(
+                "epoch.elect", height, -1,
+                "e%d j%d l%d r%d" % (
+                    tr.epoch, len(tr.joined), len(tr.left), len(tr.rekeyed),
+                ),
+            )
+            self._obs_sim.emit("epoch.begin", height + 1, -1, tr.epoch)
 
     def _resync_sigs(self, target: Height) -> tuple:
         """The signatory set a ResetHeight to ``target`` carries: the
@@ -1885,9 +2000,14 @@ class Simulation:
         if sched is None:
             return
         e = min(sched.latest_epoch, sched.epoch_of(target))
-        self.replicas[i].proc.whoami = self._identity[i]
+        r = self.replicas[i]
+        r.proc.whoami = self._identity[i]
         if self.certifiers and self.certifiers[i].epoch != e:
             self.certifiers[i].rotate_to(e)
+        if self._replica_epoch[i] != e:
+            self._replica_epoch[i] = e
+            if r.obs is not _OBS_NULL:
+                r.obs.emit("epoch.switch", target, -1, e)
 
     def _on_sched_drain(self, resolved: int) -> None:
         """Queue drain hook: every in-flight speculative settle just
@@ -1907,14 +2027,62 @@ class Simulation:
             self._exec_source.spec_epoch += 1
         gated = self._gated_commits
         self._gated_commits = []
-        for i, height, value, _ in gated:
+        for i, height, value, fut in gated:
             # The covering drain resolved the height's exec mask, so the
             # executor can apply the block and extend the record.
             if self.executors:
                 value = self._exec_extend(i, height, value)
             self.commits[i][height] = value
+            if (
+                self._obs_sim is not _OBS_NULL
+                and fut is not None
+                and fut.launch_id is not None
+            ):
+                # Close the cross-layer loop on the replica's own track:
+                # this commit finalized because that coalesced launch
+                # confirmed its speculation (the Perfetto exporter draws
+                # the drain -> commit flow arrow from this event).
+                self.obs.emit(
+                    "sched.launch.commit", i, height, -1, fut.launch_id
+                )
             if height >= self.target_height:
                 self._pending_replicas.discard(i)
+
+    def metrics_snapshot(self) -> dict:
+        """The run's metrics-registry snapshot (obs/metrics.py), with the
+        tracer's counters and histograms folded in. On the virtual clock
+        everything in it is deterministic: two fixed-seed runs snapshot
+        to identical bytes (``self.registry.digest()``)."""
+        self.registry.absorb_tracer(self.tracer)
+        if self._obs_sim is not _OBS_NULL:
+            # Flight-recorder health rides the same snapshot: a journal
+            # that overwrote its oldest events would otherwise present a
+            # truncated anatomy as a complete one.
+            self.registry.set_gauge("obs.recorder.dropped", self.obs.dropped)
+            self.registry.set_gauge("obs.recorder.capacity", self.obs.capacity)
+            self.registry.set_gauge("obs.recorder.total", self.obs.total)
+        gates = [r.admission for r in self.replicas
+                 if getattr(r, "admission", None) is not None]
+        if gates:
+            # Admission-gate health: distinct peers charged sheds, and
+            # signers reputation-demoted right now.
+            demoted: set = set()
+            peers_shed = 0
+            for g in gates:
+                peers_shed += len(g.shed_by_peer)
+                if g.reputation is not None:
+                    demoted |= g.reputation.demoted
+            self.registry.set_gauge("admission.shed_peers", peers_shed)
+            self.registry.set_gauge(
+                "admission.reputation.demoted", len(demoted)
+            )
+        snap = self.registry.snapshot()
+        if self._obs_sim is not _OBS_NULL:
+            self._obs_sim.emit(
+                "metrics.snapshot", -1, -1,
+                len(snap["counters"]) + len(snap["histograms"]),
+            )
+        return snap
 
     # ---------------------------------------------------------- execution
 
@@ -2241,7 +2409,9 @@ class Simulation:
             subset = [[shares[x] for x in picked] for shares in blocks]
             t0 = time.perf_counter()
             payload = self.reconstructor.reconstruct_payload_shares(subset)
-            self.reconstruct_latency.append(time.perf_counter() - t0)
+            dt = time.perf_counter() - t0
+            self.reconstruct_latency.append(dt)
+            self.tracer.observe("sim.reconstruct.latency", dt)
             if payload != self._payload_for_value(value):
                 raise AssertionError(
                     f"reconstructed payload mismatch at height {height}"
@@ -2263,7 +2433,20 @@ class Simulation:
             for i, r in enumerate(self.replicas):
                 if self.alive[i]:
                     r.start()
-        res = self._run_delivery(max_steps)
+        obs = self._obs_sim
+        if obs is _OBS_NULL:
+            res = self._run_delivery(max_steps)
+        else:
+            # Observed run: tap every device_fetch for the journal. The
+            # observer is a module global, so install/remove brackets the
+            # run (nested observed sims are not a thing).
+            set_fetch_observer(
+                lambda why: obs.emit("fetch.sync", -1, -1, why or None)
+            )
+            try:
+                res = self._run_delivery(max_steps)
+            finally:
+                set_fetch_observer(None)
         if self.certifiers:
             res.cert_digests = [c.chain_digest() for c in self.certifiers]
         return res
@@ -2401,6 +2584,12 @@ class Simulation:
                 # handled delivery.
                 k = lr.due(self.clock.now)
                 if k:
+                    self.registry.count("load.offered", k)
+                    obs = self._obs_sim
+                    if obs is not _OBS_NULL:
+                        obs.emit("load.offered", -1, -1, k)
+                        if k >= lr.profile.amp_cap:
+                            obs.emit("load.burst", -1, -1, k)
                     r = replicas[to]
                     # Vote duplicates at an un-advanced height are the
                     # gate's guaranteed prey; proposal duplicates and votes
@@ -2478,6 +2667,7 @@ class Simulation:
                 live = [i for i in range(n) if alive[i]]
                 nlive = len(live)
                 shared = self._shared
+                tracer = self.tracer
                 for to, msg in batch:
                     if to < 0:
                         steps += n
@@ -2487,6 +2677,13 @@ class Simulation:
                             self.clock.now += cost * nlive
                         record_messages.append_broadcast(msg, live)
                         delivered += nlive
+                        t = type(msg)
+                        tracer.count(
+                            "replica.msg.prevote" if t is Prevote
+                            else "replica.msg.precommit" if t is Precommit
+                            else "replica.msg.propose",
+                            nlive,
+                        )
                         shared.append(msg)
                         continue
                     steps += 1
@@ -2585,6 +2782,9 @@ class Simulation:
             distinct = {id(w): w for _, w in windows}.values()
             if any(type(m) is not Propose for w in distinct for m in w):
                 self.vote_settles += 1
+            obs = self._obs_sim
+            if obs is not _OBS_NULL:
+                obs.emit("settle.pass", -1, -1, len(windows))
             if self._pipeline_heights:
                 self._settle_speculative(windows, shared_window)
                 continue
@@ -2650,7 +2850,10 @@ class Simulation:
                         touched = self._touched_slots(w)
                         if touched:
                             self._poison_grid(i, touched)
+                else:
+                    self.tracer.count("sim.settle.grid_upkeep_skipped")
                 self._note_route(True)
+                self.tracer.observe("sim.settle.host_routed", uniq)
                 self.host_routed_settles += 1
                 keeps = self._verify_windows(
                     windows, shared_window, force_host=True
@@ -2675,7 +2878,10 @@ class Simulation:
             if touched:
                 for i, _ in windows:
                     self._poison_grid(i, touched)
+        else:
+            self.tracer.count("sim.settle.grid_upkeep_skipped")
         self._note_route(True)
+        self.tracer.observe("sim.settle.host_routed", len(shared_window))
         self.host_routed_settles += 1
         keeps = self._verify_windows(windows, shared_window, force_host=True)
         self._dispatch_windows(windows, keeps, shared_window)
@@ -2698,6 +2904,7 @@ class Simulation:
         if sum(hist) >= self._route_hyst_thresh:
             self._grid_engaged = False
             hist.clear()
+            self.tracer.count("sim.settle.grid_disengaged")
 
     def _reengage_grid(self) -> None:
         """Rebuild the grid bookkeeping before a device-routed settle
@@ -2714,6 +2921,7 @@ class Simulation:
             self._grid_dirty[i] = set(all_slots)
         self._grid_engaged = True
         self._route_hist.clear()
+        self.tracer.count("sim.settle.grid_reengaged")
 
     def _order_key(self, sender) -> int:
         """Sender tie-break index: whitelist order for signatories, then
@@ -2839,9 +3047,10 @@ class Simulation:
         groups = [windows[a : a + gsize] for a in range(0, len(windows), gsize)]
         shared_items = None
         cols = None
+        total_items = 0
 
         def launch(group):
-            nonlocal shared_items
+            nonlocal shared_items, total_items
             if shared_window is not None and all(
                 w is shared_window for _, w in group
             ):
@@ -2849,6 +3058,7 @@ class Simulation:
                     shared_items = [
                         (m.sender, m.digest(), m.signature) for m in shared_window
                     ]
+                total_items += len(shared_items) * len(group)
                 if begin is not None:
                     self.verified_sigs += len(shared_items) * len(group)
                     return begin(shared_items, repeats=len(group)), None
@@ -2859,6 +3069,7 @@ class Simulation:
                 start = len(items)
                 items.extend((m.sender, m.digest(), m.signature) for m in w)
                 bounds.append((start, len(items)))
+            total_items += len(items)
             if begin is not None:
                 self.verified_sigs += len(items)
                 return begin(items), bounds
@@ -2883,6 +3094,10 @@ class Simulation:
                 else:
                     self.replicas[i].dispatch_window(w, keep)
             inflight = nxt
+        self.tracer.count("sim.settle.pipelined")
+        self.tracer.observe("sim.verify.launch", total_items)
+        if self._obs_sim is not _OBS_NULL:
+            self._obs_sim.emit("verify.launch", -1, -1, total_items)
 
     def _verify_windows(self, windows, shared_window=None,
                         force_host: bool = False) -> list:
@@ -2918,6 +3133,9 @@ class Simulation:
                         items.append((m.sender, m.digest(), m.signature))
                     row.append(j)
                 slots.append(row)
+            self.tracer.observe("sim.verify.launch", len(items))
+            if self._obs_sim is not _OBS_NULL:
+                self._obs_sim.emit("verify.launch", -1, -1, len(items))
             mask = self._verify_items(items, force_host)
             shared_keep = (
                 mask if shared_len == len(mask) else mask[:shared_len]
@@ -2931,6 +3149,9 @@ class Simulation:
                 start = len(items)
                 items.extend((m.sender, m.digest(), m.signature) for m in w)
                 bounds.append((start, len(items)))
+            self.tracer.observe("sim.verify.launch", len(items))
+            if self._obs_sim is not _OBS_NULL:
+                self._obs_sim.emit("verify.launch", -1, -1, len(items))
             mask = self._verify_items(items, force_host)
             keeps = [mask[a:b] for a, b in bounds]
         return keeps
@@ -2984,6 +3205,8 @@ class Simulation:
                         touched = self._touched_slots(w)
                     if touched:
                         self._poison_grid(i, touched)
+            else:
+                self.tracer.count("sim.settle.grid_upkeep_skipped")
             self._note_route(True)
 
         # Speculative verdicts for the unique-broadcast batch (identity
@@ -3019,6 +3242,9 @@ class Simulation:
             keeps.append(row)
 
         if items:
+            if self._obs_sim is not _OBS_NULL:
+                self._obs_sim.emit("settle.speculative", -1, -1, len(items))
+            self.tracer.observe("sim.verify.speculated", len(items))
             self.verified_sigs += len(items)
             sched = self._sched
             # Row-aware slot close: if adding this settle would push the
@@ -3037,7 +3263,10 @@ class Simulation:
             # phantom in-flight settle that gates commits forever.
             self._spec_rows += len(items)
             self._spec_inflight += 1
-            fut = sched.submit(sched.verify_launcher(self.batch_verifier), items)
+            fut = sched.submit(
+                sched.verify_launcher(self.batch_verifier), items,
+                origin=-1, rows=len(items),
+            )
             self._spec_last_fut = fut
 
             def confirm(f, expected=expect, items=items):
@@ -3264,6 +3493,9 @@ class Simulation:
             idx, words, reset, targets, tvalid, l28_slot, l28_target, fs
         )
         self.tally_launches += 1
+        self.tracer.observe("sim.tally.launch", len(idx))
+        if self._obs_sim is not _OBS_NULL:
+            self._obs_sim.emit("tally.launch", -1, -1, len(idx))
         self._cascade(plans, counts, self._grid_height, tmaps, l28_slot,
                       l28_vals)
 
@@ -3291,6 +3523,9 @@ class Simulation:
 
         items = [(m.sender, m.digest(), m.signature) for m in shared]
         self.verified_sigs += len(items)
+        self.tracer.observe("sim.verify.launch", len(items))
+        if self._obs_sim is not _OBS_NULL:
+            self._obs_sim.emit("verify.launch", h, -1, len(items))
         arrays, prevalid, nitems = self.batch_verifier.host.pack(items)
 
         # The dense one-superstep update image: one lane per (plane,
@@ -3302,6 +3537,7 @@ class Simulation:
         hazard: set = set()
         win_props: dict = {}
         sender_pos = self._sender_pos
+        k = 0
         for j, m in enumerate(shared):
             t = type(m)
             if t is Prevote:
@@ -3330,6 +3566,10 @@ class Simulation:
                 continue
             upd_lane[plane, rnd, v] = j
             upd_vals[plane, rnd, v] = np.frombuffer(m.value, dtype="<i4")
+            k += 1
+        self.tracer.observe("sim.tally.launch", k)
+        if self._obs_sim is not _OBS_NULL:
+            self._obs_sim.emit("tally.launch", h, -1, k)
 
         # Targets come from PRE-insert propose logs plus this window's
         # schedule-checked proposes — identical to the post-insert logs
@@ -3367,8 +3607,17 @@ class Simulation:
             targets, tvalid, l28_slot, l28_target, fs,
         )
         self.fused_settles += 1
+        # The settle's one blocking sync: mask and packed counts arrive in
+        # the same copy. Wall-clocked (seconds): the insert and cascade
+        # below depend on it, so it is the settle's unhideable device
+        # cost.
+        t_sync = time.perf_counter()
         keep = (fused_out.mask() & prevalid)[:nitems].tolist()
         counts = fused_out.counts()
+        self.tracer.observe(
+            "sim.fused.sync.latency", time.perf_counter() - t_sync
+        )
+        t_host = time.perf_counter()
         # Every window IS the shared list (fused eligibility), so one
         # columnar extraction serves all n lockstep inserts.
         cols = WindowColumns.from_messages(shared) if self.columnar_ingest else None
@@ -3383,6 +3632,11 @@ class Simulation:
         ]
         self._cascade(plans, counts, {i: h for i, _ in windows}, tmaps,
                       l28_slot, l28_vals)
+        # Host insert + cascade wall, the companion of the sync leg: when
+        # it is shorter, no overlap can hide the sync behind host work.
+        self.tracer.observe(
+            "sim.fused.cascade.latency", time.perf_counter() - t_host
+        )
         return True
 
 

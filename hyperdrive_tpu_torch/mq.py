@@ -13,9 +13,7 @@ messages *without* dispatching them, so the replica can hand the whole window
 to the batched signature Verifier in one device launch and then feed the
 survivors to the Process in order — the "batched drain" of SURVEY.md §7.1(4).
 
-Port copy of ``hyperdrive_tpu/mq.py`` for the PyTorch package: the flight-recorder hook (``obs``,
-``obs.recorder.NULL_BOUND``) and its overflow event are removed.
-Everything else is unchanged.
+Port copy of ``hyperdrive_tpu/mq.py`` for the PyTorch package, whole.
 """
 
 from __future__ import annotations
@@ -25,6 +23,7 @@ from bisect import bisect_right
 from typing import Callable, Iterable
 
 from hyperdrive_tpu_torch.messages import Precommit, Prevote, Propose
+from hyperdrive_tpu_torch.obs.recorder import NULL_BOUND
 from hyperdrive_tpu_torch.types import Height, Signatory
 
 __all__ = ["MessageQueue", "DEFAULT_MAX_CAPACITY"]
@@ -54,11 +53,15 @@ class MessageQueue:
         "_order",
         "_heads",
         "_head_key",
+        "obs",
         "admission",
     )
 
     def __init__(self, max_capacity: int = DEFAULT_MAX_CAPACITY):
         self.max_capacity = int(max_capacity)
+        #: Flight-recorder handle (obs/recorder.py); the owning replica
+        #: rebinds it. Only the overflow branch ever touches it.
+        self.obs = NULL_BOUND
         #: Optional AdmissionGate (load/backpressure.py). When set, every
         #: insert consults it before buffering — under pressure the queue
         #: sheds classified traffic instead of growing toward the far-
@@ -163,6 +166,14 @@ class MessageQueue:
                 q.insert(idx, msg)
         # Drop the far-future tail when over capacity (reference: mq/mq.go:139-142).
         if len(q) > self.max_capacity:
+            if self.obs is not NULL_BOUND:
+                dropped = q[self.max_capacity]
+                self.obs.emit(
+                    "mq.drop",
+                    dropped.height,
+                    dropped.round,
+                    len(q) - self.max_capacity,
+                )
             del q[self.max_capacity :]
         if idx == 0:
             self._register_head(msg.sender)

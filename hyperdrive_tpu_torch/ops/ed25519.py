@@ -32,9 +32,16 @@ the reference, so no hand-written kernel), and a chunk whose combined
 check fails re-runs through the CUDA ladder for strict per-lane verdicts.
 The equation is cofactored: see :func:`rlc_check`. ``rlc="auto"``
 resolves as the reference's does for its Pallas backend, whose
-counterpart the CUDA ladder is: ``HD_RLC`` when set, else off. Dropped
-from the reference's verifier: the metrics recorder (``obs``) and its
-occupancy and MSM events.
+counterpart the CUDA ladder is: ``HD_RLC`` when set, else off.
+
+The flight-recorder seam is the reference's (``obs``: per packed chunk
+``verify.occupancy.rows``/``lanes``/``pct``, and on the RLC path
+``verify.msm.*`` and ``verify.rlc.*``), and every mask copy goes through
+:func:`~hyperdrive_tpu_torch.analysis.annotations.device_fetch` with the
+reference's ``why``. One difference: a duplicate-heavy chunk (the
+gather path) emits its occupancy too, so an observed run journals one
+``verify.occupancy.rows`` per ``ed25519_verify`` launch of the
+verifier's own; the reference emits none for that path.
 """
 
 from __future__ import annotations
@@ -46,7 +53,9 @@ import os
 import numpy as np
 import torch
 
+from hyperdrive_tpu_torch.analysis.annotations import device_fetch
 from hyperdrive_tpu_torch.crypto import ed25519 as host_ed
+from hyperdrive_tpu_torch.obs.recorder import NULL_BOUND as _OBS_NULL_BOUND
 from hyperdrive_tpu_torch.ops import bucketing
 from hyperdrive_tpu_torch.ops import fe25519 as fe
 from hyperdrive_tpu_torch.ops import msm
@@ -621,10 +630,12 @@ class TorchBatchVerifier:
     ``rlc=True`` checks each chunk with one :func:`rlc_check` first and
     re-runs a chunk whose combined check fails through the ladder
     (``rlc_fallbacks`` counts them, ``rlc_calls`` the checks);
-    ``rlc="auto"`` is ``HD_RLC`` when set, else off.
+    ``rlc="auto"`` is ``HD_RLC`` when set, else off. ``obs``: a bound
+    flight-recorder handle (an observed simulation binds its own).
     """
 
-    def __init__(self, buckets=(64, 256, 1024, 4096), rlc="auto", device=None):
+    def __init__(self, buckets=(64, 256, 1024, 4096), rlc="auto", device=None,
+                 obs=None):
         if rlc == "auto":
             env = os.environ.get("HD_RLC")
             rlc = env is not None and env not in ("0", "")
@@ -646,6 +657,19 @@ class TorchBatchVerifier:
         #: RLC chunks checked, and those that fell back to the ladder.
         self.rlc_calls = 0
         self.rlc_fallbacks = 0
+        #: Flight-recorder handle (obs/recorder.py; NULL_BOUND = off).
+        self.obs = obs if obs is not None else _OBS_NULL_BOUND
+
+    def _note_occupancy(self, n: int, lanes: int) -> None:
+        """Bucket-padding economics of one launch: lanes requested vs the
+        padded width launched."""
+        obs = self.obs
+        obs.emit("verify.occupancy.rows", -1, -1, n)
+        obs.emit("verify.occupancy.lanes", -1, -1, lanes)
+        obs.emit(
+            "verify.occupancy.pct", -1, -1,
+            int(round(100 * n / max(lanes, 1))),
+        )
 
     def _to_device(self, arrays):
         return [torch.from_numpy(a).to(self.device) for a in arrays]
@@ -664,9 +688,11 @@ class TorchBatchVerifier:
         for b in self.host.buckets:
             z = torch.zeros((b, fe.N_LIMBS), dtype=torch.int32, device=self.device)
             zn = torch.zeros((b, 64), dtype=torch.int32, device=self.device)
-            self._kernel(z, z, z, z, z, zn, zn).cpu()
+            device_fetch(self._kernel(z, z, z, z, z, zn, zn),
+                         why="warmup: block until the compile lands")
             if self.rlc:
-                bool(rlc_check(z, z, z, z, z, zn, zn, zn[:1]))
+                device_fetch(rlc_check(z, z, z, z, z, zn, zn, zn[:1]),
+                             why="warmup: block until the compile lands")
 
     def verify_signatures(self, items) -> np.ndarray:
         """items: list of (pub, digest, sig); returns bool[n].
@@ -688,6 +714,8 @@ class TorchBatchVerifier:
                 pending.append(self._verify_chunk_deduped(chunk, scan))
                 continue
             arrays, prevalid, n = self.host.pack(chunk, _scan=scan)
+            if self.obs is not _OBS_NULL_BOUND:
+                self._note_occupancy(n, int(arrays[0].shape[0]))
             if not prevalid.any():
                 pending.append((None, prevalid, n))
                 continue
@@ -695,7 +723,8 @@ class TorchBatchVerifier:
 
         devs = [d for d, _, _ in pending if d is not None]
         if len(devs) > 1:
-            big = torch.cat(devs).cpu().numpy()
+            big = device_fetch(torch.cat(devs),
+                               why="one RTT for the whole batch mask")
             off = 0
             out = []
             for dev, prevalid, n in pending:
@@ -711,7 +740,8 @@ class TorchBatchVerifier:
             if dev is None:
                 out.append(prevalid[:n].copy())  # all lanes malformed
             else:
-                out.append((dev.cpu().numpy() & prevalid)[:n])
+                out.append((device_fetch(dev, why="chunk verify mask")
+                            & prevalid)[:n])
         return out[0] if len(out) == 1 else np.concatenate(out)
 
     def _verify_rlc(self, items, cap) -> np.ndarray:
@@ -722,12 +752,28 @@ class TorchBatchVerifier:
         for lo in range(0, len(items), cap):
             chunk = items[lo : lo + cap]
             arrays, prevalid, n = self.host.pack(chunk)
+            obs_on = self.obs is not _OBS_NULL_BOUND
+            if obs_on:
+                self._note_occupancy(n, int(arrays[0].shape[0]))
             if not prevalid.any():
                 pending.append((None, None, prevalid, n))
                 continue
             binder = rlc_binder(chunk, self.generation)
             m_nib, z_nib, c_nib = rlc_scalars(arrays[5], arrays[6], prevalid, binder)
             self.last_transcript = hashlib.sha256(binder).digest()
+            if obs_on:
+                plan = msm.msm_plan(
+                    arrays[0].shape[0],
+                    msm.ED25519_FULL_WINDOWS + msm.ED25519_HALF_WINDOWS,
+                )
+                occ = (
+                    np.count_nonzero(m_nib) + np.count_nonzero(z_nib)
+                ) / max(m_nib.size + z_nib.size, 1)
+                self.obs.emit("verify.msm.windows", -1, -1, plan["windows"])
+                self.obs.emit("verify.msm.occupancy", -1, -1, round(occ, 4))
+                self.obs.emit(
+                    "verify.msm.depth", -1, -1, plan["reduction_depth"]
+                )
             tensors = self._to_device(arrays)
             ok = rlc_check(*tensors[:5], *self._to_device((m_nib, z_nib, c_nib)))
             self.rlc_calls += 1
@@ -736,11 +782,22 @@ class TorchBatchVerifier:
         for ok, tensors, prevalid, n in pending:
             if ok is None:
                 out.append(prevalid[:n].copy())  # all lanes malformed
-            elif bool(ok):
+                continue
+            obs_on = self.obs is not _OBS_NULL_BOUND
+            if bool(device_fetch(ok, why="RLC verdict gates the "
+                                          "fallback launch")):
+                if obs_on:
+                    self.obs.emit("verify.rlc.verdict", -1, -1, "ok")
                 out.append(prevalid[:n].copy())
             else:
                 self.rlc_fallbacks += 1
-                mask = self._kernel(*tensors).cpu().numpy()
+                if obs_on:
+                    self.obs.emit("verify.rlc.verdict", -1, -1, "fallback")
+                    self.obs.emit(
+                        "verify.rlc.fallbacks", -1, -1, self.rlc_fallbacks
+                    )
+                mask = device_fetch(self._kernel(*tensors),
+                                    why="per-signature fallback mask")
                 out.append((mask & prevalid)[:n])
         return out[0] if len(out) == 1 else np.concatenate(out)
 
@@ -752,6 +809,8 @@ class TorchBatchVerifier:
         arrays_u, prevalid_u, nu = self.host.pack(uniq)
         prevalid = np.zeros(self.host.bucket_for(len(chunk)), dtype=bool)
         prevalid[: len(chunk)] = prevalid_u[inv]
+        if self.obs is not _OBS_NULL_BOUND:
+            self._note_occupancy(len(chunk), prevalid.shape[0])
         if not prevalid.any():
             # Every lane malformed: rejection is already decided here.
             return (None, prevalid, len(chunk))

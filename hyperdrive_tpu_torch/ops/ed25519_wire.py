@@ -43,6 +43,7 @@ import threading
 import numpy as np
 import torch
 
+from hyperdrive_tpu_torch.analysis.annotations import device_fetch
 from hyperdrive_tpu_torch.crypto import ed25519 as host_ed
 from hyperdrive_tpu_torch.ops import bucketing
 from hyperdrive_tpu_torch.ops import fe25519 as fe
@@ -522,7 +523,12 @@ class PendingVerify:
             return self._mask
         pending = self._pending
         devs = [d for d, _, _ in pending if d is not None]
-        big = torch.cat(devs).cpu().numpy() if devs else None
+        big = (
+            device_fetch(torch.cat(devs),
+                         why="THE double-buffer sync point: one RTT for "
+                             "every enqueued launch's verdicts")
+            if devs else None
+        )
         off = 0
         out = []
         for dev, prevalid, n in pending:
@@ -685,15 +691,20 @@ class TorchWireVerifier:
         once, so a timed run never bills the build."""
         for b in self.host.buckets:
             z = torch.zeros((b, 32), dtype=torch.uint8, device=self.device)
-            self._device_verify((z, z, z, z)).cpu()
+            device_fetch(self._device_verify((z, z, z, z)),
+                         why="warmup: block until the compile lands")
             if self.table is not None:
                 zi = torch.zeros(b, dtype=torch.int32, device=self.device)
-                self._device_verify_chal((zi, z, z, z)).cpu()
+                device_fetch(self._device_verify_chal((zi, z, z, z)),
+                             why="warmup: block until the compile lands")
                 zm = torch.zeros(b, dtype=torch.uint8, device=self.device)
                 for mb in self.host.M_BUCKETS:
                     zu = torch.zeros((mb, 32), dtype=torch.uint8,
                                      device=self.device)
-                    self._device_verify_chal_grouped((zi, z, z, zm, zu)).cpu()
+                    device_fetch(
+                        self._device_verify_chal_grouped((zi, z, z, zm, zu)),
+                        why="warmup: block until the compile lands",
+                    )
 
     def verify_signatures_begin(self, items, repeats: int = 1) -> PendingVerify:
         """Enqueue the verification launches for ``items`` without

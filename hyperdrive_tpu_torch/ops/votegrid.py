@@ -35,8 +35,12 @@ raises ``NotImplementedError``; the scatter keeps only the ``valid`` rows
 where XLA dropped out-of-range ones (``mode="drop"``), because PyTorch
 raises on an out-of-range index; every launch's host inputs go up in one
 copy; the unused ``f`` argument of ``_kernel``/``_tally`` is gone (quorum
-flags are derived on the host, as in the reference); and the
-``device_fetch`` analysis hook is dropped.
+flags are derived on the host, as in the reference, from an ``f`` that
+stays on the host, so the reference's ``"f rides the count fetch"``
+fetch has no counterpart). The mask and count copies go through
+:func:`~hyperdrive_tpu_torch.analysis.annotations.device_fetch` with the
+reference's ``why``; the fused call's wait for its pinned copy is inside
+that fetch.
 """
 
 from __future__ import annotations
@@ -46,6 +50,7 @@ from collections.abc import Mapping
 import numpy as np
 import torch
 
+from hyperdrive_tpu_torch.analysis.annotations import device_fetch
 from hyperdrive_tpu_torch.ops import bucketing
 from hyperdrive_tpu_torch.ops.ed25519 import _resolve_device
 from hyperdrive_tpu_torch.types import NIL_VALUE
@@ -469,6 +474,25 @@ class VoteGrid:
         return LazyCounts(packed, self.n, self.R, np.asarray(f))
 
 
+class _PinnedCopy:
+    """A device-to-host copy in flight into pinned memory: converting it
+    to an array (``np.asarray``, and so :func:`device_fetch`) waits for the
+    copy's event and returns a private copy (the pinned buffer goes back
+    to the allocator)."""
+
+    __slots__ = ("_host", "_done")
+
+    def __init__(self, host, done):
+        self._host = host
+        self._done = done
+
+    def __array__(self, dtype=None, copy=None):
+        if self._done is not None:
+            self._done.synchronize()
+        out = self._host.numpy().copy()
+        return out if dtype is None else out.astype(dtype)
+
+
 class _FusedOut:
     """One fused launch's flat output, already on its way to pinned host
     memory: ``mask()`` waits for that copy (the settle's single blocking
@@ -488,10 +512,10 @@ class _FusedOut:
 
     def mask(self) -> np.ndarray:
         if self._np is None:
-            if self._done is not None:
-                self._done.synchronize()
-            # A private copy: the pinned buffer goes back to the allocator.
-            self._np = self._out.numpy().copy()
+            self._np = device_fetch(
+                _PinnedCopy(self._out, self._done),
+                why="single deferred fetch of mask+counts",
+            )
             self._out = self._done = None
         return self._np[: self._b].astype(bool)
 
@@ -531,9 +555,9 @@ class LazyCounts(Mapping):
     def _materialize(self) -> dict:
         d = self._dict
         if d is None:
-            flat = self._packed
-            if isinstance(flat, torch.Tensor):
-                flat = flat.cpu().numpy()
+            flat = device_fetch(
+                self._packed, why="deferred count fetch on first access"
+            )
             n, R = self._n, self._R
             three = flat[:, : 2 * R * 3].reshape(n, 2, R, 3)
             l28 = flat[:, 2 * R * 3]

@@ -32,9 +32,9 @@ Rule map (paper label -> method):
 - L57/61/65  on_timeout_propose / on_timeout_prevote / on_timeout_precommit
 
 Port copy of ``hyperdrive_tpu/process.py`` for the PyTorch package: the
-``@wire_codec`` lint decorator and the flight-recorder hook (``obs`` and
-every ``obs.emit`` site) are removed.
-Everything else is unchanged.
+``@wire_codec`` lint decorator is removed. Everything else, the
+flight-recorder hook (``obs`` and every ``obs.emit`` site) included, is
+unchanged.
 """
 
 from __future__ import annotations
@@ -43,6 +43,7 @@ from typing import Optional, Protocol, runtime_checkable
 
 from hyperdrive_tpu_torch.codec import Reader, Writer
 from hyperdrive_tpu_torch.messages import Precommit, Prevote, Propose
+from hyperdrive_tpu_torch.obs.recorder import NULL_BOUND
 from hyperdrive_tpu_torch.state import OnceFlag, State
 from hyperdrive_tpu_torch.types import (
     INVALID_ROUND,
@@ -162,6 +163,7 @@ class Process:
         "state",
         "_tally_source",
         "host_counts",
+        "obs",
     )
 
     def __init__(
@@ -178,6 +180,7 @@ class Process:
         catcher: Optional[Catcher] = None,
         height: Height | None = None,
         state: State | None = None,
+        obs=None,
     ):
         self.whoami = whoami
         self.f = int(f)
@@ -209,6 +212,11 @@ class Process:
         #: to State.count_*'s O(V) log scan. The logs themselves (the
         #: checkpoint/evidence source of truth) are always maintained.
         self.host_counts = True
+        #: Flight-recorder handle (obs/recorder.py); the shared no-op
+        #: singleton when observability is off, so every emit site can
+        #: gate on one identity check. Named ``obs`` because ``recorder``
+        #: already means the transport-replay FlightRecorder elsewhere.
+        self.obs = obs if obs is not None else NULL_BOUND
 
     # ---------------------------------------------------------------- inputs
 
@@ -620,12 +628,19 @@ class Process:
         h = self.state.current_height
         r = self.state.current_round
         step = self.state.current_step
+        obs = self.obs
         if step == Step.PROPOSING:
             self.timer.timeout_propose(h, r)
+            if obs is not NULL_BOUND:
+                obs.emit("timeout.propose.scheduled", h, r)
         elif step == Step.PREVOTING:
             self.timer.timeout_prevote(h, r)
+            if obs is not NULL_BOUND:
+                obs.emit("timeout.prevote.scheduled", h, r)
         else:
             self.timer.timeout_precommit(h, r)
+            if obs is not NULL_BOUND:
+                obs.emit("timeout.precommit.scheduled", h, r)
 
     def start_round(self, round: Round) -> None:
         """L11: begin a new round at the current height.
@@ -637,6 +652,9 @@ class Process:
         try:
             self.state.current_round = round
             self.state.current_step = Step.PROPOSING
+            obs = self.obs
+            if obs is not NULL_BOUND:
+                obs.emit("round.start", self.state.current_height, round)
 
             # Without a scheduler we can never know the proposer; do nothing
             # (matching reference behaviour when the seam is nil).
@@ -650,6 +668,12 @@ class Process:
                     self.timer.timeout_propose(
                         self.state.current_height, self.state.current_round
                     )
+                    if obs is not NULL_BOUND:
+                        obs.emit(
+                            "timeout.propose.scheduled",
+                            self.state.current_height,
+                            round,
+                        )
                 return
 
             # We are the proposer: re-propose our ValidValue if we have one,
@@ -698,6 +722,8 @@ class Process:
             and round == self.state.current_round
             and self.state.current_step == Step.PROPOSING
         ):
+            if self.obs is not NULL_BOUND:
+                self.obs.emit("timeout.propose.fired", height, round)
             if self.broadcaster is not None:
                 self.broadcaster.broadcast_prevote(
                     Prevote(
@@ -717,6 +743,8 @@ class Process:
             and round == self.state.current_round
             and self.state.current_step == Step.PREVOTING
         ):
+            if self.obs is not NULL_BOUND:
+                self.obs.emit("timeout.prevote.fired", height, round)
             if self.broadcaster is not None:
                 self.broadcaster.broadcast_precommit(
                     Precommit(
@@ -732,6 +760,8 @@ class Process:
         """L65: a precommit timeout fired — move to the next round
         (reference: process/process.go:406-410)."""
         if height == self.state.current_height and round == self.state.current_round:
+            if self.obs is not NULL_BOUND:
+                self.obs.emit("timeout.precommit.fired", height, round)
             self.start_round(round + 1)
 
     # ------------------------------------------------------------- rules L22+
@@ -815,6 +845,12 @@ class Process:
                 self.timer.timeout_prevote(
                     self.state.current_height, self.state.current_round
                 )
+                if self.obs is not NULL_BOUND:
+                    self.obs.emit(
+                        "timeout.prevote.scheduled",
+                        self.state.current_height,
+                        self.state.current_round,
+                    )
                 self._set_once_flag(
                     self.state.current_round,
                     OnceFlag.TIMEOUT_PREVOTE_UPON_SUFFICIENT_PREVOTES,
@@ -914,6 +950,12 @@ class Process:
                 self.timer.timeout_precommit(
                     self.state.current_height, self.state.current_round
                 )
+                if self.obs is not NULL_BOUND:
+                    self.obs.emit(
+                        "timeout.precommit.scheduled",
+                        self.state.current_height,
+                        self.state.current_round,
+                    )
                 self._set_once_flag(
                     self.state.current_round,
                     OnceFlag.TIMEOUT_PRECOMMIT_UPON_SUFFICIENT_PRECOMMITS,
@@ -933,6 +975,15 @@ class Process:
         if self._precommits_for(round, propose.value) < 2 * self.f + 1:
             return
 
+        if self.obs is not NULL_BOUND:
+            # Emit before the height advance so the event's (height, round)
+            # keys name the committed height, not its successor.
+            self.obs.emit(
+                "commit",
+                self.state.current_height,
+                round,
+                propose.value.hex()[:16],
+            )
         if self.certifier is not None:
             # Mint the O(1) commit proof from the quorum that just fired.
             # The log scan is once-per-commit (cold path); the hot tally
@@ -964,6 +1015,13 @@ class Process:
         if round <= self.state.current_round:
             return
         if len(self.state.trace_logs.get(round, ())) >= self.f + 1:
+            if self.obs is not NULL_BOUND:
+                self.obs.emit(
+                    "round.skip",
+                    self.state.current_height,
+                    round,
+                    self.state.current_round,
+                )
             self.start_round(round)
 
     # --------------------------------------------------------------- inserts
@@ -1050,6 +1108,12 @@ class Process:
         """Enter Prevoting and retry the rules the step change could open
         (reference: process/process.go:896-905)."""
         self.state.current_step = Step.PREVOTING
+        if self.obs is not NULL_BOUND:
+            self.obs.emit(
+                "step.prevoting",
+                self.state.current_height,
+                self.state.current_round,
+            )
         self._try_precommit_upon_sufficient_prevotes()
         self._try_precommit_nil_upon_sufficient_prevotes()
         self._try_timeout_prevote_upon_sufficient_prevotes()
@@ -1058,6 +1122,12 @@ class Process:
         """Enter Precommitting and retry the rules the step change could open
         (reference: process/process.go:909-916)."""
         self.state.current_step = Step.PRECOMMITTING
+        if self.obs is not NULL_BOUND:
+            self.obs.emit(
+                "step.precommitting",
+                self.state.current_height,
+                self.state.current_round,
+            )
         self._try_precommit_upon_sufficient_prevotes()
 
     # ------------------------------------------------------------ once flags

@@ -27,10 +27,13 @@ Two driving modes:
   checkpoint (:mod:`hyperdrive_tpu_torch.utils.checkpoint`).
 
 Port copy of ``hyperdrive_tpu/replica.py``, plus :func:`merge_drain`.
-Removed: the tracer, logger, metrics recorder (``obs``) and sanitizer
-hooks (``utils.trace``, ``utils.log``, ``obs.recorder``,
-``analysis.sanitizer``, ``@hot_path``) and the committer/catcher wrappers
-that only fed them, and the stale-vote warning log line. The epoch
+The tracer (``ReplicaOptions.tracer``: ``replica.msg.*``,
+``replica.verify.*``, ``replica.ingest.*``, ``replica.commit*``,
+``replica.caught.*``) and the flight recorder (``ReplicaOptions.obs``)
+are the reference's, with the committer and catcher wrappers that feed
+them. Removed: the logger (``utils.log``: ``ReplicaOptions.logger`` and
+every log line), the sanitizer hook (``analysis.sanitizer``) and the
+``@hot_path`` lint marker. The epoch
 stale-key filter (``retired``, ``stale_votes``) and the admission gate
 (``admission``, a :class:`~hyperdrive_tpu_torch.load.backpressure.
 AdmissionGate` consulted after the height and stale-key filters) are the
@@ -49,6 +52,7 @@ from typing import Callable, Optional
 
 from hyperdrive_tpu_torch.messages import Precommit, Prevote, Propose, Timeout
 from hyperdrive_tpu_torch.mq import DEFAULT_MAX_CAPACITY, MessageQueue
+from hyperdrive_tpu_torch.obs.recorder import NULL_BOUND
 from hyperdrive_tpu_torch.process import (
     Broadcaster,
     Catcher,
@@ -69,6 +73,7 @@ from hyperdrive_tpu_torch.types import (
     Step,
 )
 from hyperdrive_tpu_torch.utils.checkpoint import restore_bytes
+from hyperdrive_tpu_torch.utils.trace import NULL_TRACER
 
 __all__ = ["Replica", "ReplicaOptions", "ResetHeight", "merge_drain"]
 
@@ -104,9 +109,34 @@ def merge_drain(backlog: list, fresh: list, order_of) -> list:
     return [t[5] for t in keyed]
 
 
+#: Precomputed metric names: the dispatch path must not pay string
+#: formatting per message.
+_MSG_METRIC = {
+    Propose: "replica.msg.propose",
+    Prevote: "replica.msg.prevote",
+    Precommit: "replica.msg.precommit",
+    Timeout: "replica.msg.timeout",
+}
+
+#: The same for evidence counters.
+_CAUGHT_METRIC = {
+    "double_propose": "replica.caught.double_propose",
+    "double_prevote": "replica.caught.double_prevote",
+    "double_precommit": "replica.caught.double_precommit",
+    "out_of_turn_propose": "replica.caught.out_of_turn_propose",
+}
+
+
 @dataclass(frozen=True)
 class ReplicaOptions:
-    """Immutable functional options (reference: replica/opt.go:11-46)."""
+    """Immutable functional options (reference: replica/opt.go:11-46).
+
+    ``tracer`` (a :class:`~hyperdrive_tpu_torch.utils.trace.Tracer`) and
+    ``obs`` (a bound flight-recorder handle from
+    :mod:`~hyperdrive_tpu_torch.obs.recorder`) default to the shared
+    no-op singletons. The seam is called ``obs``, not ``recorder``,
+    because Replica already takes a ``recorder`` for the transport
+    consumption log."""
 
     starting_height: Height = DEFAULT_HEIGHT
     max_capacity: int = DEFAULT_MAX_CAPACITY
@@ -121,6 +151,8 @@ class ReplicaOptions:
     #: the Process's batched ingestion — one rule-cascade pass per window
     #: instead of per message.
     batch_ingest: bool = False
+    tracer: object = None
+    obs: object = None
 
     def with_starting_height(self, height: Height) -> "ReplicaOptions":
         return replace(self, starting_height=height)
@@ -130,6 +162,12 @@ class ReplicaOptions:
 
     def with_verify_window(self, window: int) -> "ReplicaOptions":
         return replace(self, verify_window=window)
+
+    def with_tracer(self, tracer) -> "ReplicaOptions":
+        return replace(self, tracer=tracer)
+
+    def with_obs(self, obs) -> "ReplicaOptions":
+        return replace(self, obs=obs)
 
 
 @dataclass(frozen=True)
@@ -163,6 +201,8 @@ class Replica:
     ):
         f = len(signatories) // 3
         self.opts = opts
+        self.tracer = opts.tracer if opts.tracer is not None else NULL_TRACER
+        self.obs = opts.obs if opts.obs is not None else NULL_BOUND
         self.proc = Process(
             whoami=whoami,
             f=f,
@@ -171,13 +211,15 @@ class Replica:
             proposer=proposer,
             validator=validator,
             broadcaster=broadcaster,
-            committer=committer,
+            committer=self._instrument_committer(committer),
             certifier=certifier,
-            catcher=catcher,
+            catcher=self._instrument_catcher(catcher),
             height=opts.starting_height,
+            obs=self.obs,
         )
         self.procs_allowed: set[Signatory] = set(signatories)
         self.mq = MessageQueue(max_capacity=opts.max_capacity)
+        self.mq.obs = self.obs
         # Pre-register the whitelist in the queue's tie-break order map:
         # "senders tie-broken by registration order" then means whitelist
         # order — identical across replicas and across driving modes.
@@ -199,6 +241,7 @@ class Replica:
         # back into handle() (loopback) must enqueue, not recurse.
         self._handling = False
         self._pending: deque = deque()
+        self._last_commit_time: Optional[float] = None
         # Burst fast lane (external_flush only): votes for the CURRENT
         # height skip the sorted queue entirely; drain_pending merges lane
         # and queue under the same (height, round, sender, arrival)
@@ -222,6 +265,64 @@ class Replica:
         #: rule. Under pressure, classified traffic (duplicates, over-share
         #: prevotes) sheds here before it can buffer. None = admit all.
         self.admission = None
+
+    # --------------------------------------------------------- observability
+
+    def _instrument_committer(self, committer):
+        """Wrap the app's committer with metrics: commit counter,
+        per-height latency histogram, rounds-to-commit histogram."""
+        if committer is None:
+            return None
+        replica = self
+
+        class _TracingCommitter:
+            def commit(self, height, value):
+                t = replica.tracer
+                now = t.now()
+                t.count("replica.commits")
+                t.observe("replica.commit.rounds", replica.proc.current_round + 1)
+                if replica._last_commit_time is not None:
+                    t.observe("replica.height.latency", now - replica._last_commit_time)
+                replica._last_commit_time = now
+                return committer.commit(height, value)
+
+        return _TracingCommitter()
+
+    def _instrument_catcher(self, catcher):
+        """Wrap the app's catcher: count and journal every piece of
+        evidence."""
+        if catcher is None:
+            return None
+        replica = self
+
+        class _TracingCatcher:
+            def _note(self, kind):
+                replica.tracer.count(_CAUGHT_METRIC[kind])
+                if replica.obs is not NULL_BOUND:
+                    replica.obs.emit(
+                        "equivocation",
+                        replica.proc.current_height,
+                        replica.proc.current_round,
+                        kind,
+                    )
+
+            def catch_double_propose(self, new, existing):
+                self._note("double_propose")
+                catcher.catch_double_propose(new, existing)
+
+            def catch_double_prevote(self, new, existing):
+                self._note("double_prevote")
+                catcher.catch_double_prevote(new, existing)
+
+            def catch_double_precommit(self, new, existing):
+                self._note("double_precommit")
+                catcher.catch_double_precommit(new, existing)
+
+            def catch_out_of_turn_propose(self, propose):
+                self._note("out_of_turn_propose")
+                catcher.catch_out_of_turn_propose(propose)
+
+        return _TracingCatcher()
 
     # ------------------------------------------------------------ sync driving
 
@@ -250,6 +351,7 @@ class Replica:
         self._lane.clear()
         self._lane_counts.clear()
         self._pending.clear()
+        self._last_commit_time = None
         if self.flusher is not None and hasattr(self.flusher, "reset"):
             # Queue-backed flushers hold in-flight settle futures; the
             # revived replica must not apply its dead predecessor's
@@ -292,14 +394,21 @@ class Replica:
         dh = self.did_handle_message
         retired = self.retired
         adm = self.admission
+        n_pv = n_pc = n_pp = 0
         for msg in msgs:
             t = type(msg)
             if t is Prevote or t is Precommit or t is Propose:
+                if t is Prevote:
+                    n_pv += 1
+                elif t is Precommit:
+                    n_pc += 1
+                else:
+                    n_pp += 1
                 h = msg.height
                 if retired:
                     bad_from = retired.get(msg.sender)
                     if bad_from is not None and h >= bad_from:
-                        self.stale_votes += 1
+                        self._note_stale(msg)
                         if dh is not None:
                             dh()
                         continue
@@ -326,10 +435,21 @@ class Replica:
                 cur = self.proc.current_height
                 counts = self._lane_counts
                 lane = self._lane
+        if self.tracer is not NULL_TRACER:
+            if n_pv:
+                self.tracer.count("replica.msg.prevote", n_pv)
+            if n_pc:
+                self.tracer.count("replica.msg.precommit", n_pc)
+            if n_pp:
+                self.tracer.count("replica.msg.propose", n_pp)
 
     def _handle_one(self, msg) -> None:
         if self.recorder is not None:
             self.recorder.record(msg)
+        if self.tracer is not NULL_TRACER:
+            self.tracer.count(
+                _MSG_METRIC.get(type(msg), "replica.msg.other")
+            )
         try:
             if isinstance(msg, Timeout):
                 if msg.message_type == MessageType.PROPOSE:
@@ -343,6 +463,13 @@ class Replica:
             elif isinstance(msg, (Propose, Prevote, Precommit)):
                 self._buffer_vote(msg)
             elif isinstance(msg, ResetHeight):
+                if self.obs is not NULL_BOUND:
+                    self.obs.emit(
+                        "height.resync",
+                        self.proc.current_height,
+                        self.proc.current_round,
+                        msg.height,
+                    )
                 self.proc.state = State.default_with_height(msg.height)
                 self.mq.drop_messages_below_height(msg.height)
                 # Lane messages were for the pre-reset current height,
@@ -375,9 +502,7 @@ class Replica:
         if self.retired:
             bad_from = self.retired.get(msg.sender)
             if bad_from is not None and h >= bad_from:
-                # Signed under a retired key generation at a height where
-                # the rotation binds: dropped before it can buffer.
-                self.stale_votes += 1
+                self._note_stale(msg)
                 return
         if self.admission is not None and not self.admission.admit(msg):
             return
@@ -393,6 +518,21 @@ class Replica:
             self.mq.insert_prevote(msg)
         else:
             self.mq.insert_precommit(msg)
+
+    def _note_stale(self, msg) -> None:
+        """A vote signed under a retired key generation at a height where
+        the rotation already binds: dropped before it can buffer, counted
+        (``replica.msg.stale_vote``) and journaled (``epoch.stale_vote``)."""
+        self.stale_votes += 1
+        if self.tracer is not NULL_TRACER:
+            self.tracer.count("replica.msg.stale_vote")
+        if self.obs is not NULL_BOUND:
+            self.obs.emit(
+                "epoch.stale_vote",
+                msg.height,
+                getattr(msg, "round", -1),
+                self.stale_votes,
+            )
 
     def _flush(self) -> None:
         """Drain the queue into the Process until quiescent
@@ -420,7 +560,10 @@ class Replica:
                 )
                 if not window:
                     return
-                self.dispatch_window(window, self.verifier.verify_batch(window))
+                self.tracer.observe("replica.verify.window", len(window))
+                with self.tracer.span("replica.verify.latency"):
+                    keep = self.verifier.verify_batch(window)
+                self.dispatch_window(window, keep)
 
     # ------------------------------------------------- external (burst) flush
 
@@ -447,23 +590,42 @@ class Replica:
         if self.opts.batch_ingest:
             self.proc.ingest_cascade(self.ingest_insert_window(window, keep))
             return
+        if self.obs is not NULL_BOUND:
+            self.obs.emit(
+                "ingest.window",
+                self.proc.current_height,
+                self.proc.current_round,
+                len(window),
+            )
         verified = keep is not None
         allowed = self.procs_allowed
+        n_ok = 0
         for j, msg in enumerate(window):
             if verified and not keep[j]:
                 continue
             if msg.sender not in allowed:
                 continue
+            n_ok += 1
             if isinstance(msg, Propose):
                 self.proc.propose(msg)
             elif isinstance(msg, Prevote):
                 self.proc.prevote(msg)
             else:
                 self.proc.precommit(msg)
+        if verified and self.tracer is not NULL_TRACER:
+            self.tracer.count("replica.verify.accepted", n_ok)
+            self.tracer.count("replica.verify.rejected", len(window) - n_ok)
 
     def ingest_insert_window(self, window, keep=None, on_accepted=None):
         """Phase 2a: filter + insert only, no rules. Same filtering as
         :meth:`dispatch_window`; returns the plan for the cascade."""
+        if self.obs is not NULL_BOUND:
+            self.obs.emit(
+                "ingest.window",
+                self.proc.current_height,
+                self.proc.current_round,
+                len(window),
+            )
         verified = keep is not None
         allowed = self.procs_allowed
         batch = [
@@ -471,6 +633,10 @@ class Replica:
             for j, msg in enumerate(window)
             if (not verified or keep[j]) and msg.sender in allowed
         ]
+        if verified and self.tracer is not NULL_TRACER:
+            self.tracer.count("replica.verify.accepted", len(batch))
+            self.tracer.count("replica.verify.rejected",
+                              len(window) - len(batch))
         return self.proc.ingest_insert(batch, on_accepted)
 
     def ingest_cascade_window(self, plan, tallies=None) -> None:
@@ -483,11 +649,25 @@ class Replica:
         WindowColumns` view with the keep-mask and whitelist filters fused
         into the loop: no per-replica window copy, no per-replica
         attribute extraction (it was paid once when ``cols`` was built).
-        Filtering and insertion match :meth:`ingest_insert_window` row for
-        row."""
-        plan, _ = self.proc.ingest_insert_cols(
+        Filtering, insertion and accounting match
+        :meth:`ingest_insert_window` row for row;
+        ``replica.ingest.fastpath_rows`` counts the rows that rode the
+        columnar path."""
+        if self.obs is not NULL_BOUND:
+            self.obs.emit(
+                "ingest.window",
+                self.proc.current_height,
+                self.proc.current_round,
+                cols.n,
+            )
+        plan, n_ok = self.proc.ingest_insert_cols(
             cols, keep, self.procs_allowed, on_accepted
         )
+        if self.tracer is not NULL_TRACER:
+            self.tracer.count("replica.ingest.fastpath_rows", cols.n)
+            if keep is not None:
+                self.tracer.count("replica.verify.accepted", n_ok)
+                self.tracer.count("replica.verify.rejected", cols.n - n_ok)
         return plan
 
     def dispatch_window_cols(self, cols, keep=None) -> None:
@@ -550,6 +730,8 @@ class Replica:
             if t is Propose or t is Prevote or t is Precommit:
                 if self.recorder is not None:
                     self.recorder.record(msg)
+                if self.tracer is not NULL_TRACER:
+                    self.tracer.count(_MSG_METRIC[t])
                 self._buffer_vote(msg)
                 if dh is not None:
                     dh()

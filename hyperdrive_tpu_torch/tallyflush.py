@@ -38,9 +38,12 @@ launches on a CUDA stream of its own, so a replica thread waits only for
 its own work, never for the launches of the replicas that share its
 verifier. :meth:`~DeviceTallyFlusher.rotate_validators` (the epoch
 boundary's hot swap) and the :attr:`~DeviceTallyFlusher.generation` that
-queue-mode commands carry are the reference's. Dropped, as the port's
-conventions say: the metrics recorder (``obs``), the ``@async_scope`` and
-``device_fetch`` analysis hooks, and the sanitizer's default
+queue-mode commands carry are the reference's, and so are the
+flight-recorder seam (``obs``, a keyword here: ``flush.launch``,
+``tally.launch`` and ``flush.settle`` events; queue-mode windows submit
+its track as their ``origin``) and the two mask fetches through
+:func:`~hyperdrive_tpu_torch.analysis.annotations.device_fetch`. Dropped:
+the ``@async_scope`` lint marker and the sanitizer's default
 ``tally_check`` (``analysis.sanitizer.maybe_tally_check``). Added: the
 ``cancelled`` and ``plane_resets`` counts.
 
@@ -57,7 +60,9 @@ import time
 import numpy as np
 import torch
 
+from hyperdrive_tpu_torch.analysis.annotations import device_fetch
 from hyperdrive_tpu_torch.batch import MessageBlock
+from hyperdrive_tpu_torch.obs.recorder import NULL_BOUND
 from hyperdrive_tpu_torch.ops.tally import pack_value
 from hyperdrive_tpu_torch.ops.votegrid import TallyView, VoteGrid
 
@@ -80,8 +85,10 @@ class DeviceTallyFlusher:
     def __init__(self, verifier, validators, r_slots: int = 8,
                  buckets: tuple = (256, 1024, 4096), tally_check=None,
                  pipeline_split: int = 512, queue=None, certifier=None,
-                 device=None):
+                 device=None, obs=None):
         self.verifier = verifier
+        #: Flight-recorder handle (obs/recorder.py; NULL_BOUND = off).
+        self.obs = obs if obs is not None else NULL_BOUND
         #: Optional Certifier shared with the replica's Process: the
         #: settle path re-verifies each newly minted certificate in O(1)
         #: (binding + quorum weight). One with no transcript source is
@@ -234,7 +241,11 @@ class DeviceTallyFlusher:
             t0 = time.perf_counter()
             if begin is not None:
                 pending = begin(items)
-                resolve = lambda: [bool(b) for b in pending.mask()]  # noqa: E731
+                resolve = lambda: [  # noqa: E731
+                    bool(b)
+                    for b in device_fetch(pending.mask(),
+                                          why="columnar settle verify mask")
+                ]
             elif hasattr(self.verifier, "verify_signatures"):
                 mask = self.verifier.verify_signatures(items)
                 resolve = lambda: [bool(b) for b in mask]  # noqa: E731
@@ -261,10 +272,21 @@ class DeviceTallyFlusher:
             )
             if not window:
                 return
+            if self.obs is not NULL_BOUND:
+                self.obs.emit(
+                    "flush.launch",
+                    replica.proc.current_height,
+                    replica.proc.current_round,
+                    len(window),
+                )
             fut = queue.submit(
                 launcher,
                 [(m.sender, m.digest(), m.signature) for m in window],
                 self.generation,
+                origin=(
+                    self.obs.replica
+                    if self.obs is not NULL_BOUND else None
+                ),
                 rows=len(window),
             )
             self._inflight.append(fut)
@@ -305,6 +327,13 @@ class DeviceTallyFlusher:
                 )
                 if not window:
                     return
+                if self.obs is not NULL_BOUND:
+                    self.obs.emit(
+                        "flush.launch",
+                        replica.proc.current_height,
+                        replica.proc.current_round,
+                        len(window),
+                    )
                 if (
                     begin is not None
                     and self.pipeline_split > 0
@@ -327,7 +356,15 @@ class DeviceTallyFlusher:
                                 None,
                                 lambda p=p, h=h: [
                                     bool(ok) and bool(m.signature)
-                                    for ok, m in zip(p.mask(), h)
+                                    for ok, m in zip(
+                                        device_fetch(
+                                            p.mask(),
+                                            why="half-window verdicts; the "
+                                                "2nd half verifies under "
+                                                "this fetch + insert",
+                                        ),
+                                        h,
+                                    )
                                 ],
                             )
                             for h, p in zip(halves, pending)
@@ -432,6 +469,8 @@ class DeviceTallyFlusher:
         )
         self.tally_seconds += time.perf_counter() - t0
         self.launches += 1
+        if self.obs is not NULL_BOUND:
+            self.obs.emit("tally.launch", h, st.current_round, len(idx))
         view = TallyView(
             0, self._height, counts, R, tmap, int(l28_slot[0]), l28_val,
             dirty=dirty,
@@ -448,3 +487,7 @@ class DeviceTallyFlusher:
                 cert = self.certifier.certificate_for(ch)
                 if cert is not None:
                     self.certifier.verify(cert)
+        if self.obs is not NULL_BOUND:
+            self.obs.emit(
+                "flush.settle", proc.current_height, proc.current_round
+            )

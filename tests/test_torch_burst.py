@@ -262,9 +262,14 @@ def test_knobs_take_the_reference_defaults_and_errors():
                dict(record=False), dict(catchup_every=4), dict(catchup_lag=2)):
         kw.setdefault("burst", True)
         Simulation(n=4, target_height=1, **kw)
-    for kw in (dict(tally_mesh=object()), dict(observe=True), dict(obs_capacity=16)):
-        with pytest.raises(NotImplementedError):
-            Simulation(n=4, target_height=1, burst=True, **kw)
+    with pytest.raises(NotImplementedError):
+        Simulation(n=4, target_height=1, burst=True, tally_mesh=object())
+    # The recorder's options are ported: observe keeps a ring of the
+    # default size, obs_capacity alone keeps recording off.
+    sim = Simulation(n=4, target_height=1, burst=True, observe=True)
+    assert sim.obs.capacity == 65536 and sim.run().completed and sim.obs.total
+    sim = Simulation(n=4, target_height=1, burst=True, obs_capacity=16)
+    assert sim.run().completed and len(sim.obs) == 0
 
 
 def _items(n_items):

@@ -381,7 +381,9 @@ def test_proxy_forwards_then_blackholes_then_heals():
             proxy.heal()
             s.sendall(frame)
             assert _await(lambda: len(received) == 2)
-        assert proxy.forwarded == 2
+        # The proxy counts a frame only after upstream.sendall returns,
+        # so the sink can hold it before the count moves.
+        assert _await(lambda: proxy.forwarded == 2)
     finally:
         proxy.stop()
         node.stop()
@@ -402,7 +404,7 @@ def test_proxy_drop_and_duplicate(fault):
             else:
                 s.sendall(frame)
                 assert _await(lambda: len(received) == 2)
-                assert proxy.forwarded == 2
+                assert _await(lambda: proxy.forwarded == 2)
     finally:
         proxy.stop()
         node.stop()
@@ -464,7 +466,10 @@ def test_chaos_proxy_bandwidth_throttle_pays_serialization_delay():
                     s.sendall(frame)
                 assert done.wait(10.0)
             elapsed = time.monotonic() - t0
-            assert received[0] == frame * 3 and proxy.forwarded == 3
+            # The proxy counts a frame only after upstream.sendall
+            # returns: the reader can hold every byte before the count.
+            assert _await(lambda: proxy.forwarded == 3)
+            assert received[0] == frame * 3
             expected = 3 * len(frame) * 8.0 / bps
             assert abs(proxy.throttled_s - expected) < 1e-9
             assert elapsed >= expected * 0.9

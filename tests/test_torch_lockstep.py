@@ -213,7 +213,8 @@ def test_lockstep_refusals(kw, match):
 @pytest.mark.parametrize("opt", ["tally_mesh", "observe", "obs_capacity", "chaos", "load",
                                  "overlay", "catchup_every", "catchup_lag"])
 def test_unported_subsystems_refused_with_reason(opt):
-    # Chaos, load, the overlay and the laggard sweep are ported: their
+    # The recorder's options, chaos, load, the overlay and the laggard
+    # sweep are ported: the recorder's cases run both packages; the other
     # cases are the reference's ValueErrors (chaos or an overlay in burst
     # mode, load without delivery pacing, a sweep every 0 steps, a negative
     # lag), raised by both packages.
@@ -228,6 +229,17 @@ def test_unported_subsystems_refused_with_reason(opt):
         "catchup_every": (dict(catchup_every=0), dict(catchup_every=0), ">= 1"),
         "catchup_lag": (dict(catchup_lag=-1), dict(catchup_lag=-1), ">= 0"),
     }
+    if opt in ("observe", "obs_capacity"):
+        # The flight recorder is ported: observe journals the run as the
+        # reference does, obs_capacity alone leaves recording off.
+        kw = {opt: True if opt == "observe" else 16}
+        got = Simulation(n=4, target_height=1, device="cpu", **kw)
+        ref = RefSimulation(n=4, target_height=1, **kw)
+        got.run()
+        ref.run()
+        assert len(got.obs) == len(ref.obs) and (len(got.obs) > 0) == (opt == "observe")
+        assert got.obs.digest() == ref.obs.digest()
+        return
     if opt in lifted:
         kw, ref_kw, match = lifted[opt]
         with pytest.raises(ValueError, match=match):

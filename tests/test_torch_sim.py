@@ -85,8 +85,9 @@ def test_host_baseline_and_default_routing_match_reference(seed, monkeypatch):
 def test_unported_options_are_refused():
     with pytest.raises(NotImplementedError):
         Simulation(n=4, target_height=1, burst=True, tally_mesh=object())
-    with pytest.raises(NotImplementedError, match="observe"):
-        Simulation(n=4, target_height=1, burst=True, observe=True)
+    # The flight recorder is ported: an observed run journals its events.
+    observed = Simulation(n=4, target_height=1, burst=True, observe=True)
+    assert observed.run().completed and len(observed.obs) > 0
     # Chaos is ported: a plan with a partition needs delivery pacing, the
     # reference's ValueError in both packages.
     for sim_cls, plan_cls, part_cls in ((Simulation, FaultPlan, Partition),
