@@ -331,9 +331,22 @@ Phases, each printing its lines:
    drains of 256 and 20 of 4,096 pre-signed lanes: p50 pack / dispatch /
    sync / unpack ms, the sync share, and the four splits summing to each
    launch's wall within 5%.
+21. observability on the other subsystems (``phase_obs_net``, lines
+   ``obs_net``; after phase 12): the overlay bench's network observed,
+   n = 256 signed and n = 16 with ``bls_partials`` (rows 1 and 5), each
+   journal equal to the JAX run's once the device-only kinds are out;
+   the overload chaos leg observed with the monitor's journal check, the
+   JAX run's count of every kind; the campaign bench's storm with a
+   registry and a recorder, both digests the JAX run's; the M = 16
+   service with every hook (a metrics scrape naming the queue's
+   launches, per-tenant verify latency, a traced remote tenant whose
+   journal merges with the service's without orphan); the capstone's
+   network traced as four deployment workers of one replica each on the
+   chal route (rows 3 and 4, 10 heights), the four journals they save
+   merged with no orphaned ``trace.recv``.
 
-Each path of phases 5, 6, 7, 8, 10, 11, 12, 15, 16, 17, 18 and 20 is driven
-with the kernel counts set to 0 just before it and read just after.
+Each path of phases 5, 6, 7, 8, 10, 11, 12, 15, 16, 17, 18, 20 and 21 is
+driven with the kernel counts set to 0 just before it and read just after.
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``. Any failed check raises, so the script
@@ -3557,9 +3570,10 @@ def _free_ports(n: int) -> list:
 
 
 def run_deploy(label: str, procs: int, per: int, heights: int, deadline: float,
-               opts) -> None:
+               opts) -> list:
     """Start ``procs`` deployment workers on the card, wait for all of
-    them, check them against each other, print their lines."""
+    them, check them against each other, print their lines; returns each
+    worker's fields."""
     ports = _free_ports(procs)
     root = os.path.dirname(os.path.abspath(__file__))
     opts = ("--deadline", str(deadline), *opts)
@@ -3595,7 +3609,7 @@ def run_deploy(label: str, procs: int, per: int, heights: int, deadline: float,
                 print(f"deploy {label}: {line}", flush=True)
         got = {}
         for line in lines:
-            if line.startswith(("DEPLOY_STATS", "TRANSPORT_OK")):
+            if line.startswith(("DEPLOY_STATS", "DEPLOY_TRACE", "TRANSPORT_OK")):
                 got.update(kv.split("=", 1) for kv in line.split()[1:])
         fields.append(got)
     digests = {f["digest"] for f in fields}
@@ -3614,6 +3628,7 @@ def run_deploy(label: str, procs: int, per: int, heights: int, deadline: float,
     print(f"deploy {label}: n={procs * per} processes={procs} replicas_per_process={per} "
           f"heights={heights} phase_s={wall:.2f} digest={digests.pop()[:16]} "
           f"equal_digests=True", flush=True)
+    return fields
 
 
 #: Rows of one flush's scatter and lanes of one flush's verify in the
@@ -4993,6 +5008,297 @@ def phase_obs(ref: dict) -> None:
               f"splits_sum_within_5pct=True card={card_line()}", flush=True)
 
 
+#: The JAX package's observed runs of ``phase_obs_net``'s legs, on the
+#: CPU with ``HostVerifier`` (the card machine has no jax): (a) the overlay
+#: bench's network signed at n = 256 and with ``bls_partials`` at n = 16,
+#: the whole journal's digest and its kinds; (b) the overload leg of
+#: ``phase_chaos`` (``FaultPlan.overload(1002, 16)``, ``QueueFlusher``s on
+#: one shared verifier behind ``DeviceWorkQueue(max_depth=8)``) with a
+#: ring large enough to keep every event: its lifecycle and the count of
+#: every kind (the launch records' lane details follow the verifier's
+#: bucket ladder, so the digest is not compared); (c) the campaign bench's
+#: storm with a registry and a recorder on a zero clock: both digests, the
+#: campaign.* kinds and the registry's counters.
+OBS_NET_OVERLAY = {
+    256: dict(journal="c27e2da59735a444", events=14_148,
+              kinds={"commit": 512, "overlay.frame": 10_666, "overlay.level.timeout": 145,
+                     "overlay.withhold": 12, "round.start": 768, "step.precommitting": 512,
+                     "step.prevoting": 768, "timeout.propose.scheduled": 765}),
+    16: dict(journal="27c2b6bbe5dc6fd1", events=461,
+             kinds={"commit": 32, "overlay.frame": 256, "round.start": 48,
+                    "step.precommitting": 32, "step.prevoting": 48,
+                    "timeout.propose.scheduled": 45}),
+}
+OBS_NET_CHAOS = dict(
+    capacity=1 << 18,
+    lifecycle=[(0, 3052, 12, 0), (1, 6104, 12, 2), (2, 6184, 2, 2), (2, 6184, 3, 2),
+               (2, 6184, 13, 2), (2, 6184, 14, 2)],
+    kinds={"admission.level": 1, "admission.shed": 51_008, "chaos.crash": 1,
+           "chaos.heal": 1, "chaos.partition": 1, "chaos.restore": 1, "commit": 315,
+           "height.resync": 5, "ingest.window": 12_975, "load.burst": 922,
+           "load.offered": 922, "round.skip": 15, "round.start": 368,
+           "sched.coalesce": 1_629, "sched.drain": 1_629, "sched.launch.begin": 1_629,
+           "sched.launch.cmd": 12_975, "sched.launch.end": 1_629,
+           "sched.launch.lanes": 1_629, "sched.launch.occupancy": 1_629,
+           "sched.launch.queue_wait": 1_629, "sched.launch.rows": 1_629,
+           "sched.launch.submit": 12_975, "sched.submit": 12_975,
+           "step.precommitting": 347, "step.prevoting": 352, "timeout.precommit.fired": 17,
+           "timeout.precommit.scheduled": 27, "timeout.prevote.fired": 16,
+           "timeout.prevote.scheduled": 16, "timeout.propose.fired": 17,
+           "timeout.propose.scheduled": 345})
+OBS_NET_CAMPAIGN = dict(
+    journal="1fd02fc595d8dbec", registry="df54149dbdaf7099", events=15_528,
+    kinds={"admission.level": 6, "admission.reputation.charge": 384,
+           "admission.reputation.demote": 24, "admission.reputation.recover": 16,
+           "admission.shed": 14_976, "campaign.done": 1, "campaign.family": 1,
+           "campaign.wave": 120},
+    counters={"admission.admitted": 6_144, "admission.offered": 21_120,
+              "admission.reputation.demotions": 24, "admission.reputation.recoveries": 16,
+              "admission.transitions": 6, "campaign.runs": {"storm": 1}})
+#: The traced deployment: the capstone's network (n = 4, 10 heights, the
+#: chal route, buckets 64, every mask held to the host) as four worker
+#: processes of one replica each, so that each of four TcpNodes stamps and
+#: journals on a process and a clock of its own: (processes, replicas per
+#: process, heights, seconds until an unfinished run fails).
+OBS_NET_DEPLOY = (4, 1, 10, 420)
+
+
+def _kinds(events, drop=()) -> dict:
+    """Kind -> count over ``events``, kinds in ``drop`` left out."""
+    from collections import Counter
+
+    return dict(sorted(Counter(e.kind for e in events if e.kind not in drop).items()))
+
+
+def phase_obs_net() -> None:
+    """Observability on the remaining subsystems (``phase_obs_net``, lines
+    ``obs_net``), each leg driven with the kernel counts set to 0 just
+    before it and read just after:
+
+    - (a) the overlay bench's network observed: n = 256 signed (row 1, a
+      launch a verify row) and n = 16 signed with ``bls_partials`` (row 5,
+      a launch a merge, each sum held to the host fold): the JAX run's
+      digest, steps, row-1 launches and whole journal;
+    - (b) ``phase_chaos``'s overload leg observed, ``InvariantMonitor``
+      armed (``check_final`` runs ``_check_journal``): the chaos queue
+      leg's digest and steps, the JAX run's queue counts, lifecycle and the
+      count of every kind;
+    - (c) the campaign bench's storm with a registry and a recorder,
+      verifying on the card: the JAX run's journal and registry digests;
+    - (d) the multi-tenant series at M = 16 on a service with ``obs``,
+      ``tracer``, ``devtel`` and ``registry``: a metrics scrape answers the
+      queue's launch count, per-tenant verify latency p50/p99, and a traced
+      remote tenant whose journal merges with the service's, no orphan;
+    - (e) a traced deployment: the capstone's network as four worker
+      processes on the chal route (rows 3 and 4), each ``TcpNode`` with
+      ``trace=`` and ``registry=``, their four saved journals merged with
+      no orphaned ``trace.recv``."""
+    import tempfile
+    import threading
+
+    from hyperdrive_tpu_torch.campaign import CampaignConfig
+    from hyperdrive_tpu_torch.campaign.runner import run_campaign
+    from hyperdrive_tpu_torch.chaos import FaultPlan
+    from hyperdrive_tpu_torch.devsched import DeviceWorkQueue, QueueFlusher
+    from hyperdrive_tpu_torch.obs import (
+        DeviceTelemetry,
+        Recorder,
+        Registry,
+        TraceSource,
+        load_journal,
+        merge_journals,
+        merged_digest,
+    )
+    from hyperdrive_tpu_torch.ops import ed25519_cuda
+    from hyperdrive_tpu_torch.ops.ed25519 import TorchBatchVerifier
+    from hyperdrive_tpu_torch.overlay import OverlayConfig
+    from hyperdrive_tpu_torch.parallel.service import (
+        STATUS_COMMITTED,
+        RemoteServiceClient,
+        ShardVerifyService,
+        TenantShard,
+    )
+    from hyperdrive_tpu_torch.utils.trace import Tracer
+    from hyperdrive_tpu_torch.verifier import HostVerifier
+
+    card = TorchBatchVerifier(device="cuda")
+    card.warmup()
+    torch.cuda.synchronize()
+
+    # (a) The overlay, observed.
+    for n, label, kw in ((256, "n=256 signed", {}),
+                         (16, "n=16 signed bls_partials", {"bls_partials": True})):
+        want = OBS_NET_OVERLAY[n]
+        leg = _overlay_leg(f"{label} observed", n, OVERLAY_LEGS[label], sign=True,
+                           overlay=OverlayConfig(**kw), observe=True)
+        sim = leg["sim"]
+        # The card verifier's mask copies journal fetch.sync (device-only
+        # kinds, as in phase_obs); every other event is the JAX run's.
+        events = [e for e in sim.obs.snapshot() if e.kind not in OBS_DEVICE_KINDS]
+        digest = _events_digest(events)[:16]
+        kinds = _kinds(events)
+        if (digest, len(events), kinds, sim.obs.dropped) != (
+                want["journal"], want["events"], want["kinds"], 0):
+            raise AssertionError(f"obs_net overlay {label}: journal {digest} of "
+                                 f"{len(events)} events, kinds {kinds}, want {want}")
+        syncs = sum(e.kind == "fetch.sync" for e in sim.obs.snapshot())
+        print(f"obs_net overlay {label}: events={len(sim.obs)} fetch_sync={syncs} "
+              f"journal_digest_without_device_kinds={digest} equals_jax=True "
+              f"overlay_frame={kinds.get('overlay.frame', 0)} "
+              f"overlay_level_timeout={kinds.get('overlay.level.timeout', 0)} "
+              f"overlay_withhold={kinds.get('overlay.withhold', 0)} "
+              f"bls_events={sum(v for k, v in kinds.items() if k.startswith('bls.'))} "
+              f"verify_rows={leg['snap']['verify_rows']} wall_s={leg['wall']:.3f}", flush=True)
+
+    # (b) Chaos with the pinned load, observed, the monitor armed.
+    plan, profile = FaultPlan.overload(CHAOS_NET["seed"], CHAOS_NET["n"])
+    q = DeviceWorkQueue(max_depth=8)
+    leg = _chaos_leg("overload observed", plan, CHAOS_A["want"], ("ed25519_verify",), q,
+                     load=profile, observe=True, obs_capacity=OBS_NET_CHAOS["capacity"],
+                     flusher_for=lambda i, v: QueueFlusher(card, q))
+    sim = leg["sim"]
+    kinds = _kinds(sim.obs.snapshot(), OBS_DEVICE_KINDS)
+    queue = (q.submitted, q.launches, q.coalesced)
+    lifecycle = leg["res"].record.lifecycle
+    if (queue != CHAOS_D["queue"] or lifecycle != OBS_NET_CHAOS["lifecycle"]
+            or kinds != OBS_NET_CHAOS["kinds"] or sim.obs.dropped
+            or leg["launches"]["ed25519_verify"] != q.launches):
+        raise AssertionError(f"obs_net chaos: queue {queue}, lifecycle {lifecycle}, "
+                             f"dropped {sim.obs.dropped}, kinds {kinds}")
+    fams = {k: v for k, v in kinds.items() if k.split(".")[0] in ("chaos", "admission", "load")}
+    print(f"obs_net chaos: n={CHAOS_NET['n']} heights={CHAOS_HEIGHTS} "
+          f"steps={leg['res'].steps} events={len(sim.obs)} kinds_equal_jax=True "
+          f"check_journal=passed {' '.join(f'{k}={v}' for k, v in fams.items())} "
+          f"launches={leg['launches']['ed25519_verify']} wall_s={leg['wall']:.3f} "
+          f"digest={leg['res'].commit_digest()[:16]}", flush=True)
+
+    # (c) The campaign bench's storm with a registry and a recorder.
+    rec, reg = Recorder(time_fn=lambda: 0.0), Registry(time_fn=lambda: 0.0)
+    ed25519_cuda.reset_stats()
+    t0 = time.perf_counter()
+    out = run_campaign(CampaignConfig(reputation=True, **CAMPAIGN_BENCH), verifier=card,
+                       registry=reg,
+                       obs=rec.scoped(-1))
+    wall = time.perf_counter() - t0
+    launched = {k: v.launches for k, v in ed25519_cuda.stats.items() if v.launches}
+    want = OBS_NET_CAMPAIGN
+    counters = reg.snapshot()["counters"]
+    got = dict(journal=rec.digest()[:16], registry=reg.digest()[:16], events=len(rec),
+               kinds=_kinds(rec.snapshot()),
+               counters={k: counters.get(k) for k in want["counters"]})
+    if (got != want or out.digest.hex()[:16] != CAMPAIGN_B[True]["digest"]
+            or launched != {"ed25519_verify": CAMPAIGN_B[True]["calls"]}):
+        raise AssertionError(f"obs_net campaign: {got}, digest {out.digest.hex()[:16]}, "
+                             f"launched {launched}, want {want}")
+    print(f"obs_net campaign: digest={out.digest.hex()[:16]} events={len(rec)} "
+          f"journal_digest={got['journal']} registry_digest={got['registry']} "
+          f"equals_jax=True campaign_wave={got['kinds']['campaign.wave']} "
+          f"reputation_charges={got['kinds']['admission.reputation.charge']} "
+          f"launches={launched['ed25519_verify']} wall_s={wall:.3f}", flush=True)
+
+    # (d) The service with every hook: the M = 16 series, a scrape and a
+    # traced remote tenant.
+    m, heights = SERVICE_M[-1], SERVICE_HEIGHTS + 1
+    host_svc = ShardVerifyService(HostVerifier(), max_depth=0)
+    host = [TenantShard(f"tenant-{i}", n_validators=SERVICE_VALIDATORS,
+                        target_height=heights).attach_local(host_svc) for i in range(m)]
+    _waves([host_svc], host, heights)
+    srec, crec = Recorder(threadsafe=True), Recorder(threadsafe=True)
+    reg = Registry()
+    svc = ShardVerifyService(card, max_depth=0, obs=srec.scoped(-1), tracer=Tracer(),
+                             devtel=DeviceTelemetry(registry=reg), registry=reg)
+    tenants = [TenantShard(f"tenant-{i}", n_validators=SERVICE_VALIDATORS,
+                           target_height=heights).attach_local(svc) for i in range(m)]
+    ed25519_cuda.reset_stats()
+    wall = _waves([svc], tenants, heights)
+    series_launches = ed25519_cuda.stats["ed25519_verify"].launches
+    if ([t.commit_digest() for t in tenants] != [t.commit_digest() for t in host]
+            or series_launches != heights or svc.queue.launches != heights):
+        raise AssertionError(f"obs_net service: {series_launches} launches, digests equal "
+                             f"{[t.commit_digest() for t in tenants] == [t.commit_digest() for t in host]}")
+    port = svc.remote_port(trace=TraceSource(1, obs=srec.scoped(-1)))
+    client = None
+    try:
+        client = RemoteServiceClient(*port.address, obs=crec.scoped(-1),
+                                     trace=TraceSource(2, obs=crec.scoped(-1)))
+        remote = TenantShard("remote", n_validators=SERVICE_VALIDATORS,
+                             target_height=heights).attach_remote(client)
+        errors: list = []
+
+        def drive():
+            try:
+                remote.run_remote(max_inflight=4, timeout=20.0)
+            except Exception as err:  # reported below
+                errors.append(err)
+
+        worker = threading.Thread(target=drive, daemon=True)
+        worker.start()
+        t0 = time.perf_counter()
+        while worker.is_alive() and time.perf_counter() - t0 < 60.0:
+            port.pump()
+            svc.drain()
+            time.sleep(0.0005)
+        worker.join(5.0)
+        if worker.is_alive() or errors or not remote.done or remote.rejected:
+            raise AssertionError(f"obs_net service remote: done {remote.done}, errors "
+                                 f"{errors}")
+        scrape = client.metrics()
+        t0 = time.perf_counter()
+        while not scrape._event.is_set() and time.perf_counter() - t0 < 10.0:
+            port.pump()
+            time.sleep(0.001)
+        status, text = scrape.metrics_result(5.0)
+    finally:
+        if client is not None:
+            client.close()
+        port.close()
+    launches_line = f"hd_service_queue_launches {svc.queue.launches}"
+    if status != STATUS_COMMITTED or launches_line not in text.splitlines():
+        raise AssertionError(f"obs_net service scrape: status {status}, text lacks "
+                             f"{launches_line!r}")
+    merged = merge_journals([srec.journal(meta={"origin": 1}),
+                             crec.journal(meta={"origin": 2})])
+    sends = sum(ev[4] == "trace.send" for ev in merged["events"])
+    recvs = sum(ev[4] == "trace.recv" for ev in merged["events"])
+    if merged["meta"]["orphans"] or not recvs:
+        raise AssertionError(f"obs_net service trace: orphans {merged['meta']['orphans']}, "
+                             f"{recvs} receives")
+    hist = reg.snapshot()["histograms"]["tenant.verify.latency"]
+    p50 = statistics.median(h["p50"] for h in hist.values()) * 1e3
+    p99 = max(h["p99"] for h in hist.values()) * 1e3
+    print(f"obs_net service: M={m} validators={SERVICE_VALIDATORS} heights={heights} "
+          f"series_launches={series_launches} series_wall_s={wall:.4f} "
+          f"digests_equal_host=True scrape=ok scrape_bytes={len(text)} "
+          f"'{launches_line}' tenants_with_latency={len(hist)} "
+          f"tenant_verify_p50_ms_median={p50:.4f} tenant_verify_p99_ms_max={p99:.4f} "
+          f"remote_submits={port.remote_submits} trace_sends={sends} trace_recvs={recvs} "
+          f"orphans=0 merged_digest={merged_digest(merged)[:16]}", flush=True)
+
+    # (e) The capstone's network traced across processes (OBS_NET_DEPLOY):
+    # each worker resets its kernel counts after its warm-up and reports
+    # them in its DEPLOY_STATS line.
+    with tempfile.TemporaryDirectory() as tdir:
+        fields = run_deploy("obs_net traced", *OBS_NET_DEPLOY,
+                            ("--buckets", "64", "--check-host", "--trace", tdir))
+        merged = merge_journals([load_journal(os.path.join(tdir, f"journal-{r}.json"))
+                                 for r in range(len(fields))])
+    sends = sum(ev[4] == "trace.send" for ev in merged["events"])
+    recvs = sum(ev[4] == "trace.recv" for ev in merged["events"])
+    launched = {k: sum(int(f[f"{k}_launches"]) for f in fields)
+                for k in ("ed25519_challenge", "ed25519_semiwire", "ed25519_wire")}
+    if merged["meta"]["orphans"] or not recvs or launched["ed25519_wire"]:
+        raise AssertionError(f"obs_net deploy: orphans {merged['meta']['orphans']}, "
+                             f"{recvs} receives, launched {launched}")
+    wire = sum(int(f["wire_frame_events"]) for f in fields)
+    reconnects = sum(int(f["transport_reconnect"]) for f in fields)
+    procs, per, heights, _ = OBS_NET_DEPLOY
+    print(f"obs_net deploy: processes={procs} replicas_per_process={per} heights={heights} "
+          f"route=chal launches={launched} journals={len(fields)} "
+          f"merged_events={len(merged['events'])} trace_sends={sends} trace_recvs={recvs} "
+          f"orphans=0 merged_digest={merged_digest(merged)[:16]} wire_frame_events={wire} "
+          f"transport_reconnect={reconnects} digest={fields[0]['digest'][:16]}", flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs one card",
@@ -5037,6 +5343,8 @@ def main() -> int:
     mark("campaign")
     phase_service()
     mark("service")
+    phase_obs_net()
+    mark("obs_net")
     phase_deploy()
     mark("deploy")
     phase_shamir()

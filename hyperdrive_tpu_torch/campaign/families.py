@@ -1,7 +1,8 @@
 """The three campaign families: storm, capture, coincidence.
 
 Port copy of the JAX package's ``campaign/families.py``. Each engine is a
-deterministic function ``run(config, verifier) -> summary dict`` over the
+deterministic function ``run(config, verifier, registry, obs) ->
+summary dict`` over the
 real subsystems: the admission gate and reputation table
 (load/backpressure.py), the host ledger executor (exec/ledger.py), the
 epoch schedule (epochs.py), the aggregation topology and contribution
@@ -17,9 +18,9 @@ hands one in, and :func:`batch_verifier` makes the default, a
 ``TorchBatchVerifier`` on the card (the ``ed25519_verify`` kernel, one
 launch a wave) or a ``HostVerifier`` for ``device="cpu"``. Every verdict,
 and so the summary, is the same either way. The ledger executor stays the
-host one, as the reference chose. Dropped, as the port's conventions say:
-the ``registry`` and ``obs`` hooks (every ``campaign.*`` event and count
-they received).
+host one, as the reference chose. The ``registry`` and ``obs`` hooks are
+the reference's: every ``campaign.*`` event and count, and the gates' and
+controllers' ``admission.*`` ones.
 """
 
 from __future__ import annotations
@@ -48,6 +49,7 @@ from hyperdrive_tpu_torch.load.backpressure import (
     _peer_label,
 )
 from hyperdrive_tpu_torch.messages import Prevote
+from hyperdrive_tpu_torch.obs.recorder import NULL_BOUND
 from hyperdrive_tpu_torch.overlay.score import ContributionScores
 from hyperdrive_tpu_torch.overlay.topology import Topology
 
@@ -92,7 +94,7 @@ def _forge(sig: bytes) -> bytes:
 
 
 def run_storm(
-    cfg: CampaignConfig, verifier
+    cfg: CampaignConfig, verifier, registry=None, obs=NULL_BOUND
 ) -> dict:
     """Signed-vote storm against one admission gate.
 
@@ -112,7 +114,7 @@ def run_storm(
     honest = [ring[i].public for i in range(a, k)]
     attackers = [ring[j].public for j in range(a)]
     rep = (
-        SignerReputation()
+        SignerReputation(registry=registry, obs=obs)
         if cfg.reputation
         else None
     )
@@ -126,9 +128,15 @@ def run_storm(
         depth_low_priority=honest_rows * 2,
         depth_critical=storm_rows * 4,
         hysteresis=2,
+        registry=registry,
+        obs=obs,
     )
-    gate = AdmissionGate(ctrl, reputation=rep)
+    gate = AdmissionGate(
+        ctrl, reputation=rep, registry=registry, obs=obs
+    )
     waves = []
+    if obs is not NULL_BOUND:
+        obs.emit("campaign.family", -1, -1, "storm")
     for w in range(cfg.waves):
         height = w + 1
         value = _stream(b"campaign-storm-value", cfg.seed, w).digest(32)
@@ -196,6 +204,12 @@ def run_storm(
             - shed_rep0,
             "level": ctrl.level,
         })
+        if obs is not NULL_BOUND:
+            obs.emit(
+                "campaign.wave", height, -1,
+                "rows=%d failed=%d level=%d"
+                % (len(batch), failed, ctrl.level),
+            )
     snap = gate.snapshot()
     return {
         "family": "storm",
@@ -327,7 +341,7 @@ _HONEST_STAKE = 1000
 
 
 def run_capture(
-    cfg: CampaignConfig, verifier=None
+    cfg: CampaignConfig, verifier=None, registry=None, obs=NULL_BOUND
 ) -> dict:
     """Validator-set capture across ``cfg.epochs`` consecutive epochs.
 
@@ -361,6 +375,8 @@ def run_capture(
         ex.election_stakes(n), k, cfg.epoch_length, cfg.seed
     )
     seed8 = sched.seed.to_bytes(8, "little")
+    if obs is not NULL_BOUND:
+        obs.emit("campaign.family", -1, -1, "capture")
     trajectory = []
     for epoch in range(1, cfg.epochs + 1):
         boundary = epoch * cfg.epoch_length
@@ -411,6 +427,19 @@ def run_capture(
             "candidate": best_cand,
             "root": root[:8].hex(),
         })
+        if obs is not NULL_BOUND:
+            obs.emit(
+                "campaign.grind", boundary, -1,
+                "cand=%d seats=%d passive=%d"
+                % (best_cand, best_seats, passive_seats),
+            )
+            obs.emit(
+                "campaign.epoch", boundary, -1,
+                "e=%d seats=%d/%d" % (epoch, seats, k),
+            )
+        if registry is not None:
+            registry.count("campaign.epochs")
+            registry.count("campaign.adv_seats", seats)
     return {
         "family": "capture",
         "seed": cfg.seed,
@@ -429,7 +458,7 @@ def run_capture(
 
 
 def run_coincidence(
-    cfg: CampaignConfig, verifier
+    cfg: CampaignConfig, verifier, registry=None, obs=NULL_BOUND
 ) -> dict:
     """Everything at once: the capture loop, a per-epoch signature
     storm through a shared admission gate, and a partition slicing the
@@ -461,7 +490,7 @@ def run_coincidence(
         n, namespace=b"campaign-coin-%d" % cfg.seed
     )
     rep = (
-        SignerReputation()
+        SignerReputation(registry=registry, obs=obs)
         if cfg.reputation
         else None
     )
@@ -471,9 +500,15 @@ def run_coincidence(
         depth_critical=(honest_rows + k * cfg.wave_votes
                         * cfg.attack_rate) * 4,
         hysteresis=2,
+        registry=registry,
+        obs=obs,
     )
-    gate = AdmissionGate(ctrl, reputation=rep)
+    gate = AdmissionGate(
+        ctrl, reputation=rep, registry=registry, obs=obs
+    )
     scores = ContributionScores(n)
+    if obs is not NULL_BOUND:
+        obs.emit("campaign.family", -1, -1, "coincidence")
     trajectory = []
     overlay_epochs = []
     storm_epochs = []
@@ -616,6 +651,15 @@ def run_coincidence(
             "fallback_engaged": fallback_engaged,
             "demoted": len(scores.demoted),
         })
+        if obs is not NULL_BOUND:
+            obs.emit(
+                "campaign.partition", boundary, -1,
+                "level=%d sliced=%d" % (level, len(sliced)),
+            )
+            obs.emit(
+                "campaign.epoch", boundary, -1,
+                "e=%d seats=%d/%d" % (epoch, seats, k),
+            )
     # Heal runway: the slice lifts, amnesty plus fresh contribution
     # credit repay any honest debt (O(depth/heal_rate) heights — the
     # score floor is -64, each runway height repays 3).
@@ -624,6 +668,10 @@ def run_coincidence(
         for idx in range(n):
             scores.credit_coverage(idx, 1)
         scores.rehabilitate(1)
+    if obs is not NULL_BOUND:
+        obs.emit(
+            "campaign.heal", -1, -1, "runway=%d" % runway
+        )
     honest_demoted = sorted(
         idx for idx in scores.demoted if idx >= s
     )

@@ -14,7 +14,10 @@ sanitizer's budget reader (``analysis.sanitizer.maybe_wire_reader``):
 :meth:`CampaignRecord.load` reads through a plain
 :class:`~hyperdrive_tpu_torch.codec.Reader` with the record's 1 MiB
 budget, which is what the reference reads through with the sanitizer
-off. ``load(obs=)`` and ``load_file(obs=)`` went with the recorder.
+off. ``load(obs=)`` and ``load_file(obs=)`` take the reference's
+recorder handle, which only the sanitizer's budget reader would charge,
+so it is accepted and records nothing, as in the reference with the
+sanitizer off.
 """
 
 from __future__ import annotations
@@ -99,14 +102,14 @@ class CampaignRecord:
             f.write(w.data())
 
     @classmethod
-    def load(cls, payload: bytes) -> "CampaignRecord":
+    def load(cls, payload: bytes, *, obs=None) -> "CampaignRecord":
         return cls.unmarshal(Reader(payload, rem=_MAX_RECORD))
 
     @classmethod
-    def load_file(cls, path) -> "CampaignRecord":
+    def load_file(cls, path, *, obs=None) -> "CampaignRecord":
         with open(path, "rb") as f:
             payload = f.read()
-        return cls.load(payload)
+        return cls.load(payload, obs=obs)
 
     # -- convenience --------------------------------------------------
 

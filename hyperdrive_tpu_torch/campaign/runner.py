@@ -15,9 +15,8 @@ The storm and coincidence engines batch-verify on ``device``: the card by
 default (``TorchBatchVerifier``, the ``ed25519_verify`` kernel),
 ``device="cpu"`` for the reference's ``HostVerifier``; ``run_campaign(
 verifier=)`` hands in any object with ``verify_signatures`` instead. The
-digest does not depend on the choice. Dropped, as the port's conventions say: the
-metrics ``registry`` and the recorder (``obs``); a value other than None
-for either raises ``NotImplementedError``.
+digest does not depend on the choice. The metrics ``registry`` and the
+recorder (``obs``) are the reference's hooks.
 """
 
 from __future__ import annotations
@@ -28,11 +27,9 @@ from hyperdrive_tpu_torch.campaign import CampaignConfig
 from hyperdrive_tpu_torch.campaign.families import ENGINES, batch_verifier
 from hyperdrive_tpu_torch.campaign.record import CampaignRecord
 from hyperdrive_tpu_torch.chaos.monitor import InvariantMonitor, InvariantViolation
+from hyperdrive_tpu_torch.obs.recorder import NULL_BOUND
 
 __all__ = ["CampaignOutcome", "run_campaign", "replay_campaign"]
-
-_LATER = "not ported to the PyTorch package yet (a later slice of the port)"
-
 
 @dataclass
 class CampaignOutcome:
@@ -69,35 +66,45 @@ def run_campaign(
     device=None,
     verifier=None,
     registry=None,
-    obs=None,
+    obs=NULL_BOUND,
 ) -> CampaignOutcome:
     """Run one campaign and judge it. Deterministic in ``config``: the
-    verifier's device never feeds the summary, so the outcome digest is
-    a pure function of the config. Capture verifies no signature and
-    builds no verifier."""
-    for name, value in (("registry", registry), ("obs", obs)):
-        if value is not None:
-            raise NotImplementedError(f"run_campaign({name}=...) is {_LATER}")
+    verifier's device, the registry and obs observe the run but never feed
+    the summary, so the outcome digest is a pure function of the config.
+    Capture verifies no signature and builds no verifier."""
     config.validate()
     if verifier is None and config.family != "capture":
         verifier = batch_verifier(device)
-    summary = ENGINES[config.family](config, verifier)
+    summary = ENGINES[config.family](config, verifier, registry, obs)
     violations = []
     for check in _checks_for(config, summary):
         try:
             check()
         except InvariantViolation as err:
             violations.append((err.kind, str(err)))
+            if obs is not NULL_BOUND:
+                obs.emit("campaign.violation", -1, -1, err.kind)
+    record = CampaignRecord.capture(config, summary)
+    if registry is not None:
+        registry.count("campaign.runs", label=config.family)
+        if violations:
+            registry.count("campaign.violations", len(violations))
+    if obs is not NULL_BOUND:
+        obs.emit(
+            "campaign.done", -1, -1,
+            "%s %s violations=%d"
+            % (config.family, record.digest[:8].hex(), len(violations)),
+        )
     return CampaignOutcome(
         config=config,
         summary=summary,
-        record=CampaignRecord.capture(config, summary),
+        record=record,
         violations=violations,
     )
 
 
 def replay_campaign(
-    record: CampaignRecord, *, device=None, registry=None, obs=None,
+    record: CampaignRecord, *, device=None, registry=None, obs=NULL_BOUND,
 ) -> tuple[bool, CampaignOutcome]:
     """Re-run a recorded campaign from its config alone, on ``device``,
     and compare digests. ``(True, outcome)`` iff the fresh trajectory is

@@ -35,9 +35,9 @@ Wire format (codec.py, canonical):
 along): 148/196 B at n=256.
 
 Port copy of the JAX package's ``certificates.py``, byte for byte on the
-wire, in the binding and in the aggregate signature. Dropped: the
-``wire_codec`` analysis annotation and the metrics recorder (``obs``, the
-``cert.emit``/``cert.verify``/``bls.cert.agg`` events).
+wire, in the binding and in the aggregate signature, with the recorder
+(``obs``) and its ``cert.emit``/``cert.verify``/``bls.cert.agg`` events.
+Dropped: the ``wire_codec`` analysis annotation.
 """
 
 from __future__ import annotations
@@ -47,6 +47,7 @@ from dataclasses import dataclass
 
 from hyperdrive_tpu_torch.codec import Reader, SerdeError, Writer
 from hyperdrive_tpu_torch.crypto import bls
+from hyperdrive_tpu_torch.obs.recorder import NULL_BOUND
 
 __all__ = [
     "QuorumCertificate",
@@ -231,15 +232,17 @@ class Certifier:
     verifier's last batch transcript (``transcript_source``: a callable
     returning bytes — e.g. ``lambda: verifier.last_transcript`` — or None
     for transcript-less paths). Emitted certificates are kept per height
-    (``certs``).
+    (``certs``) and surfaced through the ``cert.emit`` / ``cert.verify``
+    obs events.
     """
 
     def __init__(self, signatories, f: int, transcript_source=None,
-                 bls_keyring=None, bls_aggregate_fn=None):
+                 obs=None, bls_keyring=None, bls_aggregate_fn=None):
         self.signatories = list(signatories)
         self._pos = {s: i for i, s in enumerate(self.signatories)}
         self.f = int(f)
         self.transcript_source = transcript_source
+        self.obs = obs if obs is not None else NULL_BOUND
         #: Optional BLS committee keyring: signatory identity ->
         #: :class:`~hyperdrive_tpu_torch.crypto.bls.BlsKeyPair`. When set,
         #: emitted certificates carry the 48-byte aggregate signature.
@@ -299,6 +302,11 @@ class Certifier:
             agg_sig=agg_sig,
         )
         self.certs[int(height)] = cert
+        if self.obs is not NULL_BOUND:
+            self.obs.emit(
+                "cert.emit", int(height), int(round),
+                cert.value_digest.hex()[:16],
+            )
         return cert
 
     def _bls_aggregate(self, height, round, value_digest,
@@ -325,6 +333,11 @@ class Certifier:
             agg = self._bls_aggregate_fn(partials)
         else:
             agg = bls.aggregate_signatures(partials)
+        if self.obs is not NULL_BOUND:
+            self.obs.emit(
+                "bls.cert.agg", int(height), len(partials),
+                "device" if self._bls_aggregate_fn is not None else "host",
+            )
         return bls.g1_compress(agg)
 
     # ----------------------------------------------------------- re-verify
@@ -332,7 +345,7 @@ class Certifier:
     def verify(self, cert: QuorumCertificate) -> bool:
         """O(1) acceptance: quorum weight, bitmap width, and binding
         integrity — no signature is re-checked and no vote set is
-        re-gossiped."""
+        re-gossiped. Emits ``cert.verify`` with the outcome."""
         ok = (
             len(cert.signers) == -(-len(self.signatories) // 8)
             and cert.signer_count() >= 2 * self.f + 1
@@ -347,6 +360,11 @@ class Certifier:
             self.verified += 1
         else:
             self.rejected += 1
+        if self.obs is not NULL_BOUND:
+            self.obs.emit(
+                "cert.verify", cert.height, cert.round,
+                "ok" if ok else "reject",
+            )
         return ok
 
     # ------------------------------------------------------------- rotation

@@ -19,20 +19,19 @@ still live* so the ScenarioRecord is intact at raise time:
 and post-run via :meth:`check_final`:
 
 - **commit-digest equality among honest replicas** — byte-equality of
-  every overlapping commit.
+  every overlapping commit, cross-checked against the obs journal's
+  commit events when the sim runs with ``observe=True``.
 - **completeness** — the run actually reached its target height.
 
 A violation raises :class:`InvariantViolation` (an ``AssertionError``
 subclass so plain pytest/soak harnesses catch it naturally); the soak
-CLI reacts by dumping the ScenarioRecord for message-for-message replay.
+CLI reacts by dumping the ScenarioRecord and obs journal for
+message-for-message replay.
 
-Port copy of ``hyperdrive_tpu/chaos/monitor.py``. Dropped with the flight
-recorder (``Simulation(observe=)`` is not ported yet): ``_check_journal``,
-the cross-check of the recorder's journalled commit events against the
-chain; it comes back with ``obs/``. Everything else is the reference's,
-the static checks (``check_tenant_fairness``,
-``check_campaign_proportionality``, ``check_storm_hygiene``,
-``check_campaign_economy``) included.
+Port copy of ``hyperdrive_tpu/chaos/monitor.py``, whole: the journal
+cross-check (``_check_journal``) and the static checks
+(``check_tenant_fairness``, ``check_campaign_proportionality``,
+``check_storm_hygiene``, ``check_campaign_economy``) included.
 """
 
 from __future__ import annotations
@@ -183,6 +182,7 @@ class InvariantMonitor:
                         f"replica {i} holds {value.hex()[:16]} at height "
                         f"{height}; chain has {want.hex()[:16]}",
                     )
+        self._check_journal()
         # Post-heal liveness: a completed run IS the liveness proof —
         # completion means every replica individually committed the
         # target height, and the harness stops delivering the moment
@@ -554,3 +554,23 @@ class InvariantMonitor:
                 "heal runway — amnesty plus contribution credit must "
                 "always repay a partition's debt",
             )
+
+    def _check_journal(self) -> None:
+        """Cross-check the obs flight recorder against the chain: every
+        journalled commit event's value prefix must match what the
+        monitor saw at the callback seam (observe=True runs only)."""
+        snapshot = getattr(self.sim.obs, "snapshot", None)
+        if snapshot is None:
+            return
+        for ev in snapshot():
+            if ev.kind != "commit":
+                continue
+            want = self.chain.get(ev.height)
+            if want is None or ev.detail is None:
+                continue
+            if not want.hex().startswith(str(ev.detail)):
+                raise InvariantViolation(
+                    "journal",
+                    f"obs journal commit at height {ev.height} carries "
+                    f"{ev.detail}; chain has {want.hex()[:16]}",
+                )

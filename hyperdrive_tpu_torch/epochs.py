@@ -40,8 +40,8 @@ adds the missing lifecycle:
 Port copy of ``hyperdrive_tpu/epochs.py`` (host code, no device
 import), on this package's ``codec`` and ``certificates``. Dropped, as the
 port's conventions say: the ``wire_codec`` analysis annotation on the
-proof codec and the metrics recorder (``obs``) of
-:class:`EpochCertifier`, whose ``epoch.proof`` event went with it. The
+proof codec. :class:`EpochCertifier` takes the reference's recorder
+(``obs``) and emits its ``epoch.proof`` event. The
 chaos engine (:mod:`hyperdrive_tpu_torch.chaos`, ``FaultPlan.churn``) is
 the proving ground for churn, as in the reference.
 """
@@ -59,6 +59,7 @@ from hyperdrive_tpu_torch.certificates import (
     unmarshal_certificate,
 )
 from hyperdrive_tpu_torch.codec import Reader, SerdeError, Writer
+from hyperdrive_tpu_torch.obs.recorder import NULL_BOUND
 
 __all__ = [
     "ValidatorInfo",
@@ -583,11 +584,11 @@ class EpochCertifier(Certifier):
     the proof chain across every transition it lived through."""
 
     def __init__(self, schedule: EpochSchedule, epoch: int = 0,
-                 transcript_source=None, bls_keyring=None,
+                 transcript_source=None, obs=None, bls_keyring=None,
                  bls_aggregate_fn=None):
         super().__init__(
             schedule.signatories(epoch), schedule.f(epoch),
-            transcript_source,
+            transcript_source, obs,
             bls_keyring=bls_keyring, bls_aggregate_fn=bls_aggregate_fn,
         )
         self.schedule = schedule
@@ -618,6 +619,10 @@ class EpochCertifier(Certifier):
             next_signatories=tr.signatories,
             cert=pcert,
         )
+        if self.obs is not NULL_BOUND:
+            self.obs.emit(
+                "epoch.proof", int(height), int(round), td.hex()[:16]
+            )
         self.rotate_to(tr.epoch)
         return cert
 

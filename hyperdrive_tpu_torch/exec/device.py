@@ -19,8 +19,9 @@ and never falls back to the host executor); and because PyTorch tensors
 are mutable where JAX arrays are not, every step is computed out of
 place (no tensor the executor holds is ever written), which is what
 keeps a speculation snapshot — a tuple of tensor references, as in the
-reference — valid through a double rollback. Dropped: the
-observability hooks.
+reference — valid through a double rollback. The ``obs=`` hook and its
+``exec.apply`` / ``exec.root`` / ``merkle.*`` events at :meth:`sync` are
+the reference's.
 """
 
 from __future__ import annotations
@@ -29,6 +30,7 @@ import numpy as np
 import torch
 
 from hyperdrive_tpu_torch.exec.ledger import HostLedgerExecutor, TxBlock
+from hyperdrive_tpu_torch.obs.recorder import NULL_BOUND
 from hyperdrive_tpu_torch.ops import ledger as ops_ledger
 from hyperdrive_tpu_torch.ops import merkle
 from hyperdrive_tpu_torch.ops.rootmix import root_bytes
@@ -43,9 +45,10 @@ class DeviceLedgerExecutor(HostLedgerExecutor):
     stay on the device until :meth:`sync`."""
 
     def __init__(self, config, genesis_stakes=(), source=None, masks=None,
-                 device=None):
+                 obs=NULL_BOUND, device=None):
         self.device = merkle.resolve_device(device)
-        super().__init__(config, genesis_stakes, source=source, masks=masks)
+        super().__init__(config, genesis_stakes, source=source, masks=masks,
+                         obs=obs)
 
     def _init_state(self, balances, stakes):
         def put(v):
@@ -121,6 +124,7 @@ class DeviceLedgerExecutor(HostLedgerExecutor):
         else:
             cols = self._device_cols(blk)
         self._ensure_chain()
+        full = 2 * cols.shape[1] >= self._dtree[0].shape[0]
         (
             self._dbal, self._dstk, count, self._droot,
             self._ddigest, self._dtree,
@@ -128,7 +132,9 @@ class DeviceLedgerExecutor(HostLedgerExecutor):
             self._dbal, self._dstk, self._droot, self._dtree, h, cols,
             self._dmix,
         )
-        self._pending.append((h, self._droot, count))
+        self._pending.append(
+            (h, self._droot, count, self._dtree[-1][0], full)
+        )
         return None  # counters/roots materialize at sync()
 
     # ---- speculation hooks: snapshots are tensor references, which
@@ -149,20 +155,40 @@ class DeviceLedgerExecutor(HostLedgerExecutor):
         pays, once per pipeline window."""
         if not self._pending:
             return
+        # One row a height: the 8 root words, the applied count, the 4
+        # Merkle root words.
         fetched = torch.cat([
             torch.stack([p[1] for p in self._pending]),
             torch.stack([p[2] for p in self._pending])[:, None],
+            torch.stack([p[3] for p in self._pending]),
         ], dim=1).cpu().numpy()
         t = self.config.txs_per_block
-        for (h, _, _), row in zip(self._pending, fetched):
-            self.roots[h] = root_bytes(row[:-1].astype(np.uint32))
-            c = int(row[-1])
+        depth = merkle.tree_depth(self.config.accounts)
+        for (h, _, _, _, full), row in zip(self._pending, fetched):
+            rb = root_bytes(row[:8].astype(np.uint32))
+            self.roots[h] = rb
+            c = int(row[8])
             self.applied_total += c
             self.rejected_total += t - c
             if h in self._spec:
                 self._applied_at[h] = c
+            if self.obs is not NULL_BOUND:
+                self.obs.emit(
+                    "exec.apply", h, -1,
+                    "txs=%d applied=%d dev=1" % (t, c),
+                )
+                self.obs.emit("exec.root", h, -1, rb[:8].hex())
+                self.obs.emit(
+                    "merkle.root", h, -1,
+                    merkle.merkle_bytes(row[9:])[:8].hex(),
+                )
+                self.obs.emit(
+                    "merkle.update", h, -1,
+                    "targets=%d depth=%d full=%d"
+                    % (2 * t, depth, int(full)),
+                )
         self._pending.clear()
-        self._root_words = fetched[-1, :-1].astype(np.uint32)
+        self._root_words = fetched[-1, :8].astype(np.uint32)
         self.root = root_bytes(self._root_words)
 
     def _proof_materials(self):

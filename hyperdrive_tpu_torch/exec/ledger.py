@@ -45,11 +45,11 @@ block rejected. That is what makes the vectorized device form
 (ops/ledger.py: segment-sum → solvency gather → scatter-add) exactly
 equal to any serial schedule of the same block.
 
-Port of the JAX package's ``exec/ledger.py``. Dropped: the
-observability hooks (the ``obs=`` argument and every ``obs.emit``) and
-the executors' ``device`` flag, which only fed them
-(:class:`~hyperdrive_tpu_torch.exec.device.DeviceLedgerExecutor`
-.device is its torch device). Added: :data:`EXEC_ORIGIN`, the
+Port of the JAX package's ``exec/ledger.py``, with its ``obs=`` hook and
+``exec.*`` / ``merkle.*`` events. Dropped: the executors' ``device``
+flag (:class:`~hyperdrive_tpu_torch.exec.device.DeviceLedgerExecutor`
+.device is its torch device; the host executor's ``exec.apply`` says
+``dev=0`` as the reference's does). Added: :data:`EXEC_ORIGIN`, the
 submitting-track tag of the JAX package's ``obs/devtel.py``.
 """
 
@@ -61,6 +61,7 @@ import numpy as np
 
 from hyperdrive_tpu_torch.devsched.queue import VerifyLauncher
 from hyperdrive_tpu_torch.exec import ExecutionConfig
+from hyperdrive_tpu_torch.obs.recorder import NULL_BOUND
 from hyperdrive_tpu_torch.ops.merkle import (
     MerkleProof,
     build_tree_np,
@@ -68,6 +69,7 @@ from hyperdrive_tpu_torch.ops.merkle import (
     merkle_bytes,
     merkle_root_np,
     prove_np,
+    tree_depth,
     update_tree_np,
     verify_inclusion,
 )
@@ -358,6 +360,7 @@ class HostLedgerExecutor:
         genesis_stakes=(),
         source: BlockSource | None = None,
         masks: dict | None = None,
+        obs=NULL_BOUND,
     ):
         cfg = config
         self.config = cfg
@@ -386,6 +389,7 @@ class HostLedgerExecutor:
         self.applied_total = 0
         self.rejected_total = 0
         self.masks = masks
+        self.obs = obs
         self._verifier = None
         # Cumulative int32 headroom: every block can move at most
         # txs_per_block * amount_cap units into one account.
@@ -545,6 +549,21 @@ class HostLedgerExecutor:
         self.rejected_total += len(blk) - applied
         if h in self._spec:
             self._applied_at[h] = applied
+        if self.obs is not NULL_BOUND:
+            self.obs.emit(
+                "exec.apply", h, -1,
+                "txs=%d applied=%d dev=0" % (len(blk), applied),
+            )
+            self.obs.emit("exec.root", h, -1, self.root[:8].hex())
+            self.obs.emit(
+                "merkle.root", h, -1,
+                merkle_bytes(merkle_root_np(self._tree))[:8].hex(),
+            )
+            self.obs.emit(
+                "merkle.update", h, -1,
+                "targets=%d depth=%d full=0"
+                % (2 * len(blk), tree_depth(self.config.accounts)),
+            )
 
     # ---- speculative pipelining
 
@@ -560,6 +579,11 @@ class HostLedgerExecutor:
         snap = self._snapshot()
         self._spec[height] = [guess, snap]
         self._step(height, ok=guess)
+        if self.obs is not NULL_BOUND:
+            self.obs.emit(
+                "exec.spec.speculate", height, -1,
+                "signed=%d" % int(guess is not None),
+            )
 
     def resolve(self, height: int, true_mask) -> bool:
         """Settle the LOWEST open speculation against the verified
@@ -598,6 +622,8 @@ class HostLedgerExecutor:
         self._spec.pop(height)
         self._applied_at.pop(height, None)
         self.spec_confirmed += 1
+        if self.obs is not NULL_BOUND:
+            self.obs.emit("exec.spec.confirm", height, -1, "")
 
     def _rollback(self, height: int, true_mask) -> None:
         """The mismatch path: unwind state, root, and counters to the
@@ -630,6 +656,10 @@ class HostLedgerExecutor:
         self.height = height - 1
         self.spec_rolled_back += 1
         self.spec_rollback_depth = max(self.spec_rollback_depth, depth)
+        if self.obs is not NULL_BOUND:
+            self.obs.emit(
+                "exec.spec.rollback", height, -1, "depth=%d" % depth
+            )
         self._step(height, ok=[bool(v) for v in true_mask])
         for h, g in later:
             self.speculate(h, g)

@@ -4,7 +4,7 @@
 
     python -m hyperdrive_tpu_torch.harness.deploy <port>... <rank> \\
         <replicas-per-process> <target> <host|card> [--deadline S] \\
-        [--buckets B,...] [--check-host]
+        [--buckets B,...] [--check-host] [--trace DIR]
 
 One worker process per port: worker ``rank`` listens on the rank-th port,
 dials every other one, and runs replicas ``rank * k .. rank * k + k - 1``
@@ -39,6 +39,16 @@ its last line; the caller checks the digests agree across processes.
 ``HostVerifier`` as well and fails on any lane where the card's verdict
 differs.
 
+``--trace DIR`` (either mode) gives the worker's node a recorder, a
+metrics registry and a :class:`~hyperdrive_tpu_torch.obs.tracectx.TraceSource`
+of origin ``rank + 1``: every frame it sends is stamped, every stamped
+frame it takes in is journaled as ``trace.recv``. At the end it saves the
+journal to ``DIR/journal-<rank>.json`` (origin in its meta, for
+:func:`~hyperdrive_tpu_torch.obs.merge.merge_journals`) and prints
+``DEPLOY_TRACE rank=<r> journal=<path> events=<n> trace_sends=<n>
+trace_recvs=<n> wire_frame_events=<n> transport_reconnect=<n>`` before
+its last line.
+
 This is the port's counterpart of the JAX package's
 ``tests/transport_worker.py`` (two processes x two replicas; ``tpu`` mode
 there is ``card`` here). It lives in the package because the card's
@@ -49,6 +59,7 @@ from __future__ import annotations
 
 import argparse
 import hashlib
+import os
 import sys
 import threading
 import time
@@ -56,6 +67,9 @@ import time
 import numpy as np
 
 from hyperdrive_tpu_torch.crypto.keys import KeyRing
+from hyperdrive_tpu_torch.obs.metrics import Registry
+from hyperdrive_tpu_torch.obs.recorder import Recorder
+from hyperdrive_tpu_torch.obs.tracectx import TraceSource
 from hyperdrive_tpu_torch.replica import Replica, ReplicaOptions
 from hyperdrive_tpu_torch.testutil import CommitterCallback, MockProposer, MockValidator
 from hyperdrive_tpu_torch.timer import LinearTimer
@@ -300,6 +314,8 @@ def _parse(argv):
                     help="verifier buckets, e.g. 64 (card; default the verifier's)")
     ap.add_argument("--check-host", action="store_true",
                     help="hold every card mask against HostVerifier's (card)")
+    ap.add_argument("--trace", type=str, default=None, metavar="DIR",
+                    help="stamp frames and save this worker's journal under DIR")
     ns = ap.parse_args(argv)
     if len(ns.args) < 5:
         ap.error("need at least one port, rank, replicas-per-process, target, mode")
@@ -307,6 +323,40 @@ def _parse(argv):
     if mode not in ("host", "card"):
         ap.error(f"mode must be host or card, got {mode!r}")
     return ns, [int(p) for p in ports], int(rank), int(per), int(target), mode
+
+
+def _node(ports, rank: int, trace_dir):
+    """The worker's TcpNode on the rank-th port, peered with every other
+    port. With ``trace_dir`` it stamps its frames (origin ``rank + 1``)
+    and journals into a recorder and a registry of its own, returned
+    beside it (else ``None, None``)."""
+    rec = reg = None
+    hooks: dict = {}
+    if trace_dir is not None:
+        rec, reg = Recorder(threadsafe=True), Registry()
+        obs = rec.scoped(-1)
+        hooks = dict(obs=obs, registry=reg, trace=TraceSource(rank + 1, obs=obs))
+    node = TcpNode(listen_port=ports[rank], **hooks)
+    for p in ports:
+        if p != ports[rank]:
+            node.add_peer("127.0.0.1", p)
+    return node, rec, reg
+
+
+def _save_trace(trace_dir, rank: int, rec, reg) -> None:
+    """Save the node's journal under ``trace_dir`` and print its
+    ``DEPLOY_TRACE`` line."""
+    path = os.path.join(trace_dir, f"journal-{rank}.json")
+    rec.save(path, meta={"origin": rank + 1})
+    kinds: dict = {}
+    for ev in rec.snapshot():
+        kinds[ev.kind] = kinds.get(ev.kind, 0) + 1
+    wire = sum(v for k, v in kinds.items() if k.startswith("wire.frame."))
+    reconnects = reg.snapshot()["counters"].get("transport.reconnect", 0)
+    print(f"DEPLOY_TRACE rank={rank} journal={path} events={len(rec)} "
+          f"trace_sends={kinds.get('trace.send', 0)} "
+          f"trace_recvs={kinds.get('trace.recv', 0)} wire_frame_events={wire} "
+          f"transport_reconnect={reconnects}", flush=True)
 
 
 def main(argv=None) -> int:
@@ -317,14 +367,13 @@ def main(argv=None) -> int:
     ring = KeyRing.deterministic(n, namespace=NAMESPACE)
     indices = range(rank * per, (rank + 1) * per)
     if mode == "host":
-        node = TcpNode(listen_port=ports[rank])
-        for p in ports:
-            if p != ports[rank]:
-                node.add_peer("127.0.0.1", p)
+        node, rec, reg = _node(ports, rank, ns.trace)
         commits = run_local_replicas(
             node, ring, indices, target,
             deadline_s=ns.deadline or 120.0, timeout_s=HOST_TIMEOUT_S,
         )
+        if ns.trace is not None:
+            _save_trace(ns.trace, rank, rec, reg)
         print(f"TRANSPORT_OK rank={rank} heights={target} "
               f"digest={commits_digest(commits, target)} mode=host", flush=True)
         return 0
@@ -342,10 +391,7 @@ def main(argv=None) -> int:
     wv, make_stack, flushers, checked = build_card_stacks(
         ring, views, buckets=buckets, device="cuda", check_host=ns.check_host,
     )
-    node = TcpNode(listen_port=ports[rank])
-    for p in ports:
-        if p != ports[rank]:
-            node.add_peer("127.0.0.1", p)
+    node, rec, reg = _node(ports, rank, ns.trace)
     stacks = {i: make_stack(i) for i in indices}  # boot, warmup included
     torch.cuda.synchronize()
     ed25519_cuda.reset_stats()
@@ -384,6 +430,8 @@ def main(argv=None) -> int:
         f"masks_checked={len(checked)}",
         flush=True,
     )
+    if ns.trace is not None:
+        _save_trace(ns.trace, rank, rec, reg)
     print(f"TRANSPORT_OK rank={rank} heights={target} digest={digest} mode=card "
           f"consulted={consulted} grouped={wv.stats['lanes_grouped']}", flush=True)
     return 0

@@ -1224,13 +1224,15 @@ class Simulation:
 
                 certifier = EpochCertifier(
                     self.epoch_schedule, transcript_source=transcript_source,
-                    bls_keyring=bls_keyring, bls_aggregate_fn=bls_agg_fn,
+                    obs=self.obs.scoped(i), bls_keyring=bls_keyring,
+                    bls_aggregate_fn=bls_agg_fn,
                 )
             else:
                 certifier = Certifier(
                     list(self.signatories),
                     self.f,
                     transcript_source=transcript_source,
+                    obs=self.obs.scoped(i),
                     bls_keyring=bls_keyring,
                     bls_aggregate_fn=bls_agg_fn,
                 )
@@ -1349,14 +1351,23 @@ class Simulation:
         )
 
         p = self._load.profile
-        ctrl = BackpressureController(time_fn=lambda: self.clock.now)
+        ctrl = BackpressureController(
+            registry=self.registry,
+            obs=self._obs_sim,
+            time_fn=lambda: self.clock.now,
+        )
         ctrl.floor = p.floor
         if not p.pin and self._sched is not None:
             ctrl.watch(self._sched)
         ctrl.poll()
         self.load_controller = ctrl
-        for r in self.replicas:
-            r.admission = AdmissionGate(ctrl, height_fn=r.current_height)
+        for i, r in enumerate(self.replicas):
+            r.admission = AdmissionGate(
+                ctrl,
+                height_fn=r.current_height,
+                registry=self.registry,
+                obs=self.obs.scoped(i),
+            )
 
     def overload_snapshot(self) -> dict:
         """Aggregated overload accounting for a loaded run: injected
@@ -1491,6 +1502,8 @@ class Simulation:
             retired=self._retired,
             verifier=verifier,
             sched=ov_sched,
+            obs=self.obs if self._obs_sim is not _OBS_NULL else None,
+            registry=self.registry,
             bls_keyring=ov_bls_keyring,
             device=dev,
         )
@@ -2163,9 +2176,13 @@ class Simulation:
         #: replicas and a height's block is applied once per network.
         if dedup_exec is None:
             dedup_exec = self._pipeline_heights
+        observe = self._obs_sim is not _OBS_NULL
         self._exec_unique = [
-            exec_cls(cfg, genesis_stakes, **kwargs)
-            for _ in range(1 if dedup_exec else n)
+            exec_cls(
+                cfg, genesis_stakes,
+                obs=self.obs.scoped(i) if observe else _OBS_NULL, **kwargs,
+            )
+            for i in range(1 if dedup_exec else n)
         ]
         self.executors = (
             self._exec_unique * n if dedup_exec else list(self._exec_unique)

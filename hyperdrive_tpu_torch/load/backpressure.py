@@ -37,11 +37,10 @@ De-escalation is hysteretic: the level steps down only after
 ``hysteresis`` consecutive clean polls, so a queue oscillating around a
 threshold does not flap the gate.
 
-Port copy of ``hyperdrive_tpu/load/backpressure.py``. Dropped, as the
-port's conventions say: the flight recorder (the ``obs=`` arguments and
-every ``admission.*`` event they emitted, with the ``NULL_BOUND`` import);
-they come back with ``obs/``. ``registry=`` stays an optional duck-typed
-metrics sink, ``None`` by default (the port has no registry yet).
+Port copy of ``hyperdrive_tpu/load/backpressure.py``, whole: the
+controller, the gate and the reputation table take the reference's
+``registry=`` and ``obs=`` and emit its ``admission.*`` events and
+counts.
 """
 
 from __future__ import annotations
@@ -50,6 +49,7 @@ import threading
 
 from hyperdrive_tpu_torch.load.frames import FRESH, QUERY, classify_frame
 from hyperdrive_tpu_torch.messages import Prevote
+from hyperdrive_tpu_torch.obs.recorder import NULL_BOUND
 
 __all__ = [
     "ACCEPT",
@@ -134,6 +134,7 @@ class BackpressureController:
         occupancy_critical: float = 0.9,
         hysteresis: int = 3,
         registry=None,
+        obs=None,
         time_fn=None,
         threadsafe: bool = False,
     ):
@@ -145,6 +146,7 @@ class BackpressureController:
         self.occupancy_critical = float(occupancy_critical)
         self.hysteresis = max(1, int(hysteresis))
         self.registry = registry
+        self.obs = obs if obs is not None else NULL_BOUND
         #: Clock for drain-latency timing in the watched queue (the sim
         #: passes its virtual clock; real deployments time.monotonic).
         #: None keeps drain latency at 0.0 — depth and occupancy still
@@ -255,6 +257,8 @@ class BackpressureController:
         if self.registry is not None:
             self.registry.set_gauge("admission.level", level)
             self.registry.count("admission.transitions")
+        if self.obs is not NULL_BOUND:
+            self.obs.emit("admission.level", -1, -1, LEVEL_NAMES[level])
 
 
 class SignerReputation:
@@ -291,6 +295,7 @@ class SignerReputation:
         demote_at: int = -8,
         floor: int = -64,
         registry=None,
+        obs=None,
     ):
         if demote_at <= floor:
             raise ValueError("demote_at must sit above the score floor")
@@ -298,6 +303,7 @@ class SignerReputation:
         self.demote_at = int(demote_at)
         self.floor = int(floor)
         self.registry = registry
+        self.obs = obs if obs is not None else NULL_BOUND
         #: peer -> integer score (absent = 0). Peers are whatever the
         #: gate attributes frames to: validator indices in the campaign
         #: engines, signatory bytes at a real transport ingress.
@@ -320,6 +326,8 @@ class SignerReputation:
         self.scores[peer] = s
         if self.registry is not None:
             self.registry.count("admission.reputation.charges", label=cls)
+        if self.obs is not NULL_BOUND:
+            self.obs.emit("admission.reputation.charge", -1, -1, cls)
         if s <= self.demote_at and peer not in self.demoted:
             self.demoted.add(peer)
             self.demotions += 1
@@ -327,6 +335,10 @@ class SignerReputation:
                 self.registry.count("admission.reputation.demotions")
                 self.registry.set_gauge(
                     "admission.reputation.demoted", len(self.demoted)
+                )
+            if self.obs is not NULL_BOUND:
+                self.obs.emit(
+                    "admission.reputation.demote", -1, -1, _peer_label(peer)
                 )
         return s
 
@@ -363,6 +375,10 @@ class SignerReputation:
                 self.registry.count("admission.reputation.recoveries")
                 self.registry.set_gauge(
                     "admission.reputation.demoted", len(self.demoted)
+                )
+            if self.obs is not NULL_BOUND:
+                self.obs.emit(
+                    "admission.reputation.recover", -1, -1, _peer_label(peer)
                 )
 
     def is_demoted(self, peer) -> bool:
@@ -418,6 +434,7 @@ class AdmissionGate:
         fair_share: float = 0.5,
         reputation: "SignerReputation | None" = None,
         registry=None,
+        obs=None,
         threadsafe: bool = False,
     ):
         self.controller = controller
@@ -427,6 +444,7 @@ class AdmissionGate:
         self.fair_share = float(fair_share)
         self.reputation = reputation
         self.registry = registry
+        self.obs = obs if obs is not None else NULL_BOUND
         self._lock = threading.Lock() if threadsafe else None
         #: Insertion-ordered dedup memory: vote key -> None, FIFO-evicted
         #: at ``dedup_capacity`` (a bounded bloom-like memory, exact
@@ -558,6 +576,10 @@ class AdmissionGate:
                 self.registry.count(
                     "admission.shed_by_peer", label=_peer_label(peer)
                 )
+        if self.obs is not NULL_BOUND:
+            self.obs.emit(
+                "admission.shed", msg.height, getattr(msg, "round", -1), cls
+            )
         return False
 
     def snapshot(self) -> dict:

@@ -7,13 +7,13 @@ singleton and guard any non-trivial event construction with an identity
 check (device telemetry follows suit with NULL_DEVTEL).
 
 Port of the JAX package's ``obs/`` package: the recorder, the registry,
-the launch telemetry, the Perfetto exporter, the report and the SLO
-checks. The cross-node half (``tracectx``: trace stamps on frames;
-``merge``: merged multi-process journals) and ``benchdiff`` wait for
-ROADMAP Queue A item 4b: their names raise ``NotImplementedError`` that
-says so. The ``python -m`` CLI waits for Queue A item 6.
+the launch telemetry, the Perfetto exporter, the report, the SLO checks,
+the cross-node half (``tracectx``: trace stamps on frames; ``merge``:
+merged multi-process journals) and ``benchdiff``, with the same exports.
+The ``python -m`` CLI waits for ROADMAP Queue A item 6.
 """
 
+from hyperdrive_tpu_torch.obs.benchdiff import compare as benchdiff_compare
 from hyperdrive_tpu_torch.obs.devtel import (
     NULL_DEVTEL,
     DeviceTelemetry,
@@ -26,6 +26,12 @@ from hyperdrive_tpu_torch.obs.metrics import (
     histogram_stats,
     merge_histograms,
     to_prometheus,
+)
+from hyperdrive_tpu_torch.obs.merge import (
+    estimate_offsets,
+    merge_journals,
+    merged_digest,
+    save_merged,
 )
 from hyperdrive_tpu_torch.obs.perfetto import DEVICE_TID, export, to_trace_events
 from hyperdrive_tpu_torch.obs.recorder import (
@@ -53,22 +59,15 @@ from hyperdrive_tpu_torch.obs.slo import (
     SloResult,
     evaluate_slos,
 )
-
-#: The reference's cross-node and bench-diff exports, not ported yet.
-_LATER = (
-    "STAMP_LEN",
-    "TRACE_MAGIC",
-    "TraceSource",
-    "decode_stamp",
-    "encode_stamp",
-    "note_recv",
-    "span_id",
-    "split_frame",
-    "estimate_offsets",
-    "merge_journals",
-    "merged_digest",
-    "save_merged",
-    "benchdiff_compare",
+from hyperdrive_tpu_torch.obs.tracectx import (
+    STAMP_LEN,
+    TRACE_MAGIC,
+    TraceSource,
+    decode_stamp,
+    encode_stamp,
+    note_recv,
+    span_id,
+    split_frame,
 )
 
 __all__ = [
@@ -91,6 +90,18 @@ __all__ = [
     "DEVICE_TID",
     "export",
     "to_trace_events",
+    "STAMP_LEN",
+    "TRACE_MAGIC",
+    "TraceSource",
+    "decode_stamp",
+    "encode_stamp",
+    "note_recv",
+    "span_id",
+    "split_frame",
+    "estimate_offsets",
+    "merge_journals",
+    "merged_digest",
+    "save_merged",
     "DEFAULT_OBJECTIVES",
     "SloResult",
     "evaluate_slos",
@@ -103,14 +114,6 @@ __all__ = [
     "histogram_stats",
     "merge_histograms",
     "to_prometheus",
+    "benchdiff_compare",
 ]
 
-
-def __getattr__(name):
-    if name in _LATER:
-        raise NotImplementedError(
-            f"obs.{name} is not ported to the PyTorch package yet: the "
-            "cross-node trace stamps, journal merging and benchdiff wait "
-            "for ROADMAP Queue A item 4b"
-        )
-    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

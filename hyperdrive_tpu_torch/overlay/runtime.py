@@ -44,10 +44,10 @@ Port copy of ``hyperdrive_tpu/overlay/runtime.py``. The decisions, the
 frames and the accounting are the reference's, so an overlay run commits
 the JAX package's chain in the JAX package's steps. Dropped, as the
 port's conventions say: the wire-budget hooks (``declare_wire_budget``,
-``wire_charge``) with the other analysis hooks, the recorder handle
-(``obs``) and its events, and the metrics registry (``registry``):
-:meth:`OverlayRuntime.snapshot` carries every count the registry did as
-an attribute. The verify launcher and the :class:`~hyperdrive_tpu_torch.
+``wire_charge``) with the other analysis hooks. The recorder handle
+(``obs``) and the metrics registry (``registry``) take the reference's
+``overlay.*`` and ``bls.partial.reject`` events and counts. The verify
+launcher and the :class:`~hyperdrive_tpu_torch.
 ops.g1.G1SumLauncher` that the runtime submits to run where the sim puts
 them: on the card by default (``ed25519_verify`` and ``g1_aggregate``).
 """
@@ -275,6 +275,8 @@ class OverlayRuntime:
         retired,          # shared retired identity -> first stale height
         verifier=None,    # shared verifier for dedup verification (sign mode)
         sched=None,       # DeviceWorkQueue (required when verifier is set)
+        obs=None,
+        registry=None,
         bls_keyring=None,  # identity -> BlsKeyPair (bls_partials runs)
         device=None,      # where the G1SumLauncher sums (None: the card)
     ):
@@ -301,6 +303,8 @@ class OverlayRuntime:
         self._sched = sched
         if verifier is not None and sched is None:
             raise ValueError("overlay verification requires a device queue")
+        self._obs = obs
+        self._reg = registry
         #: BLS partial-aggregate plumbing (config.bls_partials): the
         #: shared committee keyring signs each own-vote's digest into
         #: the global table; masked partial sums ride every frame. With
@@ -325,6 +329,8 @@ class OverlayRuntime:
             credit=config.credit,
             demote_at=config.demote_at,
             floor=config.score_floor,
+            on_demote=self._on_demote,
+            on_recover=self._on_recover,
         )
         self._slots: dict = {}
         self._floor = 0
@@ -354,6 +360,24 @@ class OverlayRuntime:
 
     # -------------------------------------------------------------- events
 
+    def _emit(self, kind, node, slot, detail=None):
+        if self._obs is not None:
+            self._obs.emit(kind, node, slot[1], slot[2], detail)
+
+    def _count(self, name, k=1):
+        if self._reg is not None:
+            self._reg.count(name, k)
+
+    def _on_demote(self, peer, score, cls):
+        self._count("overlay.demotions")
+        if self._obs is not None:
+            self._obs.emit("overlay.demote", peer, 0, 0, f"{cls}:{score}")
+
+    def _on_recover(self, peer, score):
+        self._count("overlay.recoveries")
+        if self._obs is not None:
+            self._obs.emit("overlay.recover", peer, 0, 0, str(score))
+
     # ------------------------------------------------------------ lifecycle
 
     def rekey(self, anchor: bytes, identities, epoch: int) -> None:
@@ -363,6 +387,10 @@ class OverlayRuntime:
         self.topo = Topology(self.seed, anchor, identities)
         self.epoch = int(epoch)
         self.rekeys += 1
+        self._count("overlay.rekeys")
+        if self._obs is not None:
+            self._obs.emit("overlay.rekey", -1, 0, 0,
+                           f"epoch={epoch}:{self.topo.digest().hex()[:12]}")
 
     def note_commit(self, height: int) -> None:
         """Advance the slot floor: votes for heights below ``height - 1``
@@ -426,6 +454,7 @@ class OverlayRuntime:
         if (frame.mask < 0 or frame.mask.bit_length() > self.n
                 or len(frame.extras) > self.n):
             self.frame_rejects += 1
+            self._count("overlay.frame.reject")
             self._charge(frame.src, "invalid", frame.slot, to)
             return
         slot = frame.slot
@@ -472,6 +501,10 @@ class OverlayRuntime:
             )
             if frame.agg != expect:
                 self.bls_partial_rejects += 1
+                self._count("overlay.bls.reject")
+                if self._obs is not None:
+                    self._obs.emit("bls.partial.reject", to, slot[1],
+                                   slot[2], f"src={src}:lvl={frame.level}")
                 self._charge(src, "invalid", slot, to)
                 return
         new = frame.mask & st.all_mask & ~st.cov[to]
@@ -488,6 +521,8 @@ class OverlayRuntime:
             self._deliver_new(to, st, slot, new)
             st.cov[to] |= new
             self.scores.credit_coverage(src, new.bit_count())
+            self._emit("overlay.frame", to, slot,
+                       f"src={src}:lvl={frame.level}:new={new.bit_count()}")
             st.done[to] = False
             self._advance(to, st, slot)
             self._arm(st, slot, to)
@@ -536,6 +571,9 @@ class OverlayRuntime:
                 exhausted = False
             elif waves[lvl] <= self.config.max_waves:
                 self.level_timeouts += 1
+                self._count("overlay.timeouts")
+                self._emit("overlay.level.timeout", node, slot,
+                           f"lvl={lvl}:wave={waves[lvl]}")
                 self._charge_withheld(node, st, slot, lvl, waves[lvl] - 1)
                 self._send_wave(node, st, slot, lvl, waves[lvl])
                 waves[lvl] += 1
@@ -603,6 +641,7 @@ class OverlayRuntime:
         if node in self._byz:
             if level in self._withhold:
                 self.frames_withheld += 1
+                self._count("overlay.withheld_by_fault")
                 return
             if self._byz_rng.random() < self._faults.garbage_rate:
                 self._send_garbage(node, peer, slot, level)
@@ -618,10 +657,13 @@ class OverlayRuntime:
                              reciprocal=reciprocal, fallback=fallback,
                              agg=agg)
         self.frames_sent += 1
+        self._count("overlay.frames")
         if reciprocal:
             self.frames_reciprocal += 1
+            self._count("overlay.frames.reciprocal")
         if fallback:
             self.frames_fallback += 1
+            self._count("overlay.frames.fallback")
         self._enqueue(peer, frame)
 
     def _send_garbage(self, node: int, peer: int, slot, level: int) -> None:
@@ -640,6 +682,8 @@ class OverlayRuntime:
             frame = OverlayFrame(node, slot, level, mask, agg=bad)
             self.frames_sent += 1
             self.frames_garbage += 1
+            self._count("overlay.frames")
+            self._count("overlay.frames.garbage")
             self._enqueue(peer, frame)
             return
         self._garbage_ctr += 1
@@ -660,6 +704,8 @@ class OverlayRuntime:
         frame = OverlayFrame(node, slot, level, 0, extras=(fake,))
         self.frames_sent += 1
         self.frames_garbage += 1
+        self._count("overlay.frames")
+        self._count("overlay.frames.garbage")
         self._enqueue(peer, frame)
 
     def _reciprocate(self, to: int, src: int, st: _SlotState, slot,
@@ -687,6 +733,8 @@ class OverlayRuntime:
         if not ranked:
             return
         self.fallback_engaged += 1
+        self._count("overlay.fallback")
+        self._emit("overlay.fallback", node, slot, f"pos={st.fb_pos[node]}")
         pos = st.fb_pos[node]
         for _ in range(min(self.config.fallback_fanout, len(ranked))):
             peer = ranked[pos % len(ranked)]
@@ -708,6 +756,14 @@ class OverlayRuntime:
     def _charge(self, peer: int, cls: str, slot, observer: int) -> None:
         self.scores.charge(peer, cls)
         self._last_charge_floor[peer] = self._floor
+        self._count("overlay." + cls)
+        kind = {
+            "invalid": "overlay.invalid",
+            "stale_generation": "overlay.stale",
+            "duplicate": "overlay.duplicate",
+            "withheld": "overlay.withhold",
+        }[cls]
+        self._emit(kind, observer, slot, f"peer={peer}")
 
     def _deliver_new(self, to: int, st: _SlotState, slot, new: int) -> None:
         """Materialize newly-covered votes from the global table and hand
@@ -722,6 +778,7 @@ class OverlayRuntime:
                 out.append(v)
         if out:
             self.votes_delivered += len(out)
+            self._count("overlay.votes.delivered", len(out))
             self._deliver(to, out)
 
     # ---------------------------------------------------------- verification
@@ -757,6 +814,7 @@ class OverlayRuntime:
             for i in idxs
         ]
         self.verify_rows += len(rows)
+        self._count("overlay.verify.rows", len(rows))
         fut = self._sched.submit(
             self._sched.verify_launcher(self._verifier), rows,
             generation=level, origin=origin, rows=len(rows),
@@ -773,6 +831,7 @@ class OverlayRuntime:
         if self._verifier is None:
             return False  # unsigned runs cannot authenticate off-table votes
         self.verify_rows += 1
+        self._count("overlay.verify.rows", 1)
         fut = self._sched.submit(
             self._sched.verify_launcher(self._verifier),
             [(vote.sender, vote.digest(), vote.signature)],

@@ -35,23 +35,18 @@ verifier the caller hands in):
   assertion.
 
 Every frame is byte for byte the reference's, and a malformed frame raises
-the same :class:`~hyperdrive_tpu_torch.codec.SerdeError`. Dropped, as the
-port's conventions say: the wire-codec lint markers
-(``analysis.annotations.wire_codec``), the sanitizer's budget reader
-(``analysis.sanitizer.maybe_wire_reader``; decoders read through a plain
-:class:`~hyperdrive_tpu_torch.codec.Reader`, as the reference does with
-the sanitizer off), the recorder (``obs``), the metrics sink
-(``tracer``), the launch probe (``devtel``) with the per-tenant latency
-histograms it fed, the metrics registry (``registry``) and the causal
-trace source (``trace``). Each of these arguments raises
-``NotImplementedError`` when it is not None. Without a registry a metrics
-scrape answers ``STATUS_NO_STATE``, as the reference's does with
-``registry=None``. A stamped frame (a 21-byte causal stamp ahead of the
-payload, sent by a traced peer of the JAX package) is still wire format:
-the stamp is split off and the request served as an unstamped one; only
-the ``trace.recv`` mark is gone. The hello-ack carries origin 0 (no
-trace source). The ``serve`` and ``tenant`` CLI (``python -m
-hyperdrive_tpu.parallel``) is not ported yet.
+the same :class:`~hyperdrive_tpu_torch.codec.SerdeError`. The hooks are
+the reference's: the recorder (``obs``), the metrics sink (``tracer``),
+the launch probe (``devtel``) with the per-tenant latency histograms it
+feeds, the metrics registry (``registry``, which answers a metrics
+scrape) and the causal trace source (``trace``: stamped answers and
+requests, ``trace.recv`` marks, the hello-ack's origin and the client's
+clock-offset estimate). Dropped, as the port's conventions say: the
+wire-codec lint markers (``analysis.annotations.wire_codec``) and the
+sanitizer's budget reader (``analysis.sanitizer.maybe_wire_reader``;
+decoders read through a plain :class:`~hyperdrive_tpu_torch.codec.Reader`,
+as the reference does with the sanitizer off). The ``serve`` and
+``tenant`` CLI (``python -m hyperdrive_tpu.parallel``) is not ported yet.
 """
 
 from __future__ import annotations
@@ -70,8 +65,14 @@ from hyperdrive_tpu_torch.certificates import (
 from hyperdrive_tpu_torch.codec import Reader, SerdeError, Writer
 from hyperdrive_tpu_torch.crypto.keys import KeyRing
 from hyperdrive_tpu_torch.messages import Precommit
+from hyperdrive_tpu_torch.obs.recorder import NULL_BOUND
+from hyperdrive_tpu_torch.obs.tracectx import (
+    TRACE_MAGIC,
+    note_recv as note_trace_recv,
+    split_frame as split_trace_frame,
+)
 from hyperdrive_tpu_torch.ops.merkle import MAX_DEPTH, MerkleProof
-from hyperdrive_tpu_torch.transport import _LATER, _LEN, _MAX_FRAME, _recv_exact
+from hyperdrive_tpu_torch.transport import _LEN, _MAX_FRAME, _recv_exact
 
 __all__ = [
     "ShardVerifyService",
@@ -136,29 +137,6 @@ _MAX_ROWS = 65536
 _MAX_NAME = 256
 #: Widest per-row detached signature (Ed25519 64, BLS G2 96).
 _MAX_ROW_SIG = 96
-
-
-def _refuse(owner: str, **hooks) -> None:
-    for name, value in hooks.items():
-        if value is not None:
-            raise NotImplementedError(f"{owner}({name}=...) is {_LATER}")
-
-
-# The causal trace stamp, a private copy of the JAX package's
-# ``obs/tracectx.py`` split: a traced peer prefixes a payload with magic
-# u8 + origin u32 + seq u64 + parent u64. 0x54 ('T') is distinct from the
-# 1..5 service tags, so an unstamped frame never starts with it.
-TRACE_MAGIC = 0x54
-_STAMP_LEN = 1 + 4 + 8 + 8
-
-
-def _strip_trace_stamp(payload: bytes) -> bytes:
-    """The payload behind a leading stamp, or the payload itself when
-    it carries none (the reference's ``split_frame`` without the
-    context it hands the recorder)."""
-    if len(payload) < _STAMP_LEN or payload[0] != TRACE_MAGIC:
-        return payload
-    return payload[_STAMP_LEN:]
 
 
 def encode_hello(name: str, signatories, f: int, t0: float = 0.0) -> bytes:
@@ -502,8 +480,7 @@ class ShardVerifyService:
     path (:class:`ServicePort`).
 
     The service is deliberately mesh-agnostic: it batches the *launch
-    schedule*, not the launch itself. ``obs``, ``tracer``, ``devtel`` and
-    ``registry`` are dropped hooks and raise when not None.
+    schedule*, not the launch itself.
     """
 
     def __init__(self, verifier, queue=None, max_depth: int = 8,
@@ -511,22 +488,33 @@ class ShardVerifyService:
                  cert_keep=None, registry=None):
         from hyperdrive_tpu_torch.devsched import DeviceWorkQueue
 
-        _refuse("ShardVerifyService", obs=obs, tracer=tracer, devtel=devtel,
-                registry=registry)
+        #: Optional metrics :class:`~hyperdrive_tpu_torch.obs.metrics.
+        #: Registry` — the live metrics plane: when set, the remote
+        #: port answers TAG_METRICS scrapes with its rendered
+        #: Prometheus snapshot (admission-gated with the read path).
+        self.registry = registry
+
         self.verifier = verifier
         self.queue = (
             queue
             if queue is not None
-            else DeviceWorkQueue(max_depth=max_depth, policy=policy)
+            else DeviceWorkQueue(max_depth=max_depth, obs=obs,
+                                 tracer=tracer, devtel=devtel,
+                                 policy=policy)
         )
+        if devtel is not None:
+            # An externally-built queue adopts the service's probe (the
+            # same late-binding the sim applies to its queue).
+            self.queue.devtel = devtel
         if policy is not None and self.queue.policy is None:
             self.queue.policy = policy
+        self.obs = obs if obs is not None else self.queue.obs
         self._launcher = self.queue.verify_launcher(verifier)
         #: Commands submitted per tenant key (observability).
         self.tenants: dict = {}
         #: Tenant key -> small stable int track id (first-submit order):
-        #: each command's ``origin``, the tenant axis the drain policy
-        #: reads.
+        #: what the launch probe records as each command's origin, so
+        #: journal events and registry labels agree on the tenant axis.
         #: Ids are never reused, even after :meth:`retire_tenant` — a
         #: revived tenant must not inherit a dead one's track.
         self.tenant_ids: dict = {}
@@ -566,10 +554,10 @@ class ShardVerifyService:
         quorum, whichever tenants co-submitted into it."""
         from hyperdrive_tpu_torch.certificates import Certifier
 
-        _refuse("ShardVerifyService.certifier", obs=obs)
         return Certifier(
             signatories, f,
             transcript_source=lambda: self._launcher.last_transcript,
+            obs=obs,
         )
 
     def attach_execution(self, tenant, config, genesis_stakes=()):
@@ -619,7 +607,22 @@ class ShardVerifyService:
         under ``tenant`` on success. This replaces shipping the 2f+1
         precommits a remote shard would otherwise need to trust the
         commit."""
-        if not certifier.verify(cert):
+        from hyperdrive_tpu_torch.obs.devtel import NULL_DEVTEL
+
+        devtel = self.queue.devtel
+        t0 = devtel.now() if devtel is not NULL_DEVTEL else 0.0
+        ok = certifier.verify(cert)
+        if devtel is not NULL_DEVTEL:
+            # Per-tenant commit latency: the O(1) proof re-check that
+            # finalizes a remote shard's commit locally. Rejected proofs
+            # land in their own histogram — a forged or stale cert must
+            # not pollute the committed-path p95/p99.
+            devtel.tenant_latency(
+                self._tenant_id(tenant),
+                devtel.now() - t0,
+                "commit" if ok else "commit_rejected",
+            )
+        if not ok:
             return False
         certs = self.certificates.setdefault(tenant, {})
         certs[cert.height] = cert
@@ -652,6 +655,11 @@ class ShardVerifyService:
                     del certs[h]
                 if stale:
                     self.retired_certs += len(stale)
+                    if self.obs is not NULL_BOUND:
+                        self.obs.emit(
+                            "service.tenant.retire", wm,
+                            self._tenant_id(tenant), len(stale),
+                        )
         return True
 
     def retire_tenant(self, tenant) -> int:
@@ -660,11 +668,13 @@ class ShardVerifyService:
         retired with it (never reused)."""
         released = len(self.certificates.pop(tenant, ()))
         self.tenants.pop(tenant, None)
-        self.tenant_ids.pop(tenant, None)
+        tid = self.tenant_ids.pop(tenant, None)
         self.watermarks.pop(tenant, None)
         self.proof_bases.pop(tenant, None)
         if released:
             self.retired_certs += released
+        if tid is not None and self.obs is not NULL_BOUND:
+            self.obs.emit("service.tenant.retire", -1, tid, released)
         return released
 
     def submit(self, tenant, items, generation: int = 0):
@@ -677,10 +687,25 @@ class ShardVerifyService:
         their windows coalesce per generation, never into a mixed-key
         launch."""
         self.tenants[tenant] = self.tenants.get(tenant, 0) + 1
-        return self.queue.submit(
+        tid = self._tenant_id(tenant)
+        fut = self.queue.submit(
             self._launcher, items, generation,
-            origin=self._tenant_id(tenant), rows=len(items),
+            origin=tid, rows=len(items),
         )
+        from hyperdrive_tpu_torch.obs.devtel import NULL_DEVTEL
+
+        devtel = self.queue.devtel
+        if devtel is not NULL_DEVTEL:
+            # Per-tenant verify latency: submit -> resolution, on the
+            # probe's (injectable) clock, into a labeled mergeable
+            # histogram (tenant.verify.latency{label=<tid>}).
+            t0 = devtel.now()
+
+            def _observe(f, devtel=devtel, t0=t0, tid=tid):
+                devtel.tenant_latency(tid, devtel.now() - t0, "verify")
+
+            fut.add_done_callback(_observe)
+        return fut
 
     def rotate(self, generation: int, table=None) -> None:
         """Propagate an epoch rotation to the shared verifier: installs
@@ -998,10 +1023,6 @@ class ServicePort:
     of finalized heights classify stale). At CRITICAL_ONLY the port
     answers ``STATUS_SHED`` without touching the queue — the client
     retries, so overload is flow control, not loss.
-
-    Inbound stamped requests are stripped and served as unstamped ones
-    (stamp recognition costs one byte compare). ``obs`` and ``trace`` are
-    dropped hooks and raise when not None.
     """
 
     def __init__(self, service: ShardVerifyService,
@@ -1009,8 +1030,14 @@ class ServicePort:
                  controller=None, obs=None, trace=None):
         from hyperdrive_tpu_torch.load.backpressure import BackpressureController
 
-        _refuse("ServicePort", obs=obs, trace=trace)
         self.service = service
+        self.obs = obs if obs is not None else service.obs
+        #: Optional :class:`~hyperdrive_tpu_torch.obs.tracectx.TraceSource`:
+        #: when set, every answer frame carries a causal stamp and the
+        #: hello-ack advertises this origin id for offset estimation.
+        #: Inbound stamped requests are stripped + marked ``trace.recv``
+        #: regardless (stamp recognition costs one byte compare).
+        self.trace = trace
         if controller is None:
             controller = BackpressureController()
             controller.watch(service.queue)
@@ -1093,6 +1120,8 @@ class ServicePort:
                 return
 
     def _send(self, conn: _RemoteConn, payload: bytes) -> None:
+        if self.trace is not None:
+            payload = self.trace.stamp(payload)
         try:
             conn.outbox.put_nowait(_LEN.pack(len(payload)) + payload)
         except queue_mod.Full:
@@ -1113,10 +1142,18 @@ class ServicePort:
                 break
             handled += 1
             try:
-                req = decode_request(_strip_trace_stamp(payload))
+                ctx = None
+                if payload and payload[0] == TRACE_MAGIC:
+                    ctx, payload = split_trace_frame(payload)
+                req = decode_request(payload)
             except SerdeError:
                 self.bad_frames += 1
                 continue
+            if ctx is not None and self.obs is not NULL_BOUND:
+                note_trace_recv(
+                    self.obs, ctx,
+                    req[2] if req[0] == "submit" else -1,
+                )
             if req[0] == "hello":
                 self._handle_hello(conn, *req[1:])
             elif req[0] == "query":
@@ -1133,7 +1170,12 @@ class ServicePort:
 
         conn.tenant = name
         conn.f = int(f)
-        conn.certifier = self.service.certifier(signatories, f)
+        # The port's obs handle rides into the certifier so cert.emit
+        # marks land in the journal at the minted height — the
+        # critical-path report's "cert" milestone.
+        conn.certifier = self.service.certifier(
+            signatories, f, obs=self.obs
+        )
         watermarks = self.service.watermarks
         conn.gate = AdmissionGate(
             self.controller,
@@ -1142,9 +1184,11 @@ class ServicePort:
         # Echo handshake: hand back the client's send stamp plus our
         # own wall-clock so it can place this process on its offset
         # graph. Answered for every hello — a pre-echo client's read
-        # loop drops the unexpected frame as a typed decode miss. Origin
-        # 0: this port has no trace source.
-        self._send(conn, encode_hello_ack(t0, time.time(), 0))
+        # loop drops the unexpected frame as a typed decode miss.
+        origin = self.trace.origin if self.trace is not None else 0
+        self._send(
+            conn, encode_hello_ack(t0, time.time(), origin)
+        )
 
     def _handle_metrics(self, conn, req_id) -> None:
         """One TAG_METRICS request → ONE Prometheus-text frame (or a
@@ -1152,8 +1196,7 @@ class ServicePort:
         classed WITH proof queries: at SHED_LOW_PRIORITY and above the
         port answers STATUS_SHED without rendering anything — the
         observability plane is the first load shed, never a reason
-        consensus traffic queues. An admitted scrape answers
-        STATUS_NO_STATE: the port has no metrics registry."""
+        consensus traffic queues."""
         from hyperdrive_tpu_torch.load.frames import MetricsFrame
 
         if conn.tenant is None:
@@ -1165,11 +1208,40 @@ class ServicePort:
         self.controller.poll()
         if not conn.gate.admit(MetricsFrame(), peer=conn.tenant):
             self.metrics_sheds += 1
+            if self.obs is not NULL_BOUND:
+                self.obs.emit("metrics.shed", -1, -1, conn.tenant)
             self._send(conn, encode_metrics_reply(req_id, STATUS_SHED))
             return
-        # No metrics registry in the port: answered as the reference
-        # answers with ``registry=None``.
-        self._send(conn, encode_metrics_reply(req_id, STATUS_NO_STATE))
+        registry = self.service.registry
+        if registry is None:
+            self._send(
+                conn, encode_metrics_reply(req_id, STATUS_NO_STATE)
+            )
+            return
+        from hyperdrive_tpu_torch.obs.metrics import to_prometheus
+
+        # Refresh the service-posture gauges at scrape time so every
+        # answer reflects live state (a pull-model scrape, not a stale
+        # copy). Commit latency lands in the registry on each resolve.
+        registry.set_gauge("service.queue.depth",
+                           self.service.queue.depth)
+        registry.set_gauge("service.queue.launches",
+                           self.service.queue.launches)
+        registry.set_gauge("service.queue.coalesced",
+                           self.service.queue.coalesced)
+        registry.set_gauge("service.remote.submits", self.remote_submits)
+        registry.set_gauge("service.remote.resolves",
+                           self.remote_resolves)
+        registry.set_gauge("service.remote.sheds", self.remote_sheds)
+        registry.set_gauge("service.metrics.serves", self.metrics_serves)
+        registry.set_gauge("service.metrics.sheds", self.metrics_sheds)
+        text = to_prometheus(registry.snapshot())
+        self.metrics_serves += 1
+        if self.obs is not NULL_BOUND:
+            self.obs.emit("metrics.serve", -1, -1, len(text))
+        self._send(
+            conn, encode_metrics_reply(req_id, STATUS_COMMITTED, text)
+        )
 
     def _handle_query(self, conn, req_id, account) -> None:
         """One TAG_QUERY request → ONE proof frame (or a status-only
@@ -1189,6 +1261,8 @@ class ServicePort:
         if not conn.gate.admit(QueryFrame(account=account),
                                peer=conn.tenant):
             self.query_sheds += 1
+            if self.obs is not NULL_BOUND:
+                self.obs.emit("proof.shed", -1, -1, conn.tenant)
             self._send(conn, encode_proof(req_id, STATUS_SHED))
             return
         basis = self.service.proof_bases.get(conn.tenant)
@@ -1199,6 +1273,11 @@ class ServicePort:
             req_id, STATUS_COMMITTED, basis.prove(account)
         )
         self.remote_queries += 1
+        if self.obs is not NULL_BOUND:
+            self.obs.emit(
+                "proof.serve", basis.height, -1,
+                "account=%d bytes=%d" % (account, len(payload)),
+            )
         self._send(conn, payload)
 
     def _handle_submit(self, conn, req_id, height, rnd, value,
@@ -1217,6 +1296,10 @@ class ServicePort:
             # merely deferred (the load/ doctrine's never-drop-quorum
             # rule, expressed as flow control).
             self.remote_sheds += 1
+            if self.obs is not NULL_BOUND:
+                self.obs.emit(
+                    "service.remote.shed", height, rnd, conn.tenant
+                )
             self._send(
                 conn, encode_result(req_id, STATUS_SHED, len(rows), ())
             )
@@ -1236,6 +1319,10 @@ class ServicePort:
             # Every row shed (duplicate window / stale height): busy-
             # answer so the client backs off and retries or moves on.
             self.remote_sheds += 1
+            if self.obs is not NULL_BOUND:
+                self.obs.emit(
+                    "service.remote.shed", height, rnd, conn.tenant
+                )
             self._send(
                 conn, encode_result(req_id, STATUS_SHED, len(rows), ())
             )
@@ -1247,17 +1334,24 @@ class ServicePort:
         ]
         self.remote_submits += 1
         self.inflight += 1
+        if self.obs is not NULL_BOUND:
+            self.obs.emit(
+                "service.remote.submit", height, rnd, len(items)
+            )
+        t_sub = time.time()
         fut = self.service.submit(conn.tenant, items, generation)
         fut.add_done_callback(
             lambda f, conn=conn, req_id=req_id, height=height, rnd=rnd,
-            value=value, rows=rows, admitted_idx=admitted_idx:
+            value=value, rows=rows, admitted_idx=admitted_idx,
+            t_sub=t_sub:
             self._resolve(
                 f, conn, req_id, height, rnd, value, rows, admitted_idx,
+                t_sub,
             )
         )
 
     def _resolve(self, fut, conn, req_id, height, rnd, value, rows,
-                 admitted_idx) -> None:
+                 admitted_idx, t_sub=None) -> None:
         """Queue-drain callback: fold the launch verdict back into a
         full-window mask, mint the certificate if the quorum stands,
         and answer with ONE O(1) certificate frame — never the 2f+1
@@ -1279,6 +1373,21 @@ class ServicePort:
             else:
                 cert = None
         self.remote_resolves += 1
+        if self.obs is not NULL_BOUND:
+            self.obs.emit(
+                "service.remote.resolve", height, rnd,
+                STATUS_NAMES[status],
+            )
+        # The finality-SLO source: per-tenant submit→certificate wall
+        # time, same histogram name the device-telemetry leg uses so
+        # slo.evaluate_slos reads one series either way.
+        registry = self.service.registry
+        if (registry is not None and t_sub is not None
+                and status == STATUS_COMMITTED):
+            registry.observe(
+                "tenant.commit.latency", time.time() - t_sub,
+                label=conn.tenant,
+            )
         root = None
         if status == STATUS_COMMITTED:
             root = self.service.state_roots.get(
@@ -1366,17 +1475,19 @@ class RemoteServiceClient:
     ``submit`` is async (returns a :class:`RemoteFuture`); a daemon
     reader thread resolves futures as result frames arrive, so a tenant
     can keep several windows on the wire — which is exactly what lets
-    the serving host coalesce them with other tenants' work. Stamped
-    answers (from a traced port of the JAX package) are stripped and
-    read as unstamped ones; ``obs`` and ``trace`` are dropped hooks and
-    raise when not None."""
+    the serving host coalesce them with other tenants' work."""
 
     def __init__(self, host: str, port: int, timeout: float = 10.0,
                  obs=None, trace=None):
-        _refuse("RemoteServiceClient", obs=obs, trace=trace)
         self.sock = socket.create_connection((host, port), timeout=timeout)
         self.sock.settimeout(None)
         self.sock.setsockopt(socket.IPPROTO_TCP, socket.TCP_NODELAY, 1)
+        #: Flight-recorder handle for ``trace.recv`` / ``trace.offset``
+        #: marks (the reader thread emits, so bind a threadsafe
+        #: Recorder) and :class:`~hyperdrive_tpu_torch.obs.tracectx.
+        #: TraceSource` for stamping outbound requests.
+        self.obs = obs if obs is not None else NULL_BOUND
+        self.trace = trace
         #: server trace-origin id -> estimated clock offset (seconds,
         #: ``server_clock - local_clock``) from the hello-ack echo.
         self.clock_offsets: dict = {}
@@ -1431,6 +1542,8 @@ class RemoteServiceClient:
         return fut
 
     def _send(self, payload: bytes) -> None:
+        if self.trace is not None:
+            payload = self.trace.stamp(payload)
         frame = _LEN.pack(len(payload)) + payload
         with self._send_lock:
             self.sock.sendall(frame)
@@ -1448,7 +1561,10 @@ class RemoteServiceClient:
                 if payload is None:
                     return
                 try:
-                    payload = _strip_trace_stamp(payload)
+                    if payload and payload[0] == TRACE_MAGIC:
+                        ctx, payload = split_trace_frame(payload)
+                        if self.obs is not NULL_BOUND:
+                            note_trace_recv(self.obs, ctx)
                     text = None
                     if payload and payload[0] == TAG_QUERY:
                         req_id, status, proof = decode_proof(payload)
@@ -1489,7 +1605,13 @@ class RemoteServiceClient:
         nothing."""
         if not t0 or not origin:
             return
-        self.clock_offsets[origin] = t1 - (t0 + time.time()) / 2.0
+        t3 = time.time()
+        offset = t1 - (t0 + t3) / 2.0
+        self.clock_offsets[origin] = offset
+        if self.obs is not NULL_BOUND:
+            self.obs.emit(
+                "trace.offset", -1, -1, f"{origin}:{offset:.6f}"
+            )
 
     def close(self) -> None:
         try:

@@ -22,23 +22,21 @@ send loops, oldest-frame shedding of a full peer backlog, the
 ``malformed_frames``, ``oversize_frames`` and ``dropped_frames``
 counters), :class:`TcpBroadcaster`, :class:`FlightRecorder` and
 :func:`replay_flight`; frames and flight logs are byte for byte the JAX
-package's. Dropped, as the port's conventions say: the wire-codec lint
-markers (``analysis.annotations``), the sanitizer's wire reader
-(``analysis.sanitizer``), the causal trace stamp (``trace=``,
-``obs.tracectx``), the metrics recorder (the ``obs=`` argument), the
-metrics registry (``registry=``) and the logger (``utils.log``; the
-counters stay). The admission gate (``admission=``, an
-:class:`~hyperdrive_tpu_torch.load.backpressure.AdmissionGate` on wire
-ingress, attributed to the sending peer, the node's own broadcasts
-ungated) and the priority-aware shedding of a full peer backlog are the
-reference's. Epoch rotation is the
-reference's: :meth:`TcpNode.rotate_epoch` installs the new table on every
-registered wire verifier, and wire ingress drops (and counts in
-``stale_frames``) frames signed under a retired identity, classified by
-:mod:`hyperdrive_tpu_torch.load.frames`; the ``epoch.switch`` and
-``wire.frame.stale`` events and the registry count went with the
-recorder and the registry. The constructor's ``trace`` and ``registry``
-raise ``NotImplementedError`` when they are not None.
+package's. The node's hooks are the reference's: the causal trace stamp
+(``trace=``, :mod:`~hyperdrive_tpu_torch.obs.tracectx`), the recorder
+(``obs=``: ``epoch.switch``, ``wire.frame.*``, ``transport.*``), the
+metrics registry (``registry=``) and the admission gate (``admission=``,
+an :class:`~hyperdrive_tpu_torch.load.backpressure.AdmissionGate` on
+wire ingress, attributed to the sending peer, the node's own broadcasts
+ungated) with the priority-aware shedding of a full peer backlog. Epoch
+rotation is the reference's: :meth:`TcpNode.rotate_epoch` installs the
+new table on every registered wire verifier, and wire ingress drops (and
+counts in ``stale_frames``) frames signed under a retired identity,
+classified by :mod:`~hyperdrive_tpu_torch.load.frames`. Dropped, as the
+port's conventions say: the wire-codec lint markers
+(``analysis.annotations``), the sanitizer's wire reader
+(``analysis.sanitizer``) and the logger (``utils.log``; the counters
+stay).
 """
 
 from __future__ import annotations
@@ -59,6 +57,12 @@ from hyperdrive_tpu_torch.messages import (
     marshal_message,
     unmarshal_message,
 )
+from hyperdrive_tpu_torch.obs.recorder import NULL_BOUND
+from hyperdrive_tpu_torch.obs.tracectx import (
+    TRACE_MAGIC,
+    note_recv as note_trace_recv,
+    split_frame as split_trace_frame,
+)
 from hyperdrive_tpu_torch.replica import ResetHeight
 
 __all__ = [
@@ -77,8 +81,6 @@ _MAX_FRAME = 1 << 20  # 1 MiB: far above any consensus envelope
 #: as in the reference's trust model, where eventual delivery is the
 #: embedding network's promise (process/process.go:47-60).
 _PEER_QUEUE = 4096
-
-_LATER = "not ported to the PyTorch package yet (a later slice of the port)"
 
 
 def encode_frame(msg) -> bytes:
@@ -140,12 +142,16 @@ class TcpNode:
     """
 
     def __init__(self, listen_port: int = 0, host: str = "127.0.0.1",
-                 admission=None, registry=None, seed: int = 0,
+                 obs=None, admission=None, registry=None, seed: int = 0,
                  backoff=None, trace=None):
-        for name, value in (("trace", trace), ("registry", registry)):
-            if value is not None:
-                raise NotImplementedError(f"TcpNode({name}=...) is {_LATER}")
         self._host = host
+        #: Optional :class:`~hyperdrive_tpu_torch.obs.tracectx.TraceSource`:
+        #: when set, every outbound frame carries a 21-byte causal stamp
+        #: ahead of the envelope (emitting ``trace.send``) and inbound
+        #: stamped frames are stripped and marked ``trace.recv``. Unstamped
+        #: peers interoperate unchanged: the stamp magic byte cannot begin
+        #: a legal envelope.
+        self.trace = trace
         #: Optional AdmissionGate (:mod:`~hyperdrive_tpu_torch.load.
         #: backpressure`) applied to WIRE ingress only: frames decoded off
         #: peer connections pass through it before delivery, attributed to
@@ -161,6 +167,13 @@ class TcpNode:
         next(reconnect_schedule(int(seed), None, **self.backoff))
         #: Seed for the per-peer reconnect backoff schedules.
         self.seed = int(seed)
+        #: Flight-recorder handle for wire anomalies (oversize frames,
+        #: malformed envelopes, shed backlog). The node is multithreaded,
+        #: so callers pass a handle bound to a threadsafe Recorder.
+        self.obs = obs if obs is not None else NULL_BOUND
+        #: Optional metrics Registry: shed/stale frames and reconnects
+        #: count here (``wire.frame.shed`` labeled by class).
+        self.registry = registry
         #: Wire-anomaly counters (guarded by ``_lock``): frames dropped for
         #: a malformed envelope / connections closed for an oversize
         #: length header.
@@ -237,6 +250,8 @@ class TcpNode:
                 v.install_table(table, generation)
             elif hasattr(v, "set_generation"):
                 v.set_generation(generation)
+        if self.obs is not NULL_BOUND:
+            self.obs.emit("epoch.switch", -1, -1, generation)
 
     def start(self) -> None:
         for t in self._threads:
@@ -298,6 +313,9 @@ class TcpNode:
                     if length > _MAX_FRAME:
                         with self._lock:
                             self.oversize_frames += 1
+                        if self.obs is not NULL_BOUND:
+                            self.obs.emit("wire.frame.oversize", -1, -1,
+                                          length)
                         return  # framing attack: drop the connection
                     payload = _recv_exact(conn, length)
                     if payload is None:
@@ -305,11 +323,22 @@ class TcpNode:
                 except OSError:
                     return
                 try:
+                    ctx = None
+                    if payload and payload[0] == TRACE_MAGIC:
+                        ctx, payload = split_trace_frame(payload)
                     msg = unmarshal_message(Reader(payload))
                 except SerdeError:
                     with self._lock:
                         self.malformed_frames += 1
+                    if self.obs is not NULL_BOUND:
+                        self.obs.emit("wire.frame.malformed", -1, -1,
+                                      len(payload))
                     continue  # malformed envelope: drop the frame
+                if ctx is not None and self.obs is not NULL_BOUND:
+                    note_trace_recv(
+                        self.obs, ctx, msg.height,
+                        getattr(msg, "round", -1),
+                    )
                 if self._stop.is_set():
                     return
                 self._deliver(msg, peer=peer)
@@ -327,6 +356,14 @@ class TcpNode:
             if cls is STALE_GENERATION:
                 with self._lock:
                     self.stale_frames += 1
+                    count = self.stale_frames
+                if self.obs is not NULL_BOUND:
+                    self.obs.emit(
+                        "wire.frame.stale", msg.height,
+                        getattr(msg, "round", -1), count,
+                    )
+                if self.registry is not None:
+                    self.registry.count("wire.frame.stale")
                 return  # counted, never fatal to the connection
         if (
             not local
@@ -370,6 +407,13 @@ class TcpNode:
                             break
                         continue
                     if attempts:
+                        # Peer came (back) up after a retry ramp.
+                        if self.obs is not NULL_BOUND:
+                            self.obs.emit(
+                                "transport.reconnect", -1, -1, attempts
+                            )
+                        if self.registry is not None:
+                            self.registry.count("transport.reconnect")
                         sched = reconnect_schedule(
                             self.seed, key, **self.backoff
                         )
@@ -396,10 +440,19 @@ class TcpNode:
         SHED_LOW_PRIORITY) a new *prevote* frame is itself dropped
         (backlogged proposals and precommits are worth more than a fresh
         prevote); otherwise the oldest frame is evicted. Every shed counts
-        per peer in ``dropped_frames``, and with a gate the worst peer
-        occupancy is fed back to its controller."""
+        per peer in ``dropped_frames``, per class in the Registry
+        (``wire.frame.shed``), and emits the obs pair; with a gate the
+        worst peer occupancy is fed back to its controller."""
         self._deliver(msg, local=True)
         frame = encode_frame(msg)
+        if self.trace is not None:
+            # Stamp INSIDE the length framing: strip encode_frame's
+            # header, prefix the 21-byte trace context, re-frame.
+            body = self.trace.stamp(
+                frame[_LEN.size:], height=msg.height,
+                round_=getattr(msg, "round", -1),
+            )
+            frame = _LEN.pack(len(body)) + body
         # Frames queue with the class they would shed under: prevotes are
         # the low-priority tier; everything else only ever sheds as
         # best-effort backlog eviction.
@@ -416,7 +469,7 @@ class TcpNode:
                 try:
                     q.put_nowait((cls, frame))
                 except queue.Full:
-                    self._count_shed(key)
+                    self._count_shed(key, cls)
             else:
                 while True:
                     try:
@@ -424,18 +477,28 @@ class TcpNode:
                         break
                     except queue.Full:
                         try:
-                            q.get_nowait()  # shed the oldest frame
+                            old = q.get_nowait()  # shed the oldest frame
                         except queue.Empty:
                             continue
-                        self._count_shed(key)
+                        self._count_shed(
+                            key, old[0] if old is not None else "backlog"
+                        )
             if ctrl is not None:
                 worst = max(worst, q.qsize() / _PEER_QUEUE)
         if ctrl is not None:
             ctrl.note_peer_occupancy(worst)
 
-    def _count_shed(self, key) -> None:
+    def _count_shed(self, key, cls: str) -> None:
+        """Account one shed outbound frame: per-peer counter, labeled
+        Registry counter, obs pair."""
         with self._lock:
-            self.dropped_frames[key] = self.dropped_frames.get(key, 0) + 1
+            count = self.dropped_frames.get(key, 0) + 1
+            self.dropped_frames[key] = count
+        if self.registry is not None:
+            self.registry.count("wire.frame.shed", label=cls)
+        if self.obs is not NULL_BOUND:
+            self.obs.emit("wire.frame.shed", -1, -1, cls)
+            self.obs.emit("transport.peer.dropped", -1, -1, count)
 
 
 class FlightRecorder:

@@ -21,17 +21,25 @@ from hyperdrive_tpu.campaign.record import CampaignRecord as RefCampaignRecord
 from hyperdrive_tpu.campaign.runner import run_campaign as ref_run_campaign
 from hyperdrive_tpu.codec import SerdeError as RefSerdeError
 from hyperdrive_tpu.codec import Writer as RefWriter
+from hyperdrive_tpu.obs.metrics import Registry as RefRegistry
+from hyperdrive_tpu.obs.recorder import Recorder as RefRecorder
 from hyperdrive_tpu_torch import campaign
 from hyperdrive_tpu_torch.campaign import FAMILIES, CampaignConfig
 from hyperdrive_tpu_torch.campaign.families import batch_verifier
 from hyperdrive_tpu_torch.campaign.record import CampaignRecord, summary_digest
 from hyperdrive_tpu_torch.campaign.runner import replay_campaign, run_campaign
 from hyperdrive_tpu_torch.codec import SerdeError, Writer
+from hyperdrive_tpu_torch.obs.metrics import Registry
+from hyperdrive_tpu_torch.obs.recorder import Recorder
 from hyperdrive_tpu_torch.ops import ed25519_cuda
 from hyperdrive_tpu_torch.ops.ed25519 import TorchBatchVerifier
 from hyperdrive_tpu_torch.verifier import HostVerifier
 
 torch.set_num_threads(1)
+
+
+def _zero():
+    return 0.0
 
 _BASE = dict(
     seed=7,
@@ -161,13 +169,23 @@ def test_tampered_record_raises_as_the_reference(tamper):
     ("capture", dict(seed=2)),
 ])
 def test_family_summary_and_digest_equal_the_reference(family, kw):
+    # Observed in both packages: the recorder's journal (every campaign.*
+    # and admission.* event) and the registry's counters are the JAX
+    # run's too, and observing never feeds the summary.
     cfg, ref_cfg = _cfgs(family, **kw)
-    out = run_campaign(cfg, device="cpu")
-    want = ref_run_campaign(ref_cfg)
+    rec, ref_rec = Recorder(time_fn=_zero), RefRecorder(time_fn=_zero)
+    reg, ref_reg = Registry(time_fn=_zero), RefRegistry(time_fn=_zero)
+    out = run_campaign(cfg, device="cpu", registry=reg, obs=rec.scoped(-1))
+    want = ref_run_campaign(ref_cfg, registry=ref_reg, obs=ref_rec.scoped(-1))
     assert out.summary == want.summary
     assert out.digest == want.digest
     assert out.violations == want.violations == []
     assert _marshal(out.record) == _marshal(want.record, RefWriter)
+    assert rec.snapshot() == ref_rec.snapshot() and rec.digest() == ref_rec.digest()
+    assert reg.snapshot() == ref_reg.snapshot() and reg.digest() == ref_reg.digest()
+    kinds = {e.kind for e in rec.snapshot()}
+    assert {"campaign.family", "campaign.done"} <= kinds
+    assert reg.snapshot()["counters"]["campaign.runs"] == {family: 1}
 
 
 @pytest.mark.parametrize("family", FAMILIES)
@@ -176,8 +194,12 @@ def test_replay_is_digest_identical(family, tmp_path):
     out = run_campaign(cfg, device="cpu")
     path = tmp_path / (family + ".bin")
     out.record.dump(str(path))
-    same, fresh = replay_campaign(CampaignRecord.load_file(str(path)), device="cpu")
+    rec = Recorder(time_fn=_zero)
+    same, fresh = replay_campaign(CampaignRecord.load_file(str(path), obs=rec.scoped(-1)),
+                                  device="cpu", obs=rec.scoped(-1))
     assert same and fresh.summary == out.summary
+    done = [e for e in rec.snapshot() if e.kind == "campaign.done"]
+    assert [e.detail for e in done] == [f"{family} {out.digest[:8].hex()} violations=0"]
 
 
 def test_storm_wave_on_the_plain_ladder_equals_the_reference():
@@ -196,15 +218,18 @@ def test_storm_wave_on_the_plain_ladder_equals_the_reference():
 def test_device_choice_and_dropped_hooks():
     assert isinstance(batch_verifier("cpu"), HostVerifier)
     cfg, _ = _cfgs("capture")
-    # Capture verifies nothing, so it builds no verifier on any device.
-    assert run_campaign(cfg).ok
+    # Capture verifies nothing, so it builds no verifier on any device;
+    # the registry and obs hooks (refused until ROADMAP item 4b) run on it.
+    reg, rec = Registry(time_fn=_zero), Recorder(time_fn=_zero)
+    assert run_campaign(cfg, registry=reg, obs=rec.scoped(-1)).ok
+    counters = reg.snapshot()["counters"]
+    assert counters["campaign.runs"] == {"capture": 1}
+    assert counters["campaign.epochs"] == _BASE["epochs"]
+    assert [e.detail for e in rec.snapshot()][0] == "capture"
     storm, _ = _cfgs("storm")
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             run_campaign(storm)
-    for hook in ("registry", "obs"):
-        with pytest.raises(NotImplementedError, match=hook):
-            run_campaign(storm, device="cpu", **{hook: object()})
     bad = dataclasses.replace(storm, attackers=16)
     with pytest.raises(ValueError, match="honest signer"):
         run_campaign(bad, device="cpu")

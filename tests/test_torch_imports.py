@@ -15,6 +15,8 @@ from hyperdrive_tpu_torch.ops.ed25519 import TorchBatchVerifier
 from hyperdrive_tpu_torch.tallyflush import DeviceTallyFlusher
 from hyperdrive_tpu_torch.verifier import NullVerifier
 
+torch.set_num_threads(1)
+
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 
 _PROBE = r"""

@@ -27,7 +27,12 @@ from hyperdrive_tpu.codec import SerdeError as RefSerdeError
 from hyperdrive_tpu.codec import Writer as RefWriter
 from hyperdrive_tpu.exec import ExecutionConfig as RefExecutionConfig
 from hyperdrive_tpu.exec.ledger import HostLedgerExecutor as RefHostLedgerExecutor
+from hyperdrive_tpu.obs.merge import merge_journals as ref_merge_journals
+from hyperdrive_tpu.obs.metrics import Registry as RefRegistry
+from hyperdrive_tpu.obs.recorder import Recorder as RefRecorder
+from hyperdrive_tpu.obs.tracectx import TraceSource as RefTraceSource
 from hyperdrive_tpu.obs.tracectx import encode_stamp as ref_encode_stamp
+from hyperdrive_tpu.obs.tracectx import split_frame as ref_split_frame
 from hyperdrive_tpu.ops.merkle import MerkleProof as RefMerkleProof
 from hyperdrive_tpu.parallel import service as ref
 from hyperdrive_tpu.verifier import HostVerifier as RefHostVerifier
@@ -44,6 +49,12 @@ from hyperdrive_tpu_torch.load.backpressure import (
     SHED_LOW_PRIORITY,
     BackpressureController,
 )
+from hyperdrive_tpu_torch.obs import tracectx
+from hyperdrive_tpu_torch.obs.devtel import DeviceTelemetry
+from hyperdrive_tpu_torch.obs.merge import merge_journals
+from hyperdrive_tpu_torch.obs.metrics import Registry
+from hyperdrive_tpu_torch.obs.recorder import Recorder
+from hyperdrive_tpu_torch.obs.tracectx import TraceSource
 from hyperdrive_tpu_torch.ops.merkle import MAX_DEPTH, MerkleProof, verify_inclusion
 from hyperdrive_tpu_torch.parallel import service
 from hyperdrive_tpu_torch.parallel.service import (
@@ -55,6 +66,7 @@ from hyperdrive_tpu_torch.parallel.service import (
     ShardVerifyService,
     TenantShard,
 )
+from hyperdrive_tpu_torch.utils.trace import Tracer
 from hyperdrive_tpu_torch.verifier import HostVerifier, NullVerifier
 
 torch.set_num_threads(1)
@@ -281,12 +293,14 @@ def test_result_frame_back_compat_with_v15():
 
 
 def test_stamp_strip_equals_the_reference_split():
+    # The service splits stamps with obs.tracectx's split_frame (its
+    # private copy is gone), the reference's split to the byte.
+    assert service.split_trace_frame is tracectx.split_frame
+    assert service.TRACE_MAGIC == tracectx.TRACE_MAGIC == 0x54
     payload = service.encode_query(3, 4)
-    stamped = ref_encode_stamp(7, 9, 11) + payload
-    assert service._strip_trace_stamp(stamped) == payload
-    assert service._strip_trace_stamp(payload) == payload
-    assert service._strip_trace_stamp(b"\x54\x00") == b"\x54\x00"
-    assert service.TRACE_MAGIC == 0x54 and len(ref_encode_stamp(1, 2)) == service._STAMP_LEN
+    for frame in (ref_encode_stamp(7, 9, 11) + payload, payload, b"\x54\x00", b""):
+        assert tracectx.split_frame(frame) == ref_split_frame(frame)
+    assert tracectx.split_frame(ref_encode_stamp(7, 9, 11) + payload) == ((7, 9, 11), payload)
 
 
 # ------------------------------------------------------- local serving
@@ -541,30 +555,95 @@ def test_stamped_request_is_served_like_an_unstamped_one():
             _cert_bytes(solo_svc.certificates["st"][h]) for h in (1, 2)]
 
 
-def test_unknown_tenant_metrics_and_dropped_hooks():
-    svc = _service()
+def _scrape_after_unknown_tenant(svc, mod):
+    """An unknown tenant's submit, its hello, then a metrics scrape:
+    ``(submit status, scrape answer)``."""
     with _remote(svc) as (port, client):
-        shard = TenantShard("ghost", target_height=1, sign=False)
+        shard = mod.TenantShard("ghost", target_height=1, sign=False)
         fut = client.submit(1, 0, shard.value_at(1), shard.window(1))
         _pump_until(port, n=1)
         status, mask, cert = fut.result(DEADLINE)
-        assert status == STATUS_UNKNOWN_TENANT and cert is None and not any(mask)
+        assert cert is None and not any(mask)
         client.hello("ghost", shard.ring.signatories, shard.f)
         scrape = client.metrics()
         _pump_until(port, n=2)
-        assert scrape.metrics_result(DEADLINE) == (STATUS_NO_STATE, None)
-    for kw in ("obs", "tracer", "devtel", "registry"):
-        with pytest.raises(NotImplementedError, match=kw):
-            ShardVerifyService(NullVerifier(), **{kw: object()})
-    svc = _service()
+        return status, scrape.metrics_result(DEADLINE)
+
+
+def test_unknown_tenant_metrics_and_dropped_hooks():
+    # Without a registry a scrape answers STATUS_NO_STATE; with one (the
+    # hooks refused until ROADMAP item 4b) it answers the registry's
+    # Prometheus text, the JAX service's text to the byte.
+    status, answer = _scrape_after_unknown_tenant(_service(), service)
+    assert status == STATUS_UNKNOWN_TENANT and answer == (STATUS_NO_STATE, None)
+    got = _scrape_after_unknown_tenant(_service(registry=Registry()), service)
+    want = _scrape_after_unknown_tenant(
+        _ref_service(registry=RefRegistry()), ref)
+    assert got == want and got[1][0] == STATUS_COMMITTED
+    assert "hd_service_queue_launches 0" in got[1][1].splitlines()
+    assert "hd_service_metrics_serves 0" in got[1][1].splitlines()
+    # The service hands its hooks to its queue and its certifiers.
+    rec, tel, tracer = Recorder(time_fn=lambda: 0.0), DeviceTelemetry(), Tracer()
+    reg = Registry()
+    svc = ShardVerifyService(NullVerifier(), obs=rec.scoped(-1), tracer=tracer,
+                             devtel=tel, registry=reg)
     try:
-        for kw in ("obs", "trace"):
-            with pytest.raises(NotImplementedError, match=kw):
-                svc.remote_port(**{kw: object()})
-        with pytest.raises(NotImplementedError, match="obs"):
-            svc.certifier([b"\x01" * 32], 0, obs=object())
+        assert (svc.queue.obs, svc.queue.tracer, svc.queue.devtel) == (
+            svc.obs, tracer, tel)
+        assert svc.registry is reg
+        sig = b"\x01" * 32
+        cert = svc.certifier([sig], 0, obs=rec.scoped(4)).observe_commit(1, 0, b"v", [sig])
+        assert [(e.replica, e.kind, e.detail) for e in rec.snapshot()] == [
+            (4, "cert.emit", cert.value_digest.hex()[:16])]
     finally:
         svc.close()
+
+
+def test_traced_remote_tenant_and_latency_equal_across_packages():
+    # A JAX tenant with a trace source against a traced port service with
+    # every hook: stamped answers, trace.recv on both ends, the clock
+    # offset from the hello echo, and the merged journals of both
+    # processes pair every span. The tenant's digest is the JAX run's,
+    # and each tenant's verify and commit latency lands in the registry.
+    svc_rec, cli_rec = Recorder(threadsafe=True), RefRecorder(threadsafe=True)
+    reg = Registry()
+    svc = ShardVerifyService(NullVerifier(), max_depth=0, obs=svc_rec.scoped(-1),
+                             devtel=DeviceTelemetry(registry=reg), registry=reg)
+    port = svc.remote_port(trace=TraceSource(1, obs=svc_rec.scoped(-1)))
+    client = None
+    try:
+        client = ref.RemoteServiceClient(
+            *port.address, obs=cli_rec.scoped(-1),
+            trace=RefTraceSource(2, obs=cli_rec.scoped(-1)))
+        local = TenantShard("local", target_height=2, sign=False).attach_local(svc)
+        remote = ref.TenantShard("rx", target_height=3, sign=False).attach_remote(client)
+        _run_remote(port, svc, remote)
+        _drive(svc, [local])
+    finally:
+        if client is not None:
+            client.close()
+        port.close()
+        svc.close()
+    solo_svc = _ref_service()
+    solo = ref.TenantShard("rx", target_height=3, sign=False).attach_local(solo_svc)
+    _drive(solo_svc, [solo])
+    assert remote.commit_digest() == solo.commit_digest()
+    assert 1 in client.clock_offsets
+    journals = []
+    for origin, rec in ((1, svc_rec), (2, cli_rec)):
+        kinds = [e.kind for e in rec.snapshot()]
+        assert kinds.count("trace.send") == kinds.count("trace.recv") > 0
+        journals.append(rec.journal(meta={"origin": origin}))
+    assert "trace.offset" in {e.kind for e in cli_rec.snapshot()}
+    assert {"service.remote.submit", "service.remote.resolve", "cert.emit"} <= {
+        e.kind for e in svc_rec.snapshot()}
+    merged = merge_journals(journals)
+    assert merged == ref_merge_journals(journals) and merged["meta"]["orphans"] == []
+    hist = reg.snapshot()["histograms"]
+    tids = svc.tenant_ids
+    assert hist["tenant.verify.latency"].keys() == {str(tids["rx"]), str(tids["local"])}
+    assert hist["tenant.commit.latency"].keys() == {"rx", str(tids["rx"]), str(tids["local"])}
+    assert hist["tenant.commit.latency"]["rx"]["count"] == 3
 
 
 def test_parallel_package_exports():

@@ -227,25 +227,74 @@ def test_inbox_methods_enqueue_and_reset_height_jumps():
     assert rep.procs_allowed == set(ring.signatories[:3])
 
 
+class _SwitchProbe:
+    """A wire verifier stand-in that notes, at each table install, how
+    many ``epoch.switch`` events the node's recorder already holds."""
+
+    def __init__(self, rec, seen):
+        self.rec, self.seen = rec, seen
+
+    def install_table(self, table, generation):
+        n = sum(e.kind == "epoch.switch" for e in self.rec.snapshot())
+        self.seen.append(("install", generation, n))
+
+
 def test_unported_node_features_refuse():
-    # The admission gate is ported: both packages take it (the admission
-    # cases run in tests/test_torch_load.py); the trace stamp and the
-    # registry still refuse.
+    # Every node hook is ported now (the trace stamp and the registry
+    # refused until ROADMAP item 4b): both packages take the admission
+    # gate, the recorder, the registry and the trace source, journal an
+    # epoch switch alike, and account a full peer backlog's sheds alike
+    # (the peer is a closed port, so its sender never drains the queue).
+    # The traced exchange runs in tests/test_torch_obs_net.py.
     from hyperdrive_tpu.load import AdmissionGate as RefAdmissionGate
     from hyperdrive_tpu.load import BackpressureController as RefController
+    from hyperdrive_tpu.obs.metrics import Registry as RefRegistry
+    from hyperdrive_tpu.obs.recorder import Recorder as RefRecorder
+    from hyperdrive_tpu.obs.tracectx import TraceSource as RefTraceSource
     from hyperdrive_tpu_torch.load import AdmissionGate, BackpressureController
+    from hyperdrive_tpu_torch.obs.metrics import Registry
+    from hyperdrive_tpu_torch.obs.recorder import Recorder
+    from hyperdrive_tpu_torch.obs.tracectx import TraceSource
 
-    for node_cls, gate in ((TcpNode, AdmissionGate(BackpressureController())),
-                           (RefTcpNode, RefAdmissionGate(RefController()))):
-        node = node_cls(admission=gate)
+    dead = socket.socket()
+    dead.bind(("127.0.0.1", 0))
+    dead_port = dead.getsockname()[1]
+    dead.close()
+    results = []
+    for node_cls, gate, rec, reg, src, vote in (
+        (TcpNode, AdmissionGate(BackpressureController()), Recorder(threadsafe=True),
+         Registry(), TraceSource, Prevote),
+        (RefTcpNode, RefAdmissionGate(RefController()), RefRecorder(threadsafe=True),
+         RefRegistry(), RefTraceSource, RefPrevote),
+    ):
+        trace = src(3, obs=rec.scoped(-1))
+        node = node_cls(admission=gate, obs=rec.scoped(-1), registry=reg, trace=trace,
+                        backoff={"base": 5.0, "cap": 5.0})
         try:
-            assert node.admission is gate
+            assert (node.admission, node.registry, node.trace) == (gate, reg, trace)
+            seen = []
+            node.register_wire_verifier(_SwitchProbe(rec, seen))
+            node.rotate_epoch(3, table={})
+            node.add_peer("127.0.0.1", dead_port)
+            node.start()
+            for h in range(_PEER_QUEUE + 9):
+                node.broadcast(vote(1, 0, b"\x01" * 32, b"\x02" * 32))
         finally:
             node.stop()
-    with pytest.raises(NotImplementedError):
-        TcpNode(trace=object())
-    with pytest.raises(NotImplementedError):
-        TcpNode(registry=object())
+        events = rec.snapshot()
+        shed = [e for e in events if e.kind == "wire.frame.shed"]
+        dropped = [e for e in events if e.kind == "transport.peer.dropped"]
+        total = sum(node.dropped_frames.values())
+        assert 8 <= total == len(shed) == len(dropped) <= 9
+        assert {e.detail for e in shed} == {"low_priority"}
+        assert [e.detail for e in dropped] == list(range(1, total + 1))
+        assert reg.snapshot()["counters"]["wire.frame.shed"] == {"low_priority": total}
+        sends = [e for e in events if e.kind == "trace.send"]
+        assert len(sends) == _PEER_QUEUE + 9 and sends[-1].detail == f"3:{_PEER_QUEUE + 9}"
+        results.append(seen + [(e.kind, e.detail) for e in events
+                               if e.kind == "epoch.switch"])
+    # The switch is journaled after the tables are installed, not before.
+    assert results[0] == results[1] == [("install", 3, 0), ("epoch.switch", 3)]
 
 
 def test_rotate_epoch_installs_tables_and_counts_stale_frames():
@@ -532,14 +581,19 @@ def test_socket_run_replays_offline_from_its_flight_logs(tmp_path, coalesce):
             assert commits == results[i][i], f"replica {i} replay diverged ({label})"
 
 
-def test_two_process_host_deployment():
+@pytest.mark.parametrize("traced", [False, True], ids=["plain", "traced"])
+def test_two_process_host_deployment(traced, tmp_path):
+    # Traced, each worker stamps its frames and saves its journal; the two
+    # journals, from two processes and two clocks, merge with every
+    # trace.recv paired to its trace.send, as the JAX package's merge does.
     ports = _free_ports(2)
     env = {k: v for k, v in os.environ.items()
            if k not in ("XLA_FLAGS", "JAX_PLATFORMS")}
     cmd = [sys.executable, "-m", "hyperdrive_tpu_torch.harness.deploy",
            *map(str, ports)]
+    opts = ["--trace", str(tmp_path)] if traced else []
     procs = [
-        subprocess.Popen(cmd + [str(rank), "2", "5", "host"], cwd=ROOT, env=env,
+        subprocess.Popen(cmd + [str(rank), "2", "5", "host", *opts], cwd=ROOT, env=env,
                          stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         for rank in range(2)
     ]
@@ -553,11 +607,23 @@ def test_two_process_host_deployment():
     fields = []
     for rank, (p, out) in enumerate(zip(procs, outs)):
         assert p.returncode == 0, out
-        line = out.strip().splitlines()[-1]
-        assert line.startswith(f"TRANSPORT_OK rank={rank} heights=5 "), out
-        fields.append(dict(kv.split("=", 1) for kv in line.split()[1:]))
+        lines = out.strip().splitlines()
+        assert lines[-1].startswith(f"TRANSPORT_OK rank={rank} heights=5 "), out
+        fields.append(dict(kv.split("=", 1) for kv in lines[-1].split()[1:]))
+        assert traced == any(ln.startswith(f"DEPLOY_TRACE rank={rank} ") for ln in lines)
     assert fields[0]["digest"] == fields[1]["digest"]
     assert {f["mode"] for f in fields} == {"host"}
+    if not traced:
+        return
+    from hyperdrive_tpu.obs.merge import merge_journals as ref_merge_journals
+    from hyperdrive_tpu_torch.obs.merge import merge_journals
+    from hyperdrive_tpu_torch.obs.recorder import load_journal
+
+    journals = [load_journal(tmp_path / f"journal-{rank}.json") for rank in range(2)]
+    assert [j["meta"]["origin"] for j in journals] == [1, 2]
+    merged = merge_journals(journals)
+    assert merged == ref_merge_journals(journals) and merged["meta"]["orphans"] == []
+    assert any(ev[4] == "trace.recv" for ev in merged["events"])
 
 
 def test_worker_timing_counts_nested_calls_once_and_host_check_raises():
