@@ -16,6 +16,22 @@ Phases, each printing its lines:
    pure-Python oracle's, on a line that begins ``native: loaded``
    (``HD_NO_NATIVE`` set, or a failed build, is an error here, not a
    fallback);
+1b. the multi-device programs (``phase_mesh``, lines ``mesh``; early, so
+   it is its own probe of NCCL) on a world-size-1 NCCL group (the card
+   machine has one card): ``sharded_verify_tally`` (A) and
+   ``sharded_chalwire_tally`` (B) on a 16 x 256 window with four corrupt
+   lanes, masks against the host oracle and counts and flags against the
+   single-device tally, one ``ed25519_verify`` launch (A) and one each of
+   ``ed25519_challenge`` and ``ed25519_semiwire`` (B) a call, ms a call,
+   the all-reduce's share, bound and CUDA kernels a call;
+   ``challenge_from_round`` at 15 rounds in the 4,096-lane bucket against
+   its plain version (zero-digest padding lanes included); the sharded
+   ``VoteGrid``'s counts against the single-device grid's over a seeded
+   settle sequence and both grids' ``update_and_tally`` time; (C) the main
+   path with ``tally_mesh`` on the invariant, every count checked
+   (``CheckedTallyView``), two launches a settle, in turns with the
+   single-device two-launch run; (D) ``make_sharded_step``'s example args
+   counting nothing;
 2. kernels against their plain PyTorch versions on the card, mask for mask
    on every lane, on mixed lanes made from a fixed seed:
    - ``ed25519_verify`` (packed limbs) at the verifier's bucket sizes (64,
@@ -103,7 +119,7 @@ Phases, each printing its lines:
    kernel launched once for every chunk of every queue launch and no
    other kernel ran; the device-tally run dispatched on the host counters
    (no fused settle, no tally launch, no host-routed settle). Then the
-   sequential and the pipelined packed run in turns, three pairs each
+   sequential and the pipelined packed run in turns, two pairs each
    way, on lines that begin ``pairs:`` (walls, median, spread);
 7. burst-mode delivery (``phase_burst``, lines ``burst``): (i) the main
    path on the object path (``columnar_ingest=False``: packed,
@@ -248,7 +264,7 @@ Phases, each printing its lines:
    1,024 blocks; on lines that begin ``programs: shamir``;
 15. the RLC batch equation (``rlc_check`` on ``ops/msm.py``, PyTorch ops):
    one 64-lane MSM equal to the oracle's point sum; then
-   ``TorchBatchVerifier(rlc=True)`` at 64, 256, 1,024 and 4,096 lanes: a
+   ``TorchBatchVerifier(rlc=True)`` at 64 and 4,096 lanes: a
    clean batch accepted by one check with no fallback and no ladder
    launch, a batch with one forged lane falling back once with its mask
    equal to ``ed25519_verify``'s and the oracle's, and (64 lanes) the
@@ -345,7 +361,7 @@ Phases, each printing its lines:
    chal route (rows 3 and 4, 10 heights), the four journals they save
    merged with no orphaned ``trace.recv``.
 
-Each path of phases 5, 6, 7, 8, 10, 11, 12, 15, 16, 17, 18, 20 and 21 is
+Each path of phases 1b, 5, 6, 7, 8, 10, 11, 12, 15, 16, 17, 18, 20 and 21 is
 driven with the kernel counts set to 0 just before it and read just after.
 
 The line before the last is the kernel table as JSON; the last line is
@@ -1620,6 +1636,297 @@ def phase_votegrid() -> None:
               f"cuda_kernels_per_call={kern}", flush=True)
 
 
+# ------------------------------------------------ multi-device programs
+
+#: The mesh legs' window: 16 rounds x the main path's 256 validators (4,096
+#: lanes, one a (round, validator)), and its corrupt lanes.
+MESH_ROUNDS = 16
+MESH_CORRUPT = frozenset({(0, 3), (5, 200), (9, 17), (15, 255)})
+#: ``challenge_from_round``'s check: 15 rounds x 256 lanes in a 4,096-lane
+#: bucket, so its last 256 lanes hash the zero digest.
+MESH_CHAL_ROUNDS = 15
+
+
+def _grid_items(ring, rounds: int, validators: int, digest_of, corrupt) -> list:
+    """The (pub, digest, sig) items ``parallel.grid_pack*`` sign, made
+    again here for the host oracle: one vote a (round, validator), the
+    corrupt lanes' s with one bit flipped."""
+    items = []
+    for r in range(rounds):
+        digest = digest_of(r)
+        for v in range(validators):
+            sig = ring[v].sign_digest(digest)
+            if (r, v) in corrupt:
+                sig = sig[:40] + bytes([sig[40] ^ 1]) + sig[41:]
+            items.append((ring[v].public, digest, sig))
+    return items
+
+
+class _NoFused:
+    """A batch verifier without ``fused_inner``: a device-tally run on it
+    takes the two-launch settle on one device."""
+
+    def __init__(self, inner):
+        self._inner = inner
+
+    def __getattr__(self, name):
+        if name == "fused_inner":
+            raise AttributeError(name)
+        return getattr(self._inner, name)
+
+
+def phase_mesh(clock_mhz: float, sms: int) -> dict:
+    """The multi-device programs (``parallel/mesh.py``, the sharded
+    ``VoteGrid``, ``Simulation(tally_mesh=)``) at world size 1 over NCCL,
+    the card's only shape (one card): A ``sharded_verify_tally`` and B
+    ``sharded_chalwire_tally`` on a 16 x 256 window, masks against the
+    host oracle, counts against the single-device tally; C the main path
+    with the sharded grid on the invariant, in turns with the
+    single-device two-launch run; D ``make_sharded_step``'s example args.
+    Returns the launches of rows 1, 3 and 4 in the legs' checked calls."""
+    import torch.distributed as dist
+
+    from hyperdrive_tpu_torch import parallel
+    from hyperdrive_tpu_torch.crypto.keys import KeyRing
+    from hyperdrive_tpu_torch.harness import Simulation
+    from hyperdrive_tpu_torch.ops import ed25519_cuda, tally, votegrid
+    from hyperdrive_tpu_torch.ops import ed25519_wire as wire
+    from hyperdrive_tpu_torch.ops.ed25519 import TorchBatchVerifier
+    from hyperdrive_tpu_torch.parallel.mesh import mesh_device
+    from hyperdrive_tpu_torch.verifier import HostVerifier
+
+    rows = ("ed25519_verify", "ed25519_semiwire", "ed25519_challenge")
+    launches = dict.fromkeys(rows, 0)
+
+    def counted(fn, keep: bool = True):
+        """Run a mesh path with the counts set to 0 just before it and read
+        just after; ``keep`` adds them to the phase's launches."""
+        ed25519_cuda.reset_stats()
+        out = fn()
+        torch.cuda.synchronize()
+        got = {k: v.launches for k, v in ed25519_cuda.stats.items() if v.launches}
+        for k in rows:
+            launches[k] += got.get(k, 0) if keep else 0
+        return out, got
+
+    t0 = time.perf_counter()
+    legs = {}  # seconds a leg
+
+    def leg(name):
+        legs[name] = time.perf_counter() - t0 - sum(legs.values())
+
+    mesh = parallel.make_mesh(device="cuda")
+    try:
+        backend = dist.get_backend()
+        if backend != "nccl" or mesh.shape != (1, 1):
+            raise AssertionError(f"mesh: backend {backend}, shape {mesh.shape}")
+        dev = mesh_device(mesh)
+        print(f"mesh: world_size={dist.get_world_size()} backend={backend} "
+              f"shape={tuple(mesh.shape)} device={dev} init_s={time.perf_counter() - t0:.3f}",
+              flush=True)
+        R, V, lanes = MESH_ROUNDS, N_VALIDATORS, MESH_ROUNDS * N_VALIDATORS
+        ring = KeyRing.deterministic(V, namespace=b"mesh-card")
+        values = [bytes([r + 1]) * 32 for r in range(R)]
+        vote = torch.from_numpy(np.stack([tally.pack_values([values[r]] * V)
+                                          for r in range(R)])).to(dev)
+        target = torch.from_numpy(tally.pack_values(values)).to(dev)
+        f = V // 3
+        pattern = np.array([[(r, v) not in MESH_CORRUPT for v in range(V)] for r in range(R)])
+        oracle = HostVerifier()
+
+        def check_step(label, out, items):
+            counts, flags, ok = out
+            host = np.asarray(oracle.verify_signatures(items), dtype=bool).reshape(R, V)
+            if not (np.array_equal(ok.cpu().numpy(), host) and np.array_equal(host, pattern)):
+                raise AssertionError(f"mesh {label}: mask != the host oracle's verdicts")
+            mask = torch.from_numpy(host).to(dev)
+            want = tally.tally_counts(vote, mask, target)
+            want_flags = tally.quorum_flags(want, f)
+            for d, w in ((counts, want), (flags, want_flags)):
+                for k in w:
+                    if not torch.equal(d[k], w[k]):
+                        raise AssertionError(f"mesh {label}: {k} != the single-device tally's")
+            return counts
+
+        def all_reduce_ms(t):
+            group = mesh.get_group("val")
+            return time_ms(lambda: dist.all_reduce(t, group=group), 20)
+
+        # Leg A: sharded_verify_tally, row 1.
+        shaped, prevalid = parallel.grid_pack(ring, R, V, values, corrupt=MESH_CORRUPT,
+                                              device=dev)
+        if not prevalid.all():
+            raise AssertionError("mesh A: a corrupt lane failed to parse")
+        window = parallel.global_window_from_local(mesh, shaped)
+        step_a = parallel.sharded_verify_tally(mesh)
+        out, got = counted(lambda: step_a(*window, vote, target, f))
+        if got != {"ed25519_verify": 1}:
+            raise AssertionError(f"mesh A: launched {got}, want one ed25519_verify")
+        counts_a = check_step("A", out, _grid_items(
+            ring, R, V, lambda r: values[r] + bytes([r]), MESH_CORRUPT))
+        ms_a = time_ms(lambda: step_a(*window, vote, target, f), 7)
+        ar_ms = all_reduce_ms(torch.zeros((3, R), dtype=torch.int32, device=dev))
+        b_a, by_a = bound_ms("ed25519_verify", lanes, clock_mhz, sms)
+        print(f"mesh A sharded_verify_tally: rounds={R} validators={V} lanes={lanes} "
+              f"corrupt={len(MESH_CORRUPT)} ed25519_verify_launches=1 "
+              f"mask_equals_host_oracle=True counts_equal_single_device=True "
+              f"matching={counts_a['matching'].tolist()} ms={ms_a:.4f} "
+              f"all_reduce_ms={ar_ms:.4f} all_reduce_share={ar_ms / ms_a:.4f} "
+              f"bound_ms={b_a:.6f} bound_by={by_a} bound_share={b_a / ms_a:.4f} "
+              f"cuda_kernels_per_call="
+              f"{_kernels_per_call(lambda: step_a(*window, vote, target, f))}", flush=True)
+
+        leg("A")
+
+        # Leg B: sharded_chalwire_tally, rows 4 and 3.
+        (idx, r_rows, s_rows, m_round), table, prevalid = parallel.grid_pack_wire(
+            ring, R, V, values, corrupt=MESH_CORRUPT, device=dev)
+        if not prevalid.all():
+            raise AssertionError("mesh B: a corrupt lane failed to parse")
+        step_b = parallel.sharded_chalwire_tally(mesh)
+        tab = table.arrays_chal()
+        out, got = counted(lambda: step_b(idx, r_rows, s_rows, m_round, *tab, vote, target,
+                                          f))
+        if got != {"ed25519_challenge": 1, "ed25519_semiwire": 1}:
+            raise AssertionError(f"mesh B: launched {got}, want one challenge + one semiwire")
+        m_np = m_round.cpu().numpy()
+        counts_b = check_step("B", out, _grid_items(
+            ring, R, V, lambda r: m_np[r].tobytes(), MESH_CORRUPT))
+        if any(not torch.equal(counts_a[k], counts_b[k]) for k in counts_a):
+            raise AssertionError("mesh B: counts differ from leg A's")
+        ms_b = time_ms(lambda: step_b(idx, r_rows, s_rows, m_round, *tab, vote, target, f), 7)
+        b_b = (bound_ms("ed25519_challenge", lanes, clock_mhz, sms, uniq=R + 1)[0]
+               + bound_ms("ed25519_semiwire", lanes, clock_mhz, sms)[0])
+        # challenge_from_round at 15 rounds in the 4,096-lane bucket against
+        # its plain version (the reference's repeat-and-pad form).
+        flat_idx, flat_r = idx.reshape(-1), r_rows.reshape(-1, 32)
+        m15 = m_round[:MESH_CHAL_ROUNDS].contiguous()
+        chal = wire.make_challenge_round_fn(V)
+        k_rows = chal(flat_idx, flat_r, m15, table.rows)
+        k_plain = wire.challenge_from_round_plain(flat_idx, flat_r, m15, table.rows, V)
+        if not torch.equal(k_rows, k_plain):
+            raise AssertionError("mesh B: challenge_from_round != its plain version")
+        pad = lanes - MESH_CHAL_ROUNDS * V
+        ms_c = time_ms(lambda: chal(flat_idx, flat_r, m15, table.rows), 20)
+        plain_c = time_ms(lambda: wire.challenge_from_round_plain(
+            flat_idx, flat_r, m15, table.rows, V), 3)
+        b_c = bound_ms("ed25519_challenge", lanes, clock_mhz, sms, uniq=MESH_CHAL_ROUNDS + 1)[0]
+        print(f"mesh B sharded_chalwire_tally: lanes={lanes} ed25519_challenge_launches=1 "
+              f"ed25519_semiwire_launches=1 mask_equals_host_oracle=True "
+              f"counts_equal_leg_A=True ms={ms_b:.4f} all_reduce_share={ar_ms / ms_b:.4f} "
+              f"bound_ms={b_b:.6f} bound_by=operations bound_share={b_b / ms_b:.4f} "
+              f"cuda_kernels_per_call="
+              f"{_kernels_per_call(lambda: step_b(idx, r_rows, s_rows, m_round, *tab, vote, target, f))}",
+              flush=True)
+        print(f"mesh B challenge_from_round: rounds={MESH_CHAL_ROUNDS} lanes={lanes} "
+              f"zero_digest_lanes={pad} equals_plain=True max_abs_err=0 ms={ms_c:.4f} "
+              f"plain_ms={plain_c:.4f} bound_ms={b_c:.6f} bound_share={b_c / ms_c:.4f} "
+              f"cuda_kernels_per_call="
+              f"{_kernels_per_call(lambda: chal(flat_idx, flat_r, m15, table.rows))}",
+              flush=True)
+
+        leg("B")
+
+        # The sharded grid's update_and_tally at the main path's shape,
+        # beside the single-device grid, over one seeded settle sequence.
+        n, GR = GRID_N, GRID_R
+        rng = np.random.default_rng(SEED + 9)
+        sharded = votegrid.VoteGrid(n, V, r_slots=GR, mesh=mesh, device="cuda")
+        single = votegrid.VoteGrid(n, V, r_slots=GR, device="cuda")
+        for k in (4096, 0, GRID_ROWS, 900):
+            args = _scatter_args(rng, n, V, GR, k)
+            got_c, want_c = sharded.update_and_tally(*args), single.update_and_tally(*args)
+            for key in want_c:
+                if not np.array_equal(got_c[key], want_c[key]):
+                    raise AssertionError(f"mesh grid k={k}: {key} differs from one device")
+        scatter = _scatter_args(rng, n, V, GR, GRID_ROWS)
+        b_g = GRID_BYTES / HBM_BYTES_PER_S * 1e3
+        for label, grid in (("mesh", sharded), ("single", single)):
+            fn = lambda g=grid: g.update_and_tally(*scatter)["total"]  # noqa: E731
+            ms = time_ms(fn, 7)
+            print(f"mesh grid update_and_tally {label}: rows={GRID_ROWS} ms={ms:.4f} "
+                  f"bound_ms={b_g:.6f} bound_by=bytes bound_share={b_g / ms:.4f} "
+                  f"cuda_kernels_per_call={_kernels_per_call(fn)}", flush=True)
+        packed = torch.zeros((n, 2 * GR * 3 + 1), dtype=torch.int32, device=dev)
+        print(f"mesh grid: counts_equal_single_device=True steps=4 all_reduce_ms="
+              f"{all_reduce_ms(packed):.4f} (packed counts [{n}, {2 * GR * 3 + 1}] int32)",
+              flush=True)
+
+        leg("grid")
+
+        # Leg C: the main path with the sharded grid, then in turns with
+        # the single-device two-launch run (the same routing: propose
+        # settles on the host verifier).
+        main = dict(n=N_VALIDATORS, seed=1, target_height=HEIGHT, sign=True, burst=True,
+                    dedup_verify=True, device_tally=True)
+
+        def leg_c(sharded_grid: bool) -> dict:
+            views = []
+
+            def check(view, proc):
+                views.append(votegrid.CheckedTallyView(view, proc))
+                return views[-1]
+
+            kw = (dict(tally_mesh=mesh) if sharded_grid else
+                  dict(batch_verifier=_NoFused(TorchBatchVerifier(device="cuda")),
+                       small_window_host=True))
+            sim = Simulation(**main, **kw, tally_check=check)
+            sim.batch_verifier.warmup()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            res, got = counted(sim.run, keep=sharded_grid)
+            wall = time.perf_counter() - t
+            digest = res.commit_digest(up_to=HEIGHT)[:16]
+            settles = (sim.settle_passes, sim.vote_settles, sim.verified_sigs)
+            hits = sum(v.hits for v in views)
+            if (digest, res.steps, settles) != (MAIN_DIGEST, MAIN_STEPS, MAIN_SETTLES) \
+                    or not res.completed or not hits:
+                raise AssertionError(f"mesh C: {digest} {res.steps} {settles} hits={hits}")
+            routes = (sim.fused_settles, sim.tally_launches, sim.host_routed_settles)
+            if routes != (0, sim.settle_passes, 0) or sim._fused_ok:
+                raise AssertionError(f"mesh C: routes {routes}, want two launches a settle")
+            if set(got) != {"ed25519_verify"}:
+                raise AssertionError(f"mesh C: launched {got}")
+            return dict(wall=wall, launches=got["ed25519_verify"], grid_calls=sim.tally_launches,
+                        hits=hits, sharded=sim.vote_grid._group is not None)
+
+        walls = {True: [], False: []}
+        runs = [leg_c(s) for s in (True, False, False, True)]
+        for s, run in zip((True, False, False, True), runs):
+            walls[s].append(run["wall"])
+            if run["sharded"] != s:
+                raise AssertionError("mesh C: the grid was not the one asked for")
+        c = runs[0]
+        print(f"mesh C main path sharded grid: n={N_VALIDATORS} height={HEIGHT} "
+              f"digest={MAIN_DIGEST} steps={MAIN_STEPS} settles={MAIN_SETTLES[0]} "
+              f"vote_settles={MAIN_SETTLES[1]} verified_sigs={MAIN_SETTLES[2]} "
+              f"ed25519_verify_launches={c['launches']} grid_calls={c['grid_calls']} "
+              f"all_reduces={c['grid_calls']} tally_hits={c['hits']} "
+              f"wall_s_mesh={' '.join(f'{w:.3f}' for w in walls[True])} "
+              f"wall_s_single_two_launch={' '.join(f'{w:.3f}' for w in walls[False])} "
+              f"(in turns: mesh, single, single, mesh) "
+              f"single_launches={runs[1]['launches']} matches_invariant=True", flush=True)
+
+        leg("C")
+
+        # Leg D: make_sharded_step's example args count nothing.
+        step_d, example_args = parallel.make_sharded_step(mesh)
+        args = example_args(R, V)
+        (counts_d, flags_d, ok_d), got = counted(lambda: step_d(*args))
+        if int(counts_d["total"].sum()) or bool(flags_d["quorum_any"].any()) \
+                or bool(ok_d.any()) or got != {"ed25519_verify": 1}:
+            raise AssertionError(f"mesh D: zero signatures counted or launched {got}")
+        print(f"mesh D make_sharded_step: rounds={R} validators={V} zero_counts=True "
+              f"ed25519_verify_launches=1", flush=True)
+        leg("D")
+    finally:
+        dist.destroy_process_group()
+    print(f"mesh: launches={launches} legs_s="
+          + ",".join(f"{k}={v:.1f}" for k, v in legs.items())
+          + f" phase_s={time.perf_counter() - t0:.1f}", flush=True)
+    return launches
+
+
 def _timed(spent, depth, key, fn):
     # Outermost calls only: the packer calls itself on a dedup fan-out.
     def run(*args, **kwargs):
@@ -1893,7 +2200,7 @@ def phase_main_path() -> tuple:
     return launches, ref
 
 
-def phase_pairs(ref: dict, legs=None, pairs: int = 3) -> None:
+def phase_pairs(ref: dict, legs=None, pairs: int = 2) -> None:
     """Wall of two variants of the packed network in turns (a, b, b, a;
     ``pairs`` times), each run checked for the host digest: walls are
     compared only within one call. ``legs``: two (label, verifier,
@@ -3730,7 +4037,7 @@ C5_N, C5_PAYLOAD, C5_SEED, C5_TIMEOUT, C5_HEIGHTS = 256, 496, 1005, 20.0, 10
 #: 64-block launch, and a wide batch past the adaptive router's
 #: calibration point (512 blocks).
 SHAMIR_BLOCKS = (16, 64, 1024)
-RLC_SIZES = (64, 256, 1024, 4096)
+RLC_SIZES = (64, 4096)
 #: The main-path invariant (seed 1, n = 256, five heights).
 MAIN_DIGEST, MAIN_STEPS = "215413db54656240", 656_640
 
@@ -5317,6 +5624,8 @@ def main() -> int:
     lib, probe_lib = phase_card()
     phase_native()
     mark("card")
+    mesh_launches = phase_mesh(clock, sms)
+    mark("mesh")
     rows = {"ed25519_verify": phase_verify_kernel(clock, sms)}
     rows["ed25519_wire"], rows["ed25519_semiwire"], state = phase_wire_kernels(clock, sms)
     base = rows["ed25519_verify"][PATH_LANES]["ms"]
@@ -5370,7 +5679,7 @@ def main() -> int:
             "route": "cuda",
             "source": source,
             "replaces": replaces,
-            "launches": launches[name],
+            "launches": launches[name] + mesh_launches.get(name, 0),
             "max_abs_err": max(r["err"] for r in rows[name].values()),
             "ms": row["ms"],
             "plain_ms": row["plain_ms"],

@@ -182,12 +182,16 @@ consensus events, the settle layer's passes and launches, the queue's
 queue), and, through the device-fetch observer, every device-to-host
 copy (``fetch.sync``); a batch verifier with an unbound ``obs`` is bound
 to the sim's track. Journal and snapshot equal the JAX package's on the
-same run. The hooks inside the chaos monitor, the admission gates, the
-certifiers, the executors and the overlay runtime wait for a later
-slice.
+same run. The chaos monitor, the admission gates, the certifiers, the
+executors and the overlay runtime journal through the same recorder,
+with the reference's hooks.
 
-Not ported (a later slice of the port), and refused: the sharded grid
-(``tally_mesh``).
+``tally_mesh`` (a ("hr", "val") mesh of ranks from
+:func:`~hyperdrive_tpu_torch.parallel.mesh.make_mesh`) shards the vote
+grid's validator axis over the mesh: every rank runs the same
+deterministic network, scatters the rows of its validators and sums the
+quorum counts over the ``val`` group in every settle's grid call; such a
+run takes the two-launch settle (the fused settle is single-device).
 """
 
 from __future__ import annotations
@@ -619,6 +623,12 @@ class Simulation:
     the slots it bypasses; 0 = never. ``route_hysteresis`` N: when 95% of
     the last N routed settles went to the host, grid upkeep stops until a
     device-routed settle rebuilds it (0 = off).
+    ``tally_mesh``: a mesh of ranks
+    (:func:`~hyperdrive_tpu_torch.parallel.mesh.make_mesh`) to shard the
+    grid's validator axis over (the validator count must divide over its
+    ``val`` axis); the grid lives on the rank's mesh device, which
+    ``device`` must name, and every rank of the mesh must run the same
+    network (each settle's grid call is a collective).
 
     ``payload_bytes``, ``dedup_reconstruct`` (reconstruct each committed
     value once, not once per replica) and ``reconstructor``: the Shamir
@@ -732,15 +742,9 @@ class Simulation:
         catchup_lag: Optional[int] = None,
         observe: bool = False,
         obs_capacity: int = 65536,
+        tally_mesh=None,
         device="cuda",
-        **unported,
     ):
-        if unported:
-            raise NotImplementedError(
-                f"Simulation options {sorted(unported)} are not ported to "
-                "the PyTorch package yet (a later slice of the port): "
-                "tally_mesh needs the multi-device vote grid"
-            )
         #: The adversaries' one random stream: ``reorder`` draws once a
         #: lock-step delivery (or shuffles each superstep), ``drop_rate``
         #: once per non-timeout delivery, in the reference's order (one
@@ -1099,8 +1103,13 @@ class Simulation:
 
             # 4 round slots: the happy path plus three retry rounds on
             # device; deeper rounds fall back to the host counters.
+            # ``tally_mesh``: shard the grid's validator axis over the
+            # mesh's ranks (sharded consensus: every settle's scatter routes
+            # rows by global validator index and the counts sum over the
+            # mesh before the rule cascade reads them).
             self.vote_grid = VoteGrid(
-                n, len(self.signatories), r_slots=4, device=device
+                n, len(self.signatories), r_slots=4, mesh=tally_mesh,
+                device=device,
             )
             self._grid_height = [-1] * n
             self._grid_dirty: list[set] = [set() for _ in range(n)]
@@ -1116,6 +1125,7 @@ class Simulation:
             #: shared merge).
             self._fused_ok = (
                 self._shared_mode
+                and tally_mesh is None  # the fused launcher is single-device
                 and dedup_verify
                 and hasattr(bv, "fused_inner")
                 and hasattr(getattr(bv, "host", None), "pack")

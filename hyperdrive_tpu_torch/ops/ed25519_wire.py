@@ -23,6 +23,10 @@ Contents:
   :func:`challenge` and :func:`challenge_grouped`; kernels and wrappers
   in :mod:`hyperdrive_tpu_torch.ops.ed25519_cuda`), plus
   :func:`chalwire_verify_plain`;
+- :func:`challenge_from_round` (per-round digests broadcast to
+  round-major lanes, the sharded challenge step's leg) on the grouped
+  challenge kernel, its plain version and its cached wrapper
+  :func:`make_challenge_round_fn`;
 - :class:`ValidatorTable`, :class:`Ed25519WireHost` (the reference's
   packer: the native ``hd_pack_wire`` when it builds, else its
   pure-Python loop),
@@ -38,6 +42,7 @@ mod p (-1/d is a non-residue).
 
 from __future__ import annotations
 
+import functools
 import threading
 
 import numpy as np
@@ -61,6 +66,11 @@ __all__ = [
     "semiwire_verify_plain",
     "challenge",
     "challenge_grouped",
+    "MAX_ROUNDS",
+    "round_digest_index",
+    "challenge_from_round",
+    "challenge_from_round_plain",
+    "make_challenge_round_fn",
     "chalwire_verify_plain",
     "from_reference",
     "ValidatorTable",
@@ -175,6 +185,87 @@ def challenge_grouped(idx, r_rows, m_idx, m_uniq, trows) -> torch.Tensor:
     return challenge_scalar_device(
         r_rows, trows[idx.long()], m_uniq[m_idx.long()]
     )
+
+
+#: Most rounds :func:`challenge_from_round` takes: the grouped format's
+#: digest index is one byte, and row ``rounds`` of its digest table is the
+#: zero digest of the padding lanes.
+MAX_ROUNDS = 255
+
+
+def round_digest_index(lanes: int, rounds: int, lanes_per_round: int,
+                       device) -> torch.Tensor:
+    """uint8 [lanes]: each round-major lane's row in a digest table of
+    ``rounds + 1`` rows, ``lane // lanes_per_round`` for the first
+    ``rounds * lanes_per_round`` lanes and ``rounds`` (the zero digest)
+    for the padding lanes past them. Refuses more than :data:`MAX_ROUNDS`
+    rounds rather than wrap the byte."""
+    if not 0 <= rounds <= MAX_ROUNDS:
+        raise ValueError(f"{rounds} rounds: the one-byte digest index takes "
+                         f"at most {MAX_ROUNDS} (and the zero row)")
+    live = rounds * lanes_per_round
+    if lanes_per_round < 1 or lanes < live:
+        raise ValueError(f"{lanes} lanes for {rounds} rounds of "
+                         f"{lanes_per_round} lanes")
+    lane = torch.arange(lanes, device=device)
+    return torch.where(lane < live, lane // lanes_per_round, rounds).to(torch.uint8)
+
+
+def challenge_from_round(idx, r_rows, m_round, trows, lanes_per_round: int,
+                         m_idx=None) -> torch.Tensor:
+    """uint8 [B, 32]: the challenge leg from per-ROUND digests, lanes
+    round-major (lane = round * lanes_per_round + validator, the dense
+    consensus grid order): A gathered from ``trows`` ([V, 32]) by ``idx``
+    ([B] int32), M the lane's round digest from ``m_round`` ([R, 32]
+    uint8), k = SHA-512(R || A || M) mod L. Lanes past
+    ``R * lanes_per_round`` (bucket padding) hash a zero digest; the
+    caller's prevalid masks them.
+
+    The grouped challenge leg (``ed25519_cuda.challenge_grouped``: the
+    kernel on CUDA tensors, :func:`challenge_grouped` on CPU ones) on the
+    digest table ``m_round`` plus one all-zero row, indexed by
+    :func:`round_digest_index` (pass it as ``m_idx`` to reuse it). Every
+    index lies inside the table. The plain version, in the reference's own
+    form (digests repeated to lanes, zero rows appended), is
+    :func:`challenge_from_round_plain`."""
+    from hyperdrive_tpu_torch.ops import ed25519_cuda
+
+    rounds = m_round.shape[0]
+    if m_idx is None:
+        m_idx = round_digest_index(r_rows.shape[0], rounds, lanes_per_round,
+                                   r_rows.device)
+    m_uniq = torch.cat([m_round, m_round.new_zeros((1, 32))])
+    return ed25519_cuda.challenge_grouped(idx, r_rows, m_idx, m_uniq, trows)
+
+
+def challenge_from_round_plain(idx, r_rows, m_round, trows,
+                               lanes_per_round: int) -> torch.Tensor:
+    """The plain version of :func:`challenge_from_round`: per-lane digest
+    rows built as the reference builds them (each round's digest repeated
+    ``lanes_per_round`` times, zero rows to the batch width), through the
+    per-lane :func:`challenge`."""
+    m = m_round.repeat_interleave(lanes_per_round, dim=0)
+    pad = r_rows.shape[0] - m.shape[0]
+    if pad < 0:
+        raise ValueError(f"{r_rows.shape[0]} lanes for {m.shape[0]} round lanes")
+    return challenge(idx, r_rows, torch.cat([m, m.new_zeros((pad, 32))]), trows)
+
+
+@functools.lru_cache(maxsize=None)
+def make_challenge_round_fn(validators: int):
+    """Cached :func:`challenge_from_round` at a fixed validator count:
+    ``chal(idx, r_rows, m_round, trows)`` on the device of its inputs,
+    with each (lanes, rounds, device)'s digest index built once."""
+    m_idx: dict = {}
+
+    def chal(idx, r_rows, m_round, trows):
+        key = (r_rows.shape[0], m_round.shape[0], r_rows.device)
+        got = m_idx.get(key)
+        if got is None:
+            got = m_idx[key] = round_digest_index(key[0], key[1], validators, key[2])
+        return challenge_from_round(idx, r_rows, m_round, trows, validators, got)
+
+    return chal
 
 
 def chalwire_verify_plain(idx, r_rows, s_rows, m_rows,

@@ -9,8 +9,9 @@ in-flight rounds at once.
 
 Port of ``hyperdrive_tpu/ops/tally.py``: the packers stay numpy (``<i4``
 words, so a value byte of 0x80 or more gives a negative word), the counts
-are PyTorch ops on tensors of any device. The sharded ``psum`` variant is
-not ported yet (single device only).
+are PyTorch ops on tensors of any device. The sharded steps sum these
+counts over a mesh's ``val`` group
+(:mod:`hyperdrive_tpu_torch.parallel.mesh`).
 """
 
 from __future__ import annotations

@@ -24,16 +24,22 @@ Capacity: round slots cover rounds ``0..R-1`` of each replica's current
 height. Rounds beyond the window are not covered; the cascade falls back
 to the host counters for those rounds, which remain authoritative.
 
-Port of ``hyperdrive_tpu/ops/votegrid.py`` on a single device. The three
-device programs (``_kernel``, ``_tally``, ``_fused_kernel``) are PyTorch
-ops; inside the fused path the signatures are verified by the verify
-callable the caller attaches (``TorchBatchVerifier.fused_inner``: the
-hand-written row 1 kernel on a CUDA tensor), on the same stream as the
-merge, with no host round trip between them. Differences from the
-reference: ``mesh=`` (the validator-sharded grid) is not ported and
-raises ``NotImplementedError``; the scatter keeps only the ``valid`` rows
-where XLA dropped out-of-range ones (``mode="drop"``), because PyTorch
-raises on an out-of-range index; every launch's host inputs go up in one
+Port of ``hyperdrive_tpu/ops/votegrid.py``. The three device programs
+(``_kernel``, ``_tally``, ``_fused_kernel``) are PyTorch ops; inside the
+fused path the signatures are verified by the verify callable the caller
+attaches (``TorchBatchVerifier.fused_inner``: the hand-written row 1
+kernel on a CUDA tensor), on the same stream as the merge, with no host
+round trip between them. ``mesh=`` (a ("hr", "val") mesh of ranks from
+:func:`~hyperdrive_tpu_torch.parallel.mesh.make_mesh`) shards the
+validator axis: each rank holds ``[n, 2, R, V/val, ...]``, keeps the
+scatter rows of its own validator range, and sums the partial counts over
+the ``val`` group with one all-reduce inside every
+:meth:`VoteGrid.update_and_tally` call (never at the deferred fetch, which
+a rank skips when no rule reads its counts). Differences from the
+reference: the sharded grid sums the packed counts in one all-reduce
+where the reference has four ``psum``; the scatter keeps only the
+``valid`` rows where XLA dropped out-of-range ones (``mode="drop"``),
+because PyTorch raises on an out-of-range index; every launch's host inputs go up in one
 copy; the unused ``f`` argument of ``_kernel``/``_tally`` is gone (quorum
 flags are derived on the host, as in the reference, from an ``f`` that
 stays on the host, so the reference's ``"f rides the count fetch"``
@@ -138,7 +144,7 @@ class TallyView:
 
 
 def _kernel(values, present, reset, idx, words, valid,
-            targets, target_valid, l28_slot, l28_target):
+            targets, target_valid, l28_slot, l28_target, v_lo=None):
     """One scatter + tally step, updating ``values`` and ``present`` in
     place; returns the packed counts (see :func:`_tally`).
 
@@ -150,8 +156,16 @@ def _kernel(values, present, reset, idx, words, valid,
     (valid-round slot for the L28 cross-round count, or -1), l28_target
     [n,8] int32 (the *current* round's proposal value). The host
     guarantees at most one valid row per lane.
+
+    Sharded mode (``v_lo`` set): V is this rank's shard, the rows carry
+    GLOBAL validator indices, and the rank keeps only the rows of its
+    range ``[v_lo, v_lo + V)``.
     """
     n, _, R, V, _ = values.shape
+    if v_lo is not None:
+        vloc = idx[:, 3] - v_lo
+        valid = valid & (vloc >= 0) & (vloc < V)
+        idx = torch.cat([idx[:, :3], vloc[:, None]], dim=1)
     present.logical_and_(~reset[:, None, None, None])
     idx = idx[valid].long()
     lane = ((idx[:, 0] * 2 + idx[:, 1]) * R + idx[:, 2]) * V + idx[:, 3]
@@ -319,32 +333,58 @@ class VoteGrid:
     Memory: ``values [n, 2, R, V, 8] int32`` + ``present [n, 2, R, V]
     bool`` = ``n * 2 * R * V * 33`` bytes; 17.3 MB at n = V = 256, R = 4.
     The n × V product is a simulation artifact (one process carrying every
-    replica's grid); a deployed replica holds n = 1.
+    replica's grid); a deployed replica holds n = 1. ``mesh=`` shards the
+    VALIDATOR axis over the mesh's ``val_axis`` (V must divide evenly):
+    each rank holds V/val validators' lanes on its mesh device, scatter
+    rows route by global index, counts sum over the axis; the fused path
+    is single-device.
     """
 
     def __init__(self, n_replicas: int, n_validators: int, r_slots: int = 8,
                  buckets: tuple = (256, 1024, 4096, 16384),
-                 mesh=None, device=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "the validator-sharded vote grid (mesh=) is not ported to "
-                "the PyTorch package yet (a later slice of the port)"
-            )
+                 mesh=None, val_axis: str = "val", device=None):
         self.n = n_replicas
         self.V = n_validators
         self.R = r_slots
-        self.device = _resolve_device(device)
         self._all_slots = frozenset(
             (p, r) for p in (0, 1) for r in range(r_slots)
         )
         self.buckets = tuple(sorted(buckets))
         self._fused = None
+        self._mesh = mesh
+        #: This rank's validator range [_v_lo, _v_lo + _v_local) and the
+        #: process group its partial counts sum over (None: one device).
+        self._v_lo, self._v_local, self._group = 0, n_validators, None
+        if mesh is None:
+            self.device = _resolve_device(device)
+        else:
+            # The validator axis shards over `val_axis`: each rank owns its
+            # validators' grid lanes, scatter rows route by global index,
+            # counts sum over the axis's group. Everything else (reset
+            # masks, targets, counts) is the same on every rank.
+            from hyperdrive_tpu_torch.parallel.mesh import axis_group, mesh_device
+
+            d = mesh.shape[mesh.mesh_dim_names.index(val_axis)]
+            if n_validators % d:
+                raise ValueError(
+                    f"validators ({n_validators}) must divide evenly over "
+                    f"the '{val_axis}' axis ({d} devices)"
+                )
+            self.device = mesh_device(mesh)
+            want = None if device is None else torch.device(device)
+            if want is not None and (want.type != self.device.type or want.index
+                                     not in (None, self.device.index)):
+                raise ValueError(f"device {device} is not this rank's mesh "
+                                 f"device {self.device}")
+            self._v_local = n_validators // d
+            self._v_lo = mesh.get_local_rank(val_axis) * self._v_local
+            self._group = axis_group(mesh, val_axis)
         self._values = torch.zeros(
-            (n_replicas, 2, r_slots, n_validators, 8), dtype=torch.int32,
+            (n_replicas, 2, r_slots, self._v_local, 8), dtype=torch.int32,
             device=self.device,
         )
         self._present = torch.zeros(
-            (n_replicas, 2, r_slots, n_validators), dtype=torch.bool,
+            (n_replicas, 2, r_slots, self._v_local), dtype=torch.bool,
             device=self.device,
         )
 
@@ -387,7 +427,11 @@ class VoteGrid:
     def attach_fused(self, inner_factory) -> None:
         """Install the batch-verify factory (``batch -> verify callable``,
         e.g. ``TorchBatchVerifier.fused_inner``) and enable
-        :meth:`fused_update_and_tally`."""
+        :meth:`fused_update_and_tally` (single-device grids only: a
+        sharded grid keeps the two-launch path)."""
+        if self._mesh is not None:
+            raise ValueError("fused path is single-chip; sharded grids "
+                             "use update_and_tally")
         self._fused = inner_factory
 
     def fused_update_and_tally(self, verify_arrays, upd_lane, upd_vals,
@@ -451,6 +495,12 @@ class VoteGrid:
         settle), f [n] int32. The rows are padded to a bucket of
         :attr:`buckets`. Returns a :class:`LazyCounts` (dict-like; the
         device-to-host copy happens on first key access).
+
+        On a sharded grid ``idx`` carries GLOBAL validator indices: each
+        rank keeps the rows of its own range, and the partial counts sum
+        over the ``val`` group in one all-reduce launched here, on every
+        call, so every rank joins it whether or not a rule later reads
+        the counts.
         """
         k = len(idx)
         b = self.bucket_for(max(k, 1))
@@ -470,7 +520,12 @@ class VoteGrid:
         packed = _kernel(
             self._values, self._present, reset_t.bool(), idx_t, words_t,
             valid_t.bool(), targets_t, tvalid_t.bool(), l28s_t, l28t_t,
+            v_lo=None if self._group is None else self._v_lo,
         )
+        if self._group is not None:
+            import torch.distributed as dist
+
+            dist.all_reduce(packed, group=self._group)
         return LazyCounts(packed, self.n, self.R, np.asarray(f))
 
 

@@ -262,8 +262,22 @@ def test_knobs_take_the_reference_defaults_and_errors():
                dict(record=False), dict(catchup_every=4), dict(catchup_lag=2)):
         kw.setdefault("burst", True)
         Simulation(n=4, target_height=1, **kw)
-    with pytest.raises(NotImplementedError):
-        Simulation(n=4, target_height=1, burst=True, tally_mesh=object())
+    # The sharded grid is ported: a validator count that does not divide
+    # over the mesh's 'val' axis raises the reference's ValueError in both
+    # packages (a 1 x 2 mesh: the check comes before any collective).
+    import types
+
+    from hyperdrive_tpu.parallel import make_mesh as ref_make_mesh
+
+    two = types.SimpleNamespace(shape=(1, 2), mesh_dim_names=("hr", "val"))
+    with pytest.raises(ValueError, match="divide evenly"):
+        Simulation(n=5, target_height=1, burst=True, device_tally=True, tally_mesh=two,
+                   device="cpu")
+    import jax
+
+    with pytest.raises(ValueError, match="divide evenly"):
+        RefSimulation(n=5, target_height=1, burst=True, device_tally=True,
+                      tally_mesh=ref_make_mesh(devices=jax.devices()[:2], hr=1))
     # The recorder's options are ported: observe keeps a ring of the
     # default size, obs_capacity alone keeps recording off.
     sim = Simulation(n=4, target_height=1, burst=True, observe=True)

@@ -52,6 +52,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                  "exec.ledger", "exec.device", "crypto.bls", "ops.limbs", "ops.fp381",
                  "ops.g1", "ops.g1_cuda", "batch", "campaign", "campaign.record",
                  "campaign.families", "campaign.runner", "parallel", "parallel.service",
+                 "parallel.mesh", "parallel.multihost",
                  "obs", "obs.recorder", "obs.metrics", "obs.devtel", "obs.perfetto",
                  "obs.report", "obs.slo", "analysis", "analysis.annotations",
                  "utils.trace"):

@@ -213,11 +213,12 @@ def test_lockstep_refusals(kw, match):
 @pytest.mark.parametrize("opt", ["tally_mesh", "observe", "obs_capacity", "chaos", "load",
                                  "overlay", "catchup_every", "catchup_lag"])
 def test_unported_subsystems_refused_with_reason(opt):
-    # The recorder's options, chaos, load, the overlay and the laggard
-    # sweep are ported: the recorder's cases run both packages; the other
-    # cases are the reference's ValueErrors (chaos or an overlay in burst
-    # mode, load without delivery pacing, a sweep every 0 steps, a negative
-    # lag), raised by both packages.
+    # The recorder's options, chaos, load, the overlay, the laggard sweep
+    # and the sharded grid are ported: the recorder's and the mesh's cases
+    # run both packages; every case checks the reference's ValueErrors
+    # (chaos or an overlay in burst mode, load without delivery pacing, a
+    # sweep every 0 steps, a negative lag, device tallies in lock-step),
+    # raised by both packages.
     lifted = {
         "chaos": (dict(chaos=FaultPlan(), burst=True), dict(chaos=RefFaultPlan(), burst=True),
                   "lock-step"),
@@ -240,16 +241,21 @@ def test_unported_subsystems_refused_with_reason(opt):
         assert len(got.obs) == len(ref.obs) and (len(got.obs) > 0) == (opt == "observe")
         assert got.obs.digest() == ref.obs.digest()
         return
-    if opt in lifted:
-        kw, ref_kw, match = lifted[opt]
-        with pytest.raises(ValueError, match=match):
-            Simulation(n=4, target_height=2, device="cpu", **kw)
-        with pytest.raises(ValueError, match=match):
-            RefSimulation(n=4, target_height=2, **ref_kw)
-        return
-    with pytest.raises(NotImplementedError, match=opt) as e:
-        Simulation(n=4, target_height=2, **{opt: 1})
-    assert "later slice" in str(e.value)
+    if opt == "tally_mesh":
+        # The sharded grid is ported. Without device tallies both packages
+        # ignore the mesh (the lock-step run equals the JAX run); device
+        # tallies in lock-step raise the reference's ValueError in both.
+        got = Simulation(n=4, target_height=2, device="cpu", tally_mesh=object()).run()
+        ref = RefSimulation(n=4, target_height=2, tally_mesh=object()).run()
+        assert (got.commit_digest(up_to=2), got.steps) == (ref.commit_digest(up_to=2),
+                                                           ref.steps)
+        lifted[opt] = (dict(device_tally=True, tally_mesh=object()),
+                       dict(device_tally=True, tally_mesh=object()), "burst=True")
+    kw, ref_kw, match = lifted[opt]
+    with pytest.raises(ValueError, match=match):
+        Simulation(n=4, target_height=2, device="cpu", **kw)
+    with pytest.raises(ValueError, match=match):
+        RefSimulation(n=4, target_height=2, **ref_kw)
 
 
 def test_devsched_parity_cli(capsys):

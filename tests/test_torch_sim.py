@@ -83,8 +83,24 @@ def test_host_baseline_and_default_routing_match_reference(seed, monkeypatch):
 
 
 def test_unported_options_are_refused():
-    with pytest.raises(NotImplementedError):
-        Simulation(n=4, target_height=1, burst=True, tally_mesh=object())
+    # The sharded grid is ported: on a 1 x 1 gloo mesh (a world-size-1
+    # group) the run equals the single-device grid's, counts checked.
+    import torch.distributed as dist
+
+    from hyperdrive_tpu_torch.parallel import make_mesh
+
+    mesh = make_mesh(device="cpu")
+    try:
+        kw = dict(n=4, target_height=2, burst=True, device_tally=True,
+                  tally_check=CheckedTallyView, device="cpu")
+        sharded = Simulation(**kw, tally_mesh=mesh)
+        single = Simulation(**kw)
+        assert not sharded._fused_ok and sharded.vote_grid._group is not None
+        a, b = sharded.run(), single.run()
+        assert a.commit_digest(up_to=2) == b.commit_digest(up_to=2) and a.steps == b.steps
+        assert sharded.tally_launches == single.tally_launches > 0
+    finally:
+        dist.destroy_process_group()
     # The flight recorder is ported: an observed run journals its events.
     observed = Simulation(n=4, target_height=1, burst=True, observe=True)
     assert observed.run().completed and len(observed.obs) > 0

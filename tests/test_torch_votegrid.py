@@ -320,8 +320,20 @@ def test_lazy_counts_defer_the_copy_and_grids_default_to_the_card():
     assert lazy["quorum_any"][1].all() and not lazy["quorum_any"][0, 0, 0]
     with pytest.raises(KeyError):
         lazy["nope"]
-    with pytest.raises(NotImplementedError):
-        vg.VoteGrid(4, 4, mesh=object(), device="cpu")
+    # The sharded grid is ported: a validator count that does not divide
+    # over the mesh's 'val' axis raises the reference's ValueError in both
+    # packages (a 1 x 2 mesh: the check comes before any collective).
+    import types
+
+    import jax
+
+    from hyperdrive_tpu.parallel import make_mesh as ref_make_mesh
+
+    with pytest.raises(ValueError, match="divide evenly"):
+        vg.VoteGrid(4, 5, mesh=types.SimpleNamespace(shape=(1, 2), mesh_dim_names=(
+            "hr", "val")), device="cpu")
+    with pytest.raises(ValueError, match="divide evenly"):
+        ref_vg.VoteGrid(4, 5, mesh=ref_make_mesh(devices=jax.devices()[:2], hr=1))
     with pytest.raises(RuntimeError, match="attach_fused"):
         vg.VoteGrid(1, 1, device="cpu").fused_update_and_tally(
             _verify_arrays(1), *([None] * 9))
