@@ -25,7 +25,11 @@ Phases, each printing its lines:
    ``ed25519_challenge`` and ``ed25519_semiwire`` (B) a call, ms a call,
    the all-reduce's share, bound and CUDA kernels a call;
    ``challenge_from_round`` at 15 rounds in the 4,096-lane bucket against
-   its plain version (zero-digest padding lanes included); the sharded
+   its plain version (zero-digest padding lanes included), and past 255
+   rounds: 256 rounds x 16 validators (a full 256-row digest table, the
+   grouped form) and 300 rounds x 8 (301 rows with the zero row, the
+   per-lane form), each one counted ``ed25519_challenge`` launch equal
+   byte for byte to the plain version; the sharded
    ``VoteGrid``'s counts against the single-device grid's over a seeded
    settle sequence and both grids' ``update_and_tally`` time; (C) the main
    path with ``tally_mesh`` on the invariant, every count checked
@@ -360,9 +364,23 @@ Phases, each printing its lines:
    network traced as four deployment workers of one replica each on the
    chal route (rows 3 and 4, 10 heights), the four journals they save
    merged with no orphaned ``trace.recv``.
+22. the CLIs (``phase_cli``, lines ``cli``; after phase 18, before phase
+   19): each ``python -m hyperdrive_tpu_torch.<sub>`` called in process
+   through its ``main(argv)`` on the card, at small shapes: ``obs metrics
+   --pipeline`` (n = 4, 5 heights; row 1) with ``record``, ``report``,
+   ``export`` and ``benchdiff`` on its outputs; ``campaign run --family
+   all`` at 64 validators (row 1, its stdout equal to the ``--device
+   cpu`` run's) and ``replay`` of the storm's dump; ``ops msm-parity
+   --rlc`` (row 1) and ``ops bls-parity --n 8`` (row 5); ``exec parity
+   --pipelined`` (its signed legs verified by row 1, none on the host)
+   and ``exec prove``; ``parallel serve --tenants 4 --heights 4
+   --verifier device --remote-tenants 1`` (row 1). Each must exit 0 with
+   every "ok" line of the reference; each CLI's wall and its launches of
+   rows 1 and 5.
 
-Each path of phases 1b, 5, 6, 7, 8, 10, 11, 12, 15, 16, 17, 18, 20 and 21 is
-driven with the kernel counts set to 0 just before it and read just after.
+Each path of phases 1b, 5, 6, 7, 8, 10, 11, 12, 15, 16, 17, 18, 20, 21 and
+22 is driven with the kernel counts set to 0 just before it and read just
+after.
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``. Any failed check raises, so the script
@@ -1645,6 +1663,11 @@ MESH_CORRUPT = frozenset({(0, 3), (5, 200), (9, 17), (15, 255)})
 #: ``challenge_from_round``'s check: 15 rounds x 256 lanes in a 4,096-lane
 #: bucket, so its last 256 lanes hash the zero digest.
 MESH_CHAL_ROUNDS = 15
+#: ``challenge_from_round`` past 255 rounds in the 4,096-lane bucket:
+#: (rounds, validators). 256 x 16 fills the bucket (no zero row: a full
+#: 256-row table, the grouped form); 300 x 8 pads it (301 rows: the
+#: per-lane form).
+MESH_C1_SHAPES = ((256, 16), (300, 8))
 
 
 def _grid_items(ring, rounds: int, validators: int, digest_of, corrupt) -> list:
@@ -1795,7 +1818,8 @@ def phase_mesh(clock_mhz: float, sms: int) -> dict:
         if any(not torch.equal(counts_a[k], counts_b[k]) for k in counts_a):
             raise AssertionError("mesh B: counts differ from leg A's")
         ms_b = time_ms(lambda: step_b(idx, r_rows, s_rows, m_round, *tab, vote, target, f), 7)
-        b_b = (bound_ms("ed25519_challenge", lanes, clock_mhz, sms, uniq=R + 1)[0]
+        b_b = (bound_ms("ed25519_challenge", lanes, clock_mhz, sms,
+                        uniq=wire.digest_table_rows(lanes, R, V))[0]
                + bound_ms("ed25519_semiwire", lanes, clock_mhz, sms)[0])
         # challenge_from_round at 15 rounds in the 4,096-lane bucket against
         # its plain version (the reference's repeat-and-pad form).
@@ -1810,7 +1834,8 @@ def phase_mesh(clock_mhz: float, sms: int) -> dict:
         ms_c = time_ms(lambda: chal(flat_idx, flat_r, m15, table.rows), 20)
         plain_c = time_ms(lambda: wire.challenge_from_round_plain(
             flat_idx, flat_r, m15, table.rows, V), 3)
-        b_c = bound_ms("ed25519_challenge", lanes, clock_mhz, sms, uniq=MESH_CHAL_ROUNDS + 1)[0]
+        b_c = bound_ms("ed25519_challenge", lanes, clock_mhz, sms,
+                       uniq=wire.digest_table_rows(lanes, MESH_CHAL_ROUNDS, V))[0]
         print(f"mesh B sharded_chalwire_tally: lanes={lanes} ed25519_challenge_launches=1 "
               f"ed25519_semiwire_launches=1 mask_equals_host_oracle=True "
               f"counts_equal_leg_A=True ms={ms_b:.4f} all_reduce_share={ar_ms / ms_b:.4f} "
@@ -1824,6 +1849,31 @@ def phase_mesh(clock_mhz: float, sms: int) -> dict:
               f"cuda_kernels_per_call="
               f"{_kernels_per_call(lambda: chal(flat_idx, flat_r, m15, table.rows))}",
               flush=True)
+        # Past 255 rounds: each shape one counted launch, byte for byte
+        # its plain version.
+        gen = torch.Generator().manual_seed(SEED + 21)
+        for rounds, v in MESH_C1_SHAPES:
+            m_c1 = torch.randint(0, 256, (rounds, 32), dtype=torch.uint8,
+                                 generator=gen).to(dev)
+            idx_c1 = (torch.arange(lanes, device=dev) % v).to(torch.int32)
+            chal_c1 = wire.make_challenge_round_fn(v)
+            k_c1, got = counted(lambda: chal_c1(idx_c1, flat_r, m_c1, table.rows))
+            if got != {"ed25519_challenge": 1}:
+                raise AssertionError(f"mesh B C1 {rounds}x{v}: launched {got}")
+            k_plain = wire.challenge_from_round_plain(idx_c1, flat_r, m_c1, table.rows, v)
+            if not torch.equal(k_c1, k_plain):
+                raise AssertionError(f"mesh B C1 {rounds}x{v}: challenge_from_round != "
+                                     "its plain version")
+            t_rows = wire.digest_table_rows(lanes, rounds, v)
+            grouped = wire.grouped_digest_index(lanes, rounds, v, "cpu") is not None
+            ms_c1 = time_ms(lambda: chal_c1(idx_c1, flat_r, m_c1, table.rows), 20)
+            b_c1, by_c1 = bound_ms("ed25519_challenge", lanes, clock_mhz, sms,
+                                   uniq=t_rows if grouped else 0)
+            print(f"mesh B challenge_from_round C1: rounds={rounds} validators={v} "
+                  f"lanes={lanes} table_rows={t_rows} "
+                  f"form={'grouped' if grouped else 'per-lane'} ed25519_challenge_launches=1 "
+                  f"equals_plain=True max_abs_err=0 ms={ms_c1:.4f} bound_ms={b_c1:.6f} "
+                  f"bound_by={by_c1} bound_share={b_c1 / ms_c1:.4f}", flush=True)
 
         leg("B")
 
@@ -4806,6 +4856,150 @@ def _g1_alone_ms(args, want) -> float:
     return ms
 
 
+#: ``phase_cli``'s campaign shape: the reference CLI's families at 64
+#: validators (committee 16, 4 attackers, 2 epochs of 2 waves).
+def phase_cli() -> dict:
+    """The ported CLIs on the card (lines ``cli``): each ``main(argv)`` in
+    process with the default ``--device`` (the card), at small shapes and
+    ``campaign run`` at the CLI's defaults; exit
+    code 0 and every "ok" line of the reference; the launches of rows 1
+    (``ed25519_verify``) and 5 (``g1_aggregate``) a CLI, counted from 0
+    just before it. ``exec parity``'s signed legs must verify on the card:
+    no ``HostVerifier`` call in it. Returns the launches by row."""
+    import contextlib
+    import io
+    import shutil
+    import tempfile
+
+    from hyperdrive_tpu_torch.campaign.__main__ import main as campaign_main
+    from hyperdrive_tpu_torch.exec.__main__ import main as exec_main
+    from hyperdrive_tpu_torch.obs.__main__ import main as obs_main
+    from hyperdrive_tpu_torch.ops import ed25519_cuda, g1_cuda
+    from hyperdrive_tpu_torch.ops.__main__ import main as ops_main
+    from hyperdrive_tpu_torch.parallel.__main__ import main as parallel_main
+    from hyperdrive_tpu_torch.verifier import HostVerifier
+
+    launches = {"ed25519_verify": 0, "g1_aggregate": 0}
+    host_calls = []
+    real_host = HostVerifier.verify_signatures
+
+    def host_spy(self, items):
+        host_calls.append(len(items))
+        return real_host(self, items)
+
+    def run(name, main, argv, oks=(), need=()):
+        """One CLI: its stdout, after checking its exit code, its "ok"
+        lines (``oks``: substrings each of some line) and the rows in
+        ``need`` launched."""
+        ed25519_cuda.reset_stats()
+        g1_cuda.reset_stats()
+        out, err = io.StringIO(), io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            rc = main(argv)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = {"ed25519_verify": ed25519_cuda.stats["ed25519_verify"].launches,
+               "g1_aggregate": g1_cuda.stats["g1_aggregate"].launches}
+        text = out.getvalue()
+        missing = [k for k in oks if k not in text]
+        if rc != 0 or missing:
+            raise AssertionError(f"cli {name}: rc={rc} missing {missing}\n{text}\n"
+                                 f"{err.getvalue()}")
+        for row in need:
+            if not got[row]:
+                raise AssertionError(f"cli {name}: {row} launched no time")
+        for row in launches:
+            launches[row] += got[row]
+        print(f"cli {name}: rc=0 ok_lines={len(oks)} wall_s={wall:.3f} "
+              f"ed25519_verify_launches={got['ed25519_verify']} "
+              f"g1_aggregate_launches={got['g1_aggregate']}", flush=True)
+        return text
+
+    build = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                         "hyperdrive_tpu_torch", "_build")
+    os.makedirs(build, exist_ok=True)
+    tmp = tempfile.mkdtemp(prefix="cli-", dir=build)
+    t_phase = time.perf_counter()
+    try:
+        def path(name):
+            return os.path.join(tmp, name)
+
+        # obs: the pipelined sim's registry on the card, then the host tools
+        # on what it and a recorded run wrote.
+        text = run("obs metrics --pipeline", obs_main,
+                   ["metrics", "--pipeline", "--replicas", "4", "--heights", "5",
+                    "-o", path("snap.json"), "--prometheus", path("metrics.prom")],
+                   ['"completed": true'], need=("ed25519_verify",))
+        snap = json.loads(open(path("snap.json")).read())
+        if snap["counters"].get("devtel.launches", 0) < 1:
+            raise AssertionError(f"cli obs metrics: devtel.launches missing ({text})")
+        run("obs record", obs_main, ["record", "-o", path("journal.json")],
+            ['"completed": true'])
+        run("obs report", obs_main, ["report", path("journal.json")], ["commits ·"])
+        run("obs export", obs_main, ["export", path("journal.json"), "-o",
+                                     path("trace.json")], ['"trace": '])
+        run("obs benchdiff", obs_main, ["benchdiff", path("snap.json"), path("snap.json")],
+            ["PASS"])
+
+        # campaign: the three families on the card at the CLI's defaults
+        # (1,024 validators), equal to the CPU run; the storm's dump replayed.
+        argv = ["run", "--family", "all", "--dump-ok", path("dumps")]
+        text = run("campaign run", campaign_main, argv,
+                   ["campaign storm", "campaign capture", "campaign coincidence"],
+                   need=("ed25519_verify",))
+        if text.count(" ok\n") != 3:
+            raise AssertionError(f"cli campaign run: not three clean families\n{text}")
+        with contextlib.redirect_stdout(io.StringIO()) as cpu_out:
+            campaign_main(argv[:-1] + [path("dumps-cpu"), "--device", "cpu"])
+        if cpu_out.getvalue().replace("dumps-cpu", "dumps") != text:
+            raise AssertionError("cli campaign run: the card's stdout differs from the CPU's")
+        storm = next(f for f in sorted(os.listdir(path("dumps")))
+                     if f.startswith("campaign-storm") and f.endswith(".bin"))
+        run("campaign replay", campaign_main,
+            ["replay", os.path.join(path("dumps"), storm)], ["digest-identical"],
+            need=("ed25519_verify",))
+
+        # ops: the MSM with the RLC leg (row 1), BLS at 8 lanes (row 5).
+        run("ops msm-parity --rlc", ops_main, ["msm-parity", "--rlc"],
+            ["ok msm-kernel", "ok rlc-msm", "msm parity ok"], need=("ed25519_verify",))
+        run("ops bls-parity", ops_main, ["bls-parity", "--n", "8"],
+            ["ok fp381-mul", "ok g1-msm", "ok g1-aggregate", "ok bls-e2e", "bls parity ok"],
+            need=("g1_aggregate",))
+
+        # exec: the signed legs' masks from the card, none from the host.
+        HostVerifier.verify_signatures = host_spy
+        try:
+            run("exec parity --pipelined", exec_main, ["parity", "--pipelined"],
+                ["ok exec-apply", "ok exec-signed", "ok exec-insolvent", "ok exec-pipelined:",
+                 "ok exec-pipelined-signed", "exec parity ok"], need=("ed25519_verify",))
+        finally:
+            HostVerifier.verify_signatures = real_host
+        if host_calls:
+            raise AssertionError(f"cli exec parity: {len(host_calls)} host verifications")
+        run("exec prove", exec_main, ["prove"], ["ok prove", "exec prove ok"])
+
+        # parallel: the multi-tenant service on its default verifier (the
+        # card), one remote tenant in a child process over TCP; --parity
+        # re-runs every tenant on a dedicated service and holds the commit
+        # digests equal.
+        text = run("parallel serve", parallel_main,
+                   ["serve", "--tenants", "4", "--heights", "4", "--remote-tenants", "1",
+                    "--parity", "--json"], ['"completed": true', '"parity_ok": true'],
+                   need=("ed25519_verify",))
+        summary = json.loads(text)
+        child = summary["remote"]["children"]
+        if (len(child) != 1 or not child[0]["done"] or summary["launches"] < 1
+                or summary["verifier"] != "device" or not summary["parity_ok"]):
+            raise AssertionError(f"cli parallel serve: {summary}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print(f"cli: wall_s={time.perf_counter() - t_phase:.3f} "
+          f"ed25519_verify_launches={launches['ed25519_verify']} "
+          f"g1_aggregate_launches={launches['g1_aggregate']}", flush=True)
+    return launches
+
+
 def phase_bls(clock_mhz: float, sms: int):
     """BLS12-381 on the card: fp381.mul against Python ints; the g1_aggregate
     kernel against its plain version at the bench's widths, edge lanes, odd
@@ -5666,6 +5860,8 @@ def main() -> int:
     mark("certs")
     phase_exec()
     mark("exec")
+    cli_launches = phase_cli()
+    mark("cli")
     rows["g1_aggregate"], launches["g1_aggregate"] = phase_bls(clock, sms)
     mark("bls")
     print("phases_s: " + " ".join(f"{name}={t - marks[i][1]:.1f}"
@@ -5679,7 +5875,8 @@ def main() -> int:
             "route": "cuda",
             "source": source,
             "replaces": replaces,
-            "launches": launches[name] + mesh_launches.get(name, 0),
+            "launches": (launches[name] + mesh_launches.get(name, 0)
+                         + cli_launches.get(name, 0)),
             "max_abs_err": max(r["err"] for r in rows[name].values()),
             "ms": row["ms"],
             "plain_ms": row["plain_ms"],

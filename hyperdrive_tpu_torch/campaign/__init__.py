@@ -39,8 +39,8 @@ trajectory bit for bit. The batch verify of the storm and coincidence
 families runs the ``ed25519_verify`` kernel through a card
 ``TorchBatchVerifier`` (``device="cpu"``: a ``HostVerifier``); the
 summary, and so the digest, is the same either way. Everything else is
-host-side numpy. The campaign CLI (``python -m hyperdrive_tpu.campaign``)
-is not ported yet.
+host-side numpy. The CLI is ``python -m hyperdrive_tpu_torch.campaign``
+(``run``/``replay``, ``--device``).
 """
 
 from __future__ import annotations

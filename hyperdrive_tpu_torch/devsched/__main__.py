@@ -20,8 +20,10 @@ byte-identical chains or exit 1. Two legs by default, both on the host:
 ``--buckets`` ladder and device tallies, on the card (it exits non-zero
 without CUDA).
 
+Every run is observed (``observe=True``), as in the reference.
+
 Port copy of ``hyperdrive_tpu/devsched/__main__.py``. Dropped: the
-flight recorder of every run (``observe=True``) and the sanitizer note.
+sanitizer note (the port drops the lint hooks).
 """
 
 from __future__ import annotations
@@ -37,7 +39,7 @@ from hyperdrive_tpu_torch.verifier import HostVerifier, NullVerifier
 def _leg_burst(args):
     kw = dict(
         n=args.n, target_height=args.heights, seed=args.seed,
-        sign=True, burst=True,
+        sign=True, burst=True, observe=True,
     )
     seq = Simulation(batch_verifier=HostVerifier(), **kw).run()
     sim = Simulation(batch_verifier=HostVerifier(), pipeline_heights=True, **kw)
@@ -48,7 +50,7 @@ def _leg_burst(args):
 def _leg_lockstep(args):
     kw = dict(
         n=args.n, target_height=args.heights, seed=args.seed,
-        timeout=1.0, delivery_cost=1e-3,
+        timeout=1.0, delivery_cost=1e-3, observe=True,
     )
     seq = Simulation(**kw).run()
     q = DeviceWorkQueue(max_depth=8)
@@ -66,7 +68,8 @@ def _leg_device(args):
     buckets = tuple(int(b) for b in args.buckets.split(","))
     kw = dict(
         n=args.n, target_height=args.heights, seed=args.seed,
-        sign=True, burst=True, dedup_verify=True, device_tally=True,
+        sign=True, burst=True, observe=True,
+        dedup_verify=True, device_tally=True,
     )
     seq = Simulation(
         batch_verifier=TorchBatchVerifier(buckets=buckets), **kw

@@ -10,8 +10,8 @@ digest covers the world state, not just the agreed bytes.
 
 Port of the JAX package's ``exec/``: ``ledger.py`` (blocks, the host
 reference executor, proofs) and ``device.py`` (the device executor, on
-the card unless the caller passes ``device="cpu"``). The parity CLI
-(``exec/__main__.py``) is not ported yet.
+the card unless the caller passes ``device="cpu"``), and the CLI
+``python -m hyperdrive_tpu_torch.exec`` (``parity``/``prove``).
 """
 
 from __future__ import annotations

@@ -23,8 +23,7 @@ Port of the JAX package's ``load/`` package:
   gate, the overlay's scorer and the transport's stale-generation filter
   judge arriving frames by.
 
-The soak CLI (``python -m hyperdrive_tpu.load``) is not ported yet: it
-needs the flight recorder's report, and comes with the other entry points.
+The soak CLI is ``python -m hyperdrive_tpu_torch.load soak``.
 """
 
 from hyperdrive_tpu_torch.load.backpressure import (

@@ -10,7 +10,8 @@ Port of the JAX package's ``obs/`` package: the recorder, the registry,
 the launch telemetry, the Perfetto exporter, the report, the SLO checks,
 the cross-node half (``tracectx``: trace stamps on frames; ``merge``:
 merged multi-process journals) and ``benchdiff``, with the same exports.
-The ``python -m`` CLI waits for ROADMAP Queue A item 6.
+The CLI is ``python -m hyperdrive_tpu_torch.obs`` (``record``,
+``report``, ``merge``, ``export``, ``metrics``, ``benchdiff``).
 """
 
 from hyperdrive_tpu_torch.obs.benchdiff import compare as benchdiff_compare

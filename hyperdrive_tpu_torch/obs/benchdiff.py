@@ -25,8 +25,8 @@ Everything else is reported informationally. Ratio-style metrics
 divide the runner's speed out.
 
 Port copy of ``hyperdrive_tpu/obs/benchdiff.py``, whole (pure host
-code: the same inputs give the same verdict). Its ``python -m`` CLI
-face waits for ROADMAP Queue A item 6; :func:`main` is its body.
+code: the same inputs give the same verdict). :func:`main` is the body
+of ``python -m hyperdrive_tpu_torch.obs benchdiff``.
 
 Direction is inferred from the metric name: throughput-like names
 (``per_s``, ``speedup``, ``rate``, ``throughput``, ``ops``) are

@@ -182,7 +182,8 @@ def _b_niels_np(entries: int = 16):
 
 
 def _recode_signed(nibbles: torch.Tensor) -> torch.Tensor:
-    """[B, 64] unsigned base-16 digits -> [64, B] signed digits in [-8, 7].
+    """[B, W] unsigned base-16 digits -> [W, B] signed digits in [-8, 7]
+    (W = 64 for the verified scalars).
 
     Digits >= 8 borrow 16 and carry 1 into the next position; the final
     carry is dropped. Both verified scalars are < 2^253 on packer output,
@@ -190,7 +191,7 @@ def _recode_signed(nibbles: torch.Tensor) -> torch.Tensor:
     reference does too, and the kernel keeps it."""
     carry = torch.zeros_like(nibbles[:, 0])
     out = []
-    for i in range(_N_WINDOWS):
+    for i in range(nibbles.shape[1]):
         d = nibbles[:, i] + carry
         ge = (d >= 8).to(torch.int32)
         out.append(d - 16 * ge)

@@ -24,8 +24,9 @@ Contents:
   in :mod:`hyperdrive_tpu_torch.ops.ed25519_cuda`), plus
   :func:`chalwire_verify_plain`;
 - :func:`challenge_from_round` (per-round digests broadcast to
-  round-major lanes, the sharded challenge step's leg) on the grouped
-  challenge kernel, its plain version and its cached wrapper
+  round-major lanes, the sharded challenge step's leg, at any round
+  count) on the challenge kernel's grouped or per-lane form, its plain
+  version and its cached wrapper
   :func:`make_challenge_round_fn`;
 - :class:`ValidatorTable`, :class:`Ed25519WireHost` (the reference's
   packer: the native ``hd_pack_wire`` when it builds, else its
@@ -66,8 +67,11 @@ __all__ = [
     "semiwire_verify_plain",
     "challenge",
     "challenge_grouped",
-    "MAX_ROUNDS",
+    "MAX_DIGEST_ROWS",
+    "digest_table_rows",
+    "grouped_digest_index",
     "round_digest_index",
+    "round_digest_rows",
     "challenge_from_round",
     "challenge_from_round_plain",
     "make_challenge_round_fn",
@@ -187,28 +191,57 @@ def challenge_grouped(idx, r_rows, m_idx, m_uniq, trows) -> torch.Tensor:
     )
 
 
-#: Most rounds :func:`challenge_from_round` takes: the grouped format's
-#: digest index is one byte, and row ``rounds`` of its digest table is the
-#: zero digest of the padding lanes.
-MAX_ROUNDS = 255
+#: Most rows of the grouped challenge form's digest table: its per-lane
+#: index is one byte. :func:`challenge_from_round` takes any round count;
+#: past this many rows it takes the per-lane form.
+MAX_DIGEST_ROWS = 256
+
+
+def digest_table_rows(lanes: int, rounds: int, lanes_per_round: int) -> int:
+    """Rows of the grouped form's digest table: the ``rounds`` digests,
+    plus one zero row when padding lanes lie past ``rounds *
+    lanes_per_round``."""
+    return rounds + (lanes > rounds * lanes_per_round)
 
 
 def round_digest_index(lanes: int, rounds: int, lanes_per_round: int,
                        device) -> torch.Tensor:
-    """uint8 [lanes]: each round-major lane's row in a digest table of
-    ``rounds + 1`` rows, ``lane // lanes_per_round`` for the first
-    ``rounds * lanes_per_round`` lanes and ``rounds`` (the zero digest)
-    for the padding lanes past them. Refuses more than :data:`MAX_ROUNDS`
-    rounds rather than wrap the byte."""
-    if not 0 <= rounds <= MAX_ROUNDS:
-        raise ValueError(f"{rounds} rounds: the one-byte digest index takes "
-                         f"at most {MAX_ROUNDS} (and the zero row)")
+    """uint8 [lanes]: each round-major lane's row in the digest table of
+    :func:`digest_table_rows` rows, ``lane // lanes_per_round`` for the
+    first ``rounds * lanes_per_round`` lanes and ``rounds`` (the zero
+    digest) for the padding lanes past them. Refuses a table of more than
+    :data:`MAX_DIGEST_ROWS` rows rather than wrap the byte."""
     live = rounds * lanes_per_round
-    if lanes_per_round < 1 or lanes < live:
+    if rounds < 0 or lanes_per_round < 1 or lanes < live:
         raise ValueError(f"{lanes} lanes for {rounds} rounds of "
                          f"{lanes_per_round} lanes")
+    rows = digest_table_rows(lanes, rounds, lanes_per_round)
+    if rows > MAX_DIGEST_ROWS:
+        raise ValueError(f"{rounds} rounds on {lanes} lanes need {rows} digest "
+                         f"rows: the one-byte index takes at most {MAX_DIGEST_ROWS}")
     lane = torch.arange(lanes, device=device)
     return torch.where(lane < live, lane // lanes_per_round, rounds).to(torch.uint8)
+
+
+def grouped_digest_index(lanes: int, rounds: int, lanes_per_round: int,
+                         device) -> "torch.Tensor | None":
+    """The challenge form for this shape: the grouped form's
+    :func:`round_digest_index` while its table fits
+    :data:`MAX_DIGEST_ROWS` rows, else None (the per-lane form)."""
+    if digest_table_rows(lanes, rounds, lanes_per_round) > MAX_DIGEST_ROWS:
+        return None
+    return round_digest_index(lanes, rounds, lanes_per_round, device)
+
+
+def round_digest_rows(m_round, lanes: int, lanes_per_round: int) -> torch.Tensor:
+    """uint8 [lanes, 32]: per-lane digest rows in the reference's own
+    layout, each round's digest repeated ``lanes_per_round`` times, zero
+    rows to the batch width."""
+    m = m_round.repeat_interleave(lanes_per_round, dim=0)
+    pad = lanes - m.shape[0]
+    if pad < 0:
+        raise ValueError(f"{lanes} lanes for {m.shape[0]} round lanes")
+    return torch.cat([m, m.new_zeros((pad, 32))])
 
 
 def challenge_from_round(idx, r_rows, m_round, trows, lanes_per_round: int,
@@ -219,51 +252,56 @@ def challenge_from_round(idx, r_rows, m_round, trows, lanes_per_round: int,
     ([B] int32), M the lane's round digest from ``m_round`` ([R, 32]
     uint8), k = SHA-512(R || A || M) mod L. Lanes past
     ``R * lanes_per_round`` (bucket padding) hash a zero digest; the
-    caller's prevalid masks them.
+    caller's prevalid masks them. Any round count is taken.
 
-    The grouped challenge leg (``ed25519_cuda.challenge_grouped``: the
-    kernel on CUDA tensors, :func:`challenge_grouped` on CPU ones) on the
-    digest table ``m_round`` plus one all-zero row, indexed by
-    :func:`round_digest_index` (pass it as ``m_idx`` to reuse it). Every
-    index lies inside the table. The plain version, in the reference's own
-    form (digests repeated to lanes, zero rows appended), is
+    One launch of the ``ed25519_challenge`` kernel (``ed25519_cuda``: the
+    kernel on CUDA tensors, the plain version on CPU ones) in one of two
+    forms. While the digest table (``m_round``, plus one zero row only
+    when a lane pads) fits the one-byte index, :data:`MAX_DIGEST_ROWS`
+    rows, the grouped form reads it at :func:`round_digest_index` (pass
+    :func:`grouped_digest_index` as ``m_idx`` to reuse it): 1 B a lane
+    instead of 32. Past that, the
+    per-lane form reads the digests repeated to lanes
+    (:func:`round_digest_rows`), the reference's own layout: still one
+    launch, where grouped calls of at most 256 digests each would take a
+    launch for every 256-round slice of the lanes. The plain version is
     :func:`challenge_from_round_plain`."""
     from hyperdrive_tpu_torch.ops import ed25519_cuda
 
-    rounds = m_round.shape[0]
+    lanes, rounds = r_rows.shape[0], m_round.shape[0]
     if m_idx is None:
-        m_idx = round_digest_index(r_rows.shape[0], rounds, lanes_per_round,
-                                   r_rows.device)
-    m_uniq = torch.cat([m_round, m_round.new_zeros((1, 32))])
+        m_idx = grouped_digest_index(lanes, rounds, lanes_per_round, r_rows.device)
+    if m_idx is None:
+        return ed25519_cuda.challenge(
+            idx, r_rows, round_digest_rows(m_round, lanes, lanes_per_round), trows)
+    m_uniq = m_round.contiguous()
+    if lanes > rounds * lanes_per_round:
+        m_uniq = torch.cat([m_uniq, m_round.new_zeros((1, 32))])
     return ed25519_cuda.challenge_grouped(idx, r_rows, m_idx, m_uniq, trows)
 
 
 def challenge_from_round_plain(idx, r_rows, m_round, trows,
                                lanes_per_round: int) -> torch.Tensor:
     """The plain version of :func:`challenge_from_round`: per-lane digest
-    rows built as the reference builds them (each round's digest repeated
-    ``lanes_per_round`` times, zero rows to the batch width), through the
-    per-lane :func:`challenge`."""
-    m = m_round.repeat_interleave(lanes_per_round, dim=0)
-    pad = r_rows.shape[0] - m.shape[0]
-    if pad < 0:
-        raise ValueError(f"{r_rows.shape[0]} lanes for {m.shape[0]} round lanes")
-    return challenge(idx, r_rows, torch.cat([m, m.new_zeros((pad, 32))]), trows)
+    rows built as the reference builds them (:func:`round_digest_rows`),
+    through the per-lane :func:`challenge`."""
+    return challenge(idx, r_rows,
+                     round_digest_rows(m_round, r_rows.shape[0], lanes_per_round), trows)
 
 
 @functools.lru_cache(maxsize=None)
 def make_challenge_round_fn(validators: int):
     """Cached :func:`challenge_from_round` at a fixed validator count:
     ``chal(idx, r_rows, m_round, trows)`` on the device of its inputs,
-    with each (lanes, rounds, device)'s digest index built once."""
+    with each (lanes, rounds, device)'s digest index built once where the
+    grouped form takes it (:func:`grouped_digest_index`)."""
     m_idx: dict = {}
 
     def chal(idx, r_rows, m_round, trows):
-        key = (r_rows.shape[0], m_round.shape[0], r_rows.device)
-        got = m_idx.get(key)
-        if got is None:
-            got = m_idx[key] = round_digest_index(key[0], key[1], validators, key[2])
-        return challenge_from_round(idx, r_rows, m_round, trows, validators, got)
+        lanes, rounds, device = key = (r_rows.shape[0], m_round.shape[0], r_rows.device)
+        if key not in m_idx:
+            m_idx[key] = grouped_digest_index(lanes, rounds, validators, device)
+        return challenge_from_round(idx, r_rows, m_round, trows, validators, m_idx[key])
 
     return chal
 

@@ -11,8 +11,8 @@ multi-node helpers (:mod:`~hyperdrive_tpu_torch.parallel.multihost`:
 ``init_distributed``, ``make_hybrid_mesh``, ``global_window_from_local``,
 ``replicate_to_all_hosts``), on ``torch.distributed`` (NCCL on cards,
 gloo on the CPU). Names resolve on first touch (PEP 562), so importing the
-package imports nothing. The ``serve``/``tenant`` CLI waits for ROADMAP
-Queue A item 6.
+package imports nothing. The CLI is ``python -m
+hyperdrive_tpu_torch.parallel`` (``serve``/``tenant``).
 """
 
 _EXPORTS = {

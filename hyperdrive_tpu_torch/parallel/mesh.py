@@ -201,7 +201,8 @@ def sharded_chalwire_tally(mesh, backend=None):
     target_vals and ``f`` as in :func:`sharded_verify_tally`. Each rank
     derives k = SHA-512(R || A || M) mod L for its lanes from the per-round
     digests (:func:`~hyperdrive_tpu_torch.ops.ed25519_wire.challenge_from_round`,
-    row 4's grouped form), keeps k on the device, runs the semiwire ladder
+    row 4's grouped form, or its per-lane form past 256 rounds a block),
+    keeps k on the device, runs the semiwire ladder
     (row 3) against the table, then the shared one-all-reduce tail.
     Outputs as :func:`sharded_verify_tally`."""
     _check_backend_arg(backend)

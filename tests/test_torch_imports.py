@@ -55,7 +55,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                  "parallel.mesh", "parallel.multihost",
                  "obs", "obs.recorder", "obs.metrics", "obs.devtel", "obs.perfetto",
                  "obs.report", "obs.slo", "analysis", "analysis.annotations",
-                 "utils.trace"):
+                 "utils.trace", "utils.cli", "obs.__main__", "campaign.__main__",
+                 "ops.__main__", "exec.__main__", "parallel.__main__",
+                 "load.__main__", "devsched.__main__"):
         assert f"hyperdrive_tpu_torch.{name}" in out["names"]
     assert out["bad"] == []
     assert out["built"] is False

@@ -79,8 +79,20 @@ def _same(got: dict, want: dict):
 # ------------------------------------------------ (a) challenge_from_round
 
 
-@pytest.mark.parametrize("rounds,validators,lanes", [(3, 4, 16), (2, 5, 10)])
-def test_challenge_from_round_equals_hashlib_and_the_oracle(rounds, validators, lanes):
+@pytest.mark.parametrize("rounds,validators,lanes,form", [
+    (3, 4, 16, "grouped"), (2, 5, 10, "grouped"),
+    # past 255 rounds: a full 256-row table, and one too long for the byte
+    (256, 1, 256, "grouped"), (300, 1, 320, "per-lane"), (256, 4, 1024, "grouped"),
+])
+def test_challenge_from_round_equals_hashlib_and_the_oracle(rounds, validators, lanes,
+                                                            form, monkeypatch):
+    from hyperdrive_tpu_torch.ops import ed25519_cuda
+
+    forms = []
+    for name, tag in (("challenge", "per-lane"), ("challenge_grouped", "grouped")):
+        fn = getattr(ed25519_cuda, name)
+        monkeypatch.setattr(ed25519_cuda, name,
+                            lambda *a, fn=fn, tag=tag: forms.append(tag) or fn(*a))
     rng = np.random.default_rng(rounds * 10 + validators)
     ring = KeyRing.deterministic(validators, namespace=b"chalround")
     table = wire.ValidatorTable(ring.signatories, device="cpu")
@@ -91,6 +103,7 @@ def test_challenge_from_round_equals_hashlib_and_the_oracle(rounds, validators, 
     cached = wire.make_challenge_round_fn(validators)
     assert wire.make_challenge_round_fn(validators) is cached
     assert torch.equal(cached(idx, r_rows, m_round, table.rows), got)
+    assert forms == [form, form]
     assert torch.equal(
         wire.challenge_from_round_plain(idx, r_rows, m_round, table.rows, validators), got)
     for lane in range(lanes):
@@ -107,8 +120,14 @@ def test_round_digest_index_holds_one_byte():
     assert m_idx.dtype == torch.uint8
     assert m_idx[:4].tolist() == [0, 0, 1, 1]
     assert m_idx[508:].tolist() == [254, 254] + [255] * 5  # 5 padding lanes
-    with pytest.raises(ValueError, match="at most 255"):
-        wire.round_digest_index(256 * 2, 256, 2, "cpu")
+    # 256 rounds with no padding lane: rows 0-255, no zero row
+    full = wire.round_digest_index(256 * 2, 256, 2, "cpu")
+    assert full[-2:].tolist() == [255, 255]
+    assert wire.digest_table_rows(256 * 2, 256, 2) == wire.MAX_DIGEST_ROWS == 256
+    assert torch.equal(wire.grouped_digest_index(256 * 2, 256, 2, "cpu"), full)
+    assert wire.grouped_digest_index(256 * 2 + 1, 256, 2, "cpu") is None
+    with pytest.raises(ValueError, match="at most 256"):
+        wire.round_digest_index(256 * 2 + 1, 256, 2, "cpu")
     with pytest.raises(ValueError, match="lanes"):
         wire.round_digest_index(7, 2, 4, "cpu")
 
