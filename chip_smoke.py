@@ -374,13 +374,32 @@ Phases, each printing its lines:
    --rlc`` (row 1) and ``ops bls-parity --n 8`` (row 5); ``exec parity
    --pipelined`` (its signed legs verified by row 1, none on the host)
    and ``exec prove``; ``parallel serve --tenants 4 --heights 4
-   --verifier device --remote-tenants 1`` (row 1). Each must exit 0 with
-   every "ok" line of the reference; each CLI's wall and its launches of
-   rows 1 and 5.
+   --verifier device --remote-tenants 1`` (row 1); ``chaos soak`` (2
+   scenarios, n = 4, target 3, every leg at cadence 1 or 2; rows 1 and 5,
+   its stdout equal to the ``--device cpu`` run's with the paths and the
+   metrics scrape's size masked), the same soak with ``HD_SANITIZE=1``
+   (equal stdout) and ``chaos replay`` of the churn record it dumped. Each
+   must exit 0 with every "ok" line of the reference; each CLI's wall and
+   its launches of rows 1 and 5.
+23. the runtime sanitizer (``phase_sanitize``, lines ``sanitize``; after
+   phase 6, before phase 7) with ``HD_SANITIZE=1`` for the phase alone:
+   the main path's invariant run armed on packed+tally and chal+tally
+   (digest, steps, 15 settle passes, 10 vote-bearing, 2,565 signatures,
+   all 256 replicas sanitized, every commit recounted from the host
+   logs); the Byzantine-tally scenario with a card vote grid claiming a
+   quorum the host logs lack, which must die with HDS001; one
+   ``DeviceTallyFlusher`` on its default ``tally_check`` (HDS004), which
+   must check at least one query; the phase's wall and row launches.
+24. the entry points of ``entry.py`` (``phase_entry``, lines ``entry``; after
+   phase 22, before phase 19): ``entry()``'s wire verify + tally step on
+   signed votes (2 rounds x 32 validators, 13 corrupted lanes) on the card,
+   lane for lane and count for count equal to the same step on
+   ``device="cpu"``, in one counted ``ed25519_wire`` launch; then
+   ``dryrun_multichip(1)`` over NCCL at world size 1 (rows 1, 4 and 3).
 
-Each path of phases 1b, 5, 6, 7, 8, 10, 11, 12, 15, 16, 17, 18, 20, 21 and
-22 is driven with the kernel counts set to 0 just before it and read just
-after.
+Each path of phases 1b, 5, 6, 7, 8, 10, 11, 12, 15, 16, 17, 18, 20, 21,
+22, 23 and 24 is driven with the kernel counts set to 0 just before it and
+read just after.
 
 The line before the last is the kernel table as JSON; the last line is
 ``{"ok": true, "device": {...}}``. Any failed check raises, so the script
@@ -399,6 +418,7 @@ import statistics
 import subprocess
 import sys
 import time
+from unittest import mock
 
 import numpy as np
 import torch
@@ -1992,7 +2012,8 @@ def _timed(spent, depth, key, fn):
 
 
 def run_path(label: str, own: tuple, verifier, ref: dict, tally: bool = False,
-             pipe: bool = False, prefix: str = "main", **sim_kw) -> dict:
+             pipe: bool = False, prefix: str = "main", stats: dict = None,
+             **sim_kw) -> dict:
     """One n=256 network run with ``verifier`` on every settle; checks it
     against the host-verifier result ``ref`` (digest, steps, heights) and
     the kernel counts (each kernel of ``own`` at least once per
@@ -2012,7 +2033,9 @@ def run_path(label: str, own: tuple, verifier, ref: dict, tally: bool = False,
     launch, no host-routed settle; the grid is never read). ``sim_kw``
     overrides the network's knobs (``dedup_verify``, ``columnar_ingest``,
     ``shared_superstep``, ``pipeline_verify``); the line begins with
-    ``prefix``. Returns each own kernel's launches."""
+    ``prefix``. ``stats``, a dict, receives the run's settle passes,
+    vote-bearing settles, verified signatures, steps, digest and
+    replicas. Returns each own kernel's launches."""
     from hyperdrive_tpu_torch.crypto.keys import KeyPair
     from hyperdrive_tpu_torch.harness import Simulation
     from hyperdrive_tpu_torch.ops import bucketing, ed25519_cuda
@@ -2177,6 +2200,10 @@ def run_path(label: str, own: tuple, verifier, ref: dict, tally: bool = False,
           + "".join(f"{k}_launches={counts[k][0]} {k}_lanes={counts[k][1]} " for k in own)
           + f"launches_per_height={sum(launches.values()) / HEIGHT:.1f}{extra} {shares} "
           f"digest={res.commit_digest(up_to=HEIGHT)[:16]} matches_host=True", flush=True)
+    if stats is not None:
+        stats.update(settle_passes=sim.settle_passes, vote_settles=sim.vote_settles,
+                     verified_sigs=sim.verified_sigs, steps=res.steps,
+                     digest=res.commit_digest(up_to=HEIGHT)[:16], replicas=sim.replicas)
     return launches
 
 
@@ -2248,6 +2275,202 @@ def phase_main_path() -> tuple:
              pipe=True)
     phase_pairs(ref)
     return launches, ref
+
+
+#: The main path's invariant: what every route of the n = 256, seed 1,
+#: 5-height run must give (and has given on every route since it ran).
+INVARIANT = {"digest": "215413db54656240", "steps": 656_640, "settle_passes": 15,
+             "vote_settles": 10, "verified_sigs": 2_565}
+
+
+def _armed():
+    """``HD_SANITIZE=1`` for the body alone; the environment comes back
+    after."""
+    return mock.patch.dict(os.environ, {"HD_SANITIZE": "1"})
+
+
+def _lying_grid_commit():
+    """The reference's Byzantine-tally scenario with a card tally: one
+    sanitized Process (f = 1) logs a valid proposal and ONE precommit; a
+    vote grid on the card holds three precommits for the value from
+    validators the host never heard, and its TallyView hands that forged
+    quorum to the rule cascade. Returns the SanitizerError (None if the
+    cascade committed) and the app's commits."""
+    from types import SimpleNamespace
+
+    from hyperdrive_tpu_torch.analysis import sanitizer
+    from hyperdrive_tpu_torch.messages import Precommit, Propose
+    from hyperdrive_tpu_torch.ops import votegrid
+    from hyperdrive_tpu_torch.process import Process
+    from hyperdrive_tpu_torch.testutil import (
+        BroadcasterCallbacks,
+        CommitterCallback,
+        MockProposer,
+        MockValidator,
+    )
+    from hyperdrive_tpu_torch.types import INVALID_ROUND, NIL_VALUE
+
+    value, proposer = b"\xab" * 32, b"\x02" * 32
+    commits = []
+    proc = Process(whoami=b"\x01" * 32, f=1, timer=None,
+                   scheduler=SimpleNamespace(schedule=lambda h, r: proposer),
+                   proposer=MockProposer(value=value), validator=MockValidator(ok=True),
+                   broadcaster=BroadcasterCallbacks(),
+                   committer=CommitterCallback(
+                       on_commit=lambda h, v: (commits.append((h, v)), (0, None))[1]),
+                   catcher=None, height=1)
+    sanitizer.maybe_install(proc)
+    proc.start()
+    proc.propose(Propose(height=1, round=0, valid_round=INVALID_ROUND, value=value,
+                         sender=proposer))
+    proc.precommit(Precommit(height=1, round=0, value=value, sender=b"\x03" * 32))
+    R = 4
+    grid = votegrid.VoteGrid(1, 4, r_slots=R, buckets=(16,), device="cuda")
+    targets = np.zeros((1, R, 8), dtype=np.int32)
+    tvalid = np.zeros((1, R), dtype=bool)
+    targets[0, 0], tvalid[0, 0] = _words(value), True
+    counts = grid.update_and_tally(
+        np.array([[0, 1, 0, v] for v in (1, 2, 3)], dtype=np.int32),
+        np.stack([_words(value)] * 3), np.zeros(1, dtype=bool), targets, tvalid,
+        np.array([-1], dtype=np.int32), np.zeros((1, 8), dtype=np.int32),
+        np.ones(1, dtype=np.int32))
+    view = votegrid.TallyView(0, 1, counts, R, {0: value}, -1, NIL_VALUE)
+    claimed = view.precommits_for(0, value)
+    try:
+        proc.ingest_cascade(({0}, set()), tallies=view)
+    except sanitizer.SanitizerError as e:
+        return e, commits, claimed
+    return None, commits, claimed
+
+
+def _hds004_flusher() -> tuple:
+    """One DeviceTallyFlusher on the card built without a ``tally_check``
+    under the sanitizer, so it takes HDS004's view: a signed n = 256
+    window (propose, every prevote and precommit) through
+    ``settle_block``. Returns (queries HDS004 checked, commits, launches)."""
+    from hyperdrive_tpu_torch import batch, messages
+    from hyperdrive_tpu_torch.analysis import sanitizer
+    from hyperdrive_tpu_torch.crypto.keys import KeyRing
+    from hyperdrive_tpu_torch.ops import ed25519_cuda
+    from hyperdrive_tpu_torch.ops.ed25519 import TorchBatchVerifier
+    from hyperdrive_tpu_torch.replica import Replica, ReplicaOptions
+    from hyperdrive_tpu_torch.tallyflush import DeviceTallyFlusher
+    from hyperdrive_tpu_torch.testutil import CommitterCallback
+    from hyperdrive_tpu_torch.types import INVALID_ROUND
+
+    ring = KeyRing.deterministic(N_VALIDATORS, namespace=b"sim-1")
+    sigs = ring.signatories
+    value = hashlib.sha256(b"sanitize-hds004").digest()
+    window = [ring[1].sign_message(messages.Propose(
+        height=1, round=0, valid_round=INVALID_ROUND, value=value, sender=sigs[1]))]
+    for kind in (messages.Prevote, messages.Precommit):
+        window += [ring[i].sign_message(kind(height=1, round=0, value=value,
+                                             sender=sigs[i])) for i in range(N_VALIDATORS)]
+    bv = TorchBatchVerifier(device="cuda")
+    bv.warmup()
+    fl = DeviceTallyFlusher(bv, sigs, device="cuda")
+    if fl.tally_check is not sanitizer.maybe_tally_check():
+        raise AssertionError(f"sanitize hds004: the flusher's tally_check is "
+                             f"{fl.tally_check}, not HDS004's")
+    views = []
+    hds004 = fl.tally_check
+    fl.tally_check = lambda view, proc: views.append(hds004(view, proc)) or views[-1]
+    commits: dict = {}
+    rep = Replica(ReplicaOptions(), whoami=sigs[0], signatories=list(sigs), timer=None,
+                  proposer=None, validator=None,
+                  committer=CommitterCallback(on_commit=lambda h, v: (
+                      commits.__setitem__(h, v), (0, None))[1]),
+                  catcher=None, broadcaster=None, flusher=fl)
+    if not isinstance(rep.proc.committer, sanitizer._SanitizedCommitter):
+        raise AssertionError("sanitize hds004: the replica is not sanitized")
+    rep.start()
+    torch.cuda.synchronize()
+    ed25519_cuda.reset_stats()
+    fl.settle_block(rep, batch.MessageBlock.from_messages(window))
+    torch.cuda.synchronize()
+    launches = {k: v.launches for k, v in ed25519_cuda.stats.items() if v.launches}
+    if commits != {1: value}:
+        raise AssertionError(f"sanitize hds004: commits {commits}")
+    return sum(v.hits for v in views), len(views), launches
+
+
+def phase_sanitize(ref: dict) -> dict:
+    """The runtime consensus sanitizer on the card (lines ``sanitize``),
+    with ``HD_SANITIZE=1`` for this phase alone: the main path's invariant
+    run armed on the packed+tally and chal+tally routes (every replica
+    sanitized, every commit recounted from the host logs: HDS001-HDS003);
+    the Byzantine-tally scenario with a vote grid on the card claiming a
+    quorum the host logs lack, which must die with HDS001; and one
+    DeviceTallyFlusher run on its default tally_check, HDS004's, which must
+    check at least one query. Returns the launches by row."""
+    from hyperdrive_tpu_torch.analysis import sanitizer
+    from hyperdrive_tpu_torch.crypto.keys import KeyRing
+    from hyperdrive_tpu_torch.ops import ed25519_cuda
+    from hyperdrive_tpu_torch.ops.ed25519 import TorchBatchVerifier
+    from hyperdrive_tpu_torch.ops.ed25519_wire import TorchWireVerifier, ValidatorTable
+
+    t_phase = time.perf_counter()
+    before = os.environ.get("HD_SANITIZE")
+    launches: dict = {}
+    checked = []
+    real_commit = sanitizer._SanitizedCommitter.commit
+
+    def counted(self, height, value):
+        checked.append(height)
+        return real_commit(self, height, value)
+
+    with _armed():
+        if not sanitizer.enabled():
+            raise AssertionError("sanitize: HD_SANITIZE=1 did not arm the sanitizer")
+        table = ValidatorTable(KeyRing.deterministic(N_VALIDATORS, namespace=b"sim-1")
+                               .signatories, device="cuda")
+        sanitizer._SanitizedCommitter.commit = counted
+        try:
+            for label, own, verifier in (
+                    ("packed+tally", ("ed25519_verify",), TorchBatchVerifier(device="cuda")),
+                    ("chal+tally", ("ed25519_challenge", "ed25519_semiwire"),
+                     TorchWireVerifier(device="cuda", table=table))):
+                stats: dict = {}
+                checked.clear()
+                got = run_path(label, own, verifier, ref, tally=True, prefix="sanitize",
+                               stats=stats)
+                armed = sum(isinstance(r.proc.committer, sanitizer._SanitizedCommitter)
+                            for r in stats.pop("replicas"))
+                want = dict(INVARIANT)
+                if {k: stats[k] for k in want} != want or armed != N_VALIDATORS:
+                    raise AssertionError(f"sanitize {label}: {stats}, {armed} sanitized "
+                                         f"replicas; want {want} and {N_VALIDATORS}")
+                if len(checked) < N_VALIDATORS * HEIGHT:
+                    raise AssertionError(f"sanitize {label}: {len(checked)} commits "
+                                         "went through the sanitizer")
+                for k, n in got.items():
+                    launches[k] = launches.get(k, 0) + n
+                print(f"sanitize {label}: sanitized_replicas={armed} "
+                      f"commits_recounted={len(checked)} invariant_held=True", flush=True)
+        finally:
+            sanitizer._SanitizedCommitter.commit = real_commit
+
+        err, commits, claimed = _lying_grid_commit()
+        if (err is None or err.rule != "HDS001" or commits or claimed != 3
+                or "no host-log quorum" not in str(err)):
+            raise AssertionError(f"sanitize lying tally: {err!r}, commits {commits}, "
+                                 f"card grid claims {claimed}, want 3")
+        print(f"sanitize lying tally: card_grid_claims={claimed} host_precommits=1 "
+              f"rule={err.rule} commits=0 no_host_log_quorum=True", flush=True)
+
+        hits, views, got = _hds004_flusher()
+        if hits < 1 or got != {"ed25519_verify": 1}:
+            raise AssertionError(f"sanitize hds004: {hits} queries checked, launches {got}")
+        launches["ed25519_verify"] = launches.get("ed25519_verify", 0) + 1
+        print(f"sanitize hds004: flusher_views={views} queries_checked={hits} "
+              f"launches={got}", flush=True)
+    if os.environ.get("HD_SANITIZE") != before:
+        raise AssertionError("sanitize: the environment was not restored")
+    ed25519_cuda.reset_stats()
+    print(f"sanitize: wall_s={time.perf_counter() - t_phase:.3f} "
+          + " ".join(f"{k}_launches={n}" for k, n in sorted(launches.items()))
+          + f" card={card_line()!r}", flush=True)
+    return launches
 
 
 def phase_pairs(ref: dict, legs=None, pairs: int = 2) -> None:
@@ -4872,6 +5095,7 @@ def phase_cli() -> dict:
     import tempfile
 
     from hyperdrive_tpu_torch.campaign.__main__ import main as campaign_main
+    from hyperdrive_tpu_torch.chaos.__main__ import main as chaos_main
     from hyperdrive_tpu_torch.exec.__main__ import main as exec_main
     from hyperdrive_tpu_torch.obs.__main__ import main as obs_main
     from hyperdrive_tpu_torch.ops import ed25519_cuda, g1_cuda
@@ -4992,11 +5216,123 @@ def phase_cli() -> dict:
         if (len(child) != 1 or not child[0]["done"] or summary["launches"] < 1
                 or summary["verifier"] != "device" or not summary["parity_ok"]):
             raise AssertionError(f"cli parallel serve: {summary}")
+
+        # chaos: the soak with every leg at cadence 1 or 2 on the card (the
+        # BLS overlay leg folds through row 5, the exec-pipeline leg
+        # verifies through row 1), its stdout equal to the CPU run's once
+        # paths and the metrics scrape's size (wall-clock latencies) are
+        # masked; the same soak armed (HD_SANITIZE=1); a replay of the
+        # passing churn record it dumped.
+        def soak_argv(tag):
+            return ["soak", "--scenarios", "2", "--n", "4", "--target", "3",
+                    "--replay-every", "1", "--pipelined-every", "1", "--certs-every", "1",
+                    "--overload-every", "1", "--bls-certs-every", "2", "--churn-every", "1",
+                    "--overlay-every", "2", "--tenants-every", "2", "--exec-every", "2",
+                    "--exec-pipeline-every", "1", "--proofs-every", "2",
+                    "--fuzz-frames-every", "2", "--metrics-every", "2",
+                    "--campaign-every", "2", "--out", path(f"chaos-{tag}"),
+                    "--dump-ok", path(f"chaos-ok-{tag}")]
+
+        def masked(text, tag):
+            text = text.replace(path(f"chaos-ok-{tag}"), "<ok>")
+            return re.sub(r"(ok metrics .* )bytes=\d+", r"\1bytes=<n>", text)
+
+        chaos_oks = ["ok bls", "ok overload", "ok tenants", "ok proofs", "ok churn",
+                     "ok overlay", "ok exec ", "ok wire-fuzz", "ok metrics",
+                     "ok exec-pipeline", "ok campaign", "soak ok: 2 scenarios, 0 violations"]
+        text = run("chaos soak", chaos_main, soak_argv("card"), chaos_oks,
+                   need=("ed25519_verify", "g1_aggregate"))
+        with contextlib.redirect_stdout(io.StringIO()) as cpu_out:
+            rc = chaos_main(soak_argv("cpu") + ["--device", "cpu"])
+        if rc != 0 or masked(cpu_out.getvalue(), "cpu") != masked(text, "card"):
+            raise AssertionError(f"cli chaos soak: the card's stdout differs from the "
+                                 f"CPU's (rc={rc})\n{cpu_out.getvalue()}\n{text}")
+        with _armed():
+            armed = run("chaos soak (HD_SANITIZE=1)", chaos_main, soak_argv("armed"),
+                        chaos_oks, need=("ed25519_verify", "g1_aggregate"))
+        if masked(armed, "armed") != masked(text, "card"):
+            raise AssertionError(f"cli chaos soak: the armed stdout differs\n{armed}")
+        text = run("chaos replay", chaos_main,
+                   ["replay", os.path.join(path("chaos-ok-card"), "churn_seed_1.bin")],
+                   ["replayed seed=1 n=4", "epoch chain ok"])
+        print(f"cli chaos: rc=0 cpu_stdout_equal=True armed_stdout_equal=True "
+              f"replay={text.splitlines()[0]!r}", flush=True)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     print(f"cli: wall_s={time.perf_counter() - t_phase:.3f} "
           f"ed25519_verify_launches={launches['ed25519_verify']} "
           f"g1_aggregate_launches={launches['g1_aggregate']}", flush=True)
+    return launches
+
+
+def phase_entry() -> dict:
+    """The entry points of ``entry.py`` on the card (lines ``entry``):
+    ``entry()``'s step on signed votes, held lane for lane and count for
+    count to the same step with ``device="cpu"`` (the plain version), in
+    one counted row-2 launch and no other; then ``dryrun_multichip(1)`` over
+    NCCL at world size 1 with its launches of rows 1, 4 and 3. Returns the
+    launches by row."""
+    import torch.distributed as dist
+
+    from hyperdrive_tpu_torch.entry import dryrun_multichip, entry, signed_example_args
+    from hyperdrive_tpu_torch.ops import ed25519_cuda
+
+    t_phase = time.perf_counter()
+    fn, example = entry()
+    if any(t.device.type != "cuda" for t in example[:6]):
+        raise AssertionError("entry: the example args are not on the card")
+    zeros = fn(*example)[0]
+    if bool(zeros.any()):
+        raise AssertionError("entry: an all-zero lane verified")
+    args, _ = signed_example_args()
+    cpu_args, _ = signed_example_args(device="cpu")
+    torch.cuda.synchronize()
+    ed25519_cuda.reset_stats()
+    t0 = time.perf_counter()
+    ok, counts, flags = fn(*args)
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3
+    got = {k: v.launches for k, v in ed25519_cuda.stats.items() if v.launches}
+    if got != {"ed25519_wire": 1}:
+        raise AssertionError(f"entry: launches {got}, want one ed25519_wire")
+    want_ok, want_counts, want_flags = entry(device="cpu")[0](*cpu_args)
+    same = (torch.equal(ok.cpu(), want_ok)
+            and all(torch.equal(counts[k].cpu(), want_counts[k]) for k in want_counts)
+            and all(torch.equal(flags[k].cpu(), want_flags[k]) for k in want_flags))
+    if not same or counts["matching"].tolist() != [31, 20]:
+        raise AssertionError(f"entry: the card's step differs from the CPU's: "
+                             f"{counts} {flags}")
+    launches = dict(got)
+    print(f"entry step: lanes={ok.numel()} verified={int(ok.sum())} "
+          f"matching={counts['matching'].tolist()} "
+          f"quorum_matching={flags['quorum_matching'].tolist()} "
+          f"ed25519_wire_launches=1 wall_ms={step_ms:.3f} equal_to_cpu=True", flush=True)
+
+    started = not dist.is_initialized()
+    ed25519_cuda.reset_stats()
+    t0 = time.perf_counter()
+    try:
+        line = dryrun_multichip(1)
+        torch.cuda.synchronize()
+        backend = dist.get_backend()
+    finally:
+        if started and dist.is_initialized():
+            dist.destroy_process_group()
+    wall = time.perf_counter() - t0
+    got = {k: v.launches for k, v in ed25519_cuda.stats.items() if v.launches}
+    for row in ("ed25519_verify", "ed25519_challenge", "ed25519_semiwire"):
+        if not got.get(row):
+            raise AssertionError(f"entry dryrun: {row} launched no time ({got})")
+        launches[row] = launches.get(row, 0) + got[row]
+    if backend != "nccl":
+        raise AssertionError(f"entry dryrun: ran on {backend}, not NCCL")
+    print(f"entry dryrun: backend={backend} world_size=1 wall_s={wall:.3f} "
+          + " ".join(f"{k}_launches={n}" for k, n in sorted(got.items())), flush=True)
+    print(f"entry: wall_s={time.perf_counter() - t_phase:.3f} "
+          + " ".join(f"{k}_launches={n}" for k, n in sorted(launches.items()))
+          + f" card={card_line()!r}", flush=True)
+    if not line.startswith("dryrun_multichip ok: mesh=(1x1)"):
+        raise AssertionError(f"entry dryrun: {line}")
     return launches
 
 
@@ -5832,6 +6168,8 @@ def main() -> int:
     mark("votegrid")
     launches, ref = phase_main_path()
     mark("main")
+    sanitize_launches = phase_sanitize(ref)
+    mark("sanitize")
     phase_obs(ref)
     mark("obs")
     phase_burst(ref)
@@ -5862,6 +6200,8 @@ def main() -> int:
     mark("exec")
     cli_launches = phase_cli()
     mark("cli")
+    entry_launches = phase_entry()
+    mark("entry")
     rows["g1_aggregate"], launches["g1_aggregate"] = phase_bls(clock, sms)
     mark("bls")
     print("phases_s: " + " ".join(f"{name}={t - marks[i][1]:.1f}"
@@ -5876,7 +6216,8 @@ def main() -> int:
             "source": source,
             "replaces": replaces,
             "launches": (launches[name] + mesh_launches.get(name, 0)
-                         + cli_launches.get(name, 0)),
+                         + cli_launches.get(name, 0) + sanitize_launches.get(name, 0)
+                         + entry_launches.get(name, 0)),
             "max_abs_err": max(r["err"] for r in rows[name].values()),
             "ms": row["ms"],
             "plain_ms": row["plain_ms"],

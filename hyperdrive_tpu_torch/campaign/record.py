@@ -8,16 +8,13 @@ produced, and the canonical summary blob: everything
 :func:`~hyperdrive_tpu_torch.campaign.runner.replay_campaign` needs to
 re-derive the identical trajectory and prove it.
 
-Dropped, as the port's conventions say: the wire-codec lint markers
-(``analysis.annotations.wire_codec`` / ``wire_entry``) and the
-sanitizer's budget reader (``analysis.sanitizer.maybe_wire_reader``):
-:meth:`CampaignRecord.load` reads through a plain
-:class:`~hyperdrive_tpu_torch.codec.Reader` with the record's 1 MiB
-budget, which is what the reference reads through with the sanitizer
-off. ``load(obs=)`` and ``load_file(obs=)`` take the reference's
-recorder handle, which only the sanitizer's budget reader would charge,
-so it is accepted and records nothing, as in the reference with the
-sanitizer off.
+The record registers as the ``campaign.record`` wire family (1 MiB), and
+:meth:`CampaignRecord.load` reads through the sanitizer's budget reader
+(``maybe_wire_reader``), as the reference does: under ``HD_SANITIZE`` a
+decode past the budget raises HDS005 and emits
+``wire.budget.exceeded`` on ``load(obs=)``'s recorder; otherwise a plain
+``Reader`` with the same 1 MiB budget. Dropped: the ``wire_entry`` lint
+marker.
 """
 
 from __future__ import annotations
@@ -26,6 +23,8 @@ import hashlib
 import json
 from dataclasses import dataclass
 
+from hyperdrive_tpu_torch.analysis.annotations import wire_codec
+from hyperdrive_tpu_torch.analysis.sanitizer import maybe_wire_reader
 from hyperdrive_tpu_torch.campaign import CampaignConfig
 from hyperdrive_tpu_torch.codec import Reader, SerdeError, Writer
 
@@ -54,6 +53,7 @@ def summary_digest(summary: dict) -> bytes:
     return hashlib.sha256(_canonical(summary)).digest()
 
 
+@wire_codec(tag="campaign.record", max_bytes=_MAX_RECORD)
 @dataclass(frozen=True)
 class CampaignRecord:
     config: CampaignConfig
@@ -103,7 +103,10 @@ class CampaignRecord:
 
     @classmethod
     def load(cls, payload: bytes, *, obs=None) -> "CampaignRecord":
-        return cls.unmarshal(Reader(payload, rem=_MAX_RECORD))
+        r = maybe_wire_reader(
+            "campaign.record", payload, obs=obs, rem=_MAX_RECORD
+        )
+        return cls.unmarshal(r)
 
     @classmethod
     def load_file(cls, path, *, obs=None) -> "CampaignRecord":

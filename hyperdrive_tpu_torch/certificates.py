@@ -36,8 +36,8 @@ along): 148/196 B at n=256.
 
 Port copy of the JAX package's ``certificates.py``, byte for byte on the
 wire, in the binding and in the aggregate signature, with the recorder
-(``obs``) and its ``cert.emit``/``cert.verify``/``bls.cert.agg`` events.
-Dropped: the ``wire_codec`` analysis annotation.
+(``obs``) and its ``cert.emit``/``cert.verify``/``bls.cert.agg`` events,
+and the codec's ``cert.quorum`` wire registration.
 """
 
 from __future__ import annotations
@@ -45,6 +45,7 @@ from __future__ import annotations
 import hashlib
 from dataclasses import dataclass
 
+from hyperdrive_tpu_torch.analysis.annotations import wire_codec
 from hyperdrive_tpu_torch.codec import Reader, SerdeError, Writer
 from hyperdrive_tpu_torch.crypto import bls
 from hyperdrive_tpu_torch.obs.recorder import NULL_BOUND
@@ -130,6 +131,7 @@ def _binding(height, round, value_digest, signers, transcript,
     return h.digest()
 
 
+@wire_codec(tag="cert.quorum", max_bytes=8192)
 def marshal_certificate(cert: QuorumCertificate, w: Writer) -> None:
     w.u64(cert.height)
     w.u32(cert.round)
@@ -140,6 +142,7 @@ def marshal_certificate(cert: QuorumCertificate, w: Writer) -> None:
     w.raw(cert.agg_sig)
 
 
+@wire_codec(tag="cert.quorum", max_bytes=8192)
 def unmarshal_certificate(r: Reader) -> QuorumCertificate:
     height = r.u64()
     rnd = r.u32()

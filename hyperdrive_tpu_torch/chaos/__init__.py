@@ -12,8 +12,8 @@ adversarial conditions:
 - :mod:`~hyperdrive_tpu_torch.chaos.proxy`: a fault-injecting TCP proxy
   for real-socket partition and heal tests against TcpNode.
 
-The soak CLI (``python -m hyperdrive_tpu.chaos``) is not ported yet; it
-comes with the other entry points.
+The soak CLI is ``python -m hyperdrive_tpu_torch.chaos`` (``soak`` with
+every leg of the reference, ``replay``; :mod:`.__main__`).
 """
 
 from hyperdrive_tpu_torch.chaos.monitor import InvariantMonitor, InvariantViolation

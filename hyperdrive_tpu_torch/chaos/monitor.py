@@ -2,7 +2,8 @@
 
 The monitor wraps a :class:`~hyperdrive_tpu_torch.harness.sim.Simulation`'s
 commit callback — the same seam the HD_SANITIZE runtime sanitizer
-interposes (utils/sanitize.py) — and receives lifecycle notifications
+interposes (:mod:`~hyperdrive_tpu_torch.analysis.sanitizer`) — and
+receives lifecycle notifications
 (crash/restore/heal) from the chaos engine. It checks, *while the run is
 still live* so the ScenarioRecord is intact at raise time:
 

@@ -11,14 +11,15 @@ Payload blocks are 31 bytes: every 31-byte string is < 2^248 < p, so
 packing is injective and padding-free.
 
 Port copy of the JAX package's ``crypto/shamir.py``, byte for byte in its
-outputs (bundles, shares, payloads). Dropped: the ``wire_codec`` analysis
-annotation on the bundle codec.
+outputs (bundles, shares, payloads), with the bundle codec's
+``shamir.bundle`` wire registration.
 """
 
 from __future__ import annotations
 
 import hashlib
 
+from hyperdrive_tpu_torch.analysis.annotations import wire_codec
 from hyperdrive_tpu_torch.crypto.ed25519 import P
 
 __all__ = [
@@ -132,6 +133,7 @@ def reconstruct_payload(block_shares: list[list[tuple[int, int]]]) -> bytes:
 # emits x = 1..n in order), so the bundle is just the y-value matrix.
 
 
+@wire_codec(tag="shamir.bundle", max_bytes=1 << 20)
 def encode_share_bundle(block_shares: list[list[tuple[int, int]]]) -> bytes:
     """[blocks][n] (x, y) shares -> bytes: u32 blocks, u32 n, then y values
     as 32-byte little-endian rows, block-major."""
@@ -145,6 +147,7 @@ def encode_share_bundle(block_shares: list[list[tuple[int, int]]]) -> bytes:
     return b"".join(parts)
 
 
+@wire_codec(tag="shamir.bundle", max_bytes=1 << 20)
 def decode_share_bundle(data: bytes) -> list[list[tuple[int, int]]]:
     """Inverse of :func:`encode_share_bundle`; raises ValueError on any
     malformed input (never crashes — proposal payloads are attacker-

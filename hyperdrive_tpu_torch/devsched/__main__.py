@@ -22,8 +22,9 @@ without CUDA).
 
 Every run is observed (``observe=True``), as in the reference.
 
-Port copy of ``hyperdrive_tpu/devsched/__main__.py``. Dropped: the
-sanitizer note (the port drops the lint hooks).
+Port copy of ``hyperdrive_tpu/devsched/__main__.py``. ``HD_SANITIZE=1``
+in the environment arms the runtime consensus sanitizer, as in the
+reference.
 """
 
 from __future__ import annotations

@@ -38,9 +38,9 @@ adds the missing lifecycle:
   chain across the transition.
 
 Port copy of ``hyperdrive_tpu/epochs.py`` (host code, no device
-import), on this package's ``codec`` and ``certificates``. Dropped, as the
-port's conventions say: the ``wire_codec`` analysis annotation on the
-proof codec. :class:`EpochCertifier` takes the reference's recorder
+import), on this package's ``codec`` and ``certificates``, with the
+proof codec's ``epoch.proof`` wire registration. :class:`EpochCertifier`
+takes the reference's recorder
 (``obs``) and emits its ``epoch.proof`` event. The
 chaos engine (:mod:`hyperdrive_tpu_torch.chaos`, ``FaultPlan.churn``) is
 the proving ground for churn, as in the reference.
@@ -51,6 +51,7 @@ from __future__ import annotations
 import hashlib
 from dataclasses import dataclass
 
+from hyperdrive_tpu_torch.analysis.annotations import wire_codec
 from hyperdrive_tpu_torch.certificates import (
     Certifier,
     QuorumCertificate,
@@ -488,6 +489,7 @@ class EpochProof:
     cert: QuorumCertificate
 
 
+@wire_codec(tag="epoch.proof", max_bytes=4 << 20)
 def marshal_epoch_proof(proof: EpochProof, w: Writer) -> None:
     w.u64(proof.epoch)
     w.bytes32(proof.prev_set_digest)
@@ -498,6 +500,7 @@ def marshal_epoch_proof(proof: EpochProof, w: Writer) -> None:
     marshal_certificate(proof.cert, w)
 
 
+@wire_codec(tag="epoch.proof", max_bytes=4 << 20)
 def unmarshal_epoch_proof(r: Reader) -> EpochProof:
     epoch = r.u64()
     prev_digest = r.bytes32()

@@ -42,10 +42,10 @@ cpu`` is given.
 
 Port of the JAX package's ``exec/__main__.py``: the same subcommands,
 flags and lines. Deliberate differences: the ``--device`` option; no
-compilation-cache environment defaults (nothing here is jitted); no
-runtime sanitizer (``HD_SANITIZE``; the port drops the lint hooks); and
-the signed legs' admission. A device executor on the card verifies no
-signature on the host, so each signed leg verifies its blocks with a
+compilation-cache environment defaults (nothing here is jitted); and
+the signed legs' admission (``HD_SANITIZE=1`` in the environment arms the
+runtime sanitizer, as in the reference). A device executor on the card
+verifies no signature on the host, so each signed leg verifies its blocks with a
 ``TorchBatchVerifier`` on ``--device`` (row 1, ``ed25519_verify``), one
 call a block as ``Simulation`` does for its executors, and hands the
 same ``masks`` to the host and the device executor: both apply one

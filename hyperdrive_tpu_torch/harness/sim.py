@@ -112,10 +112,11 @@ msg)`` in delivery order, the superstep sizes of a burst run, and the
 epoch and execution trailers, in a :class:`ScenarioRecord` whose v7 wire
 format is the reference's byte for byte. :meth:`Simulation.replay`
 re-delivers a record (a dump of this package or of the JAX package)
-message for message. ``ScenarioRecord.load`` reads through a plain
-:class:`~hyperdrive_tpu_torch.codec.Reader` with a 1 GiB budget: the
-reference's wire-audit hooks (``wire_codec``, ``wire_entry``,
-``maybe_wire_reader``) are dropped with the other analysis hooks.
+message for message. The record registers as the ``scenario.record``
+wire family (1 GiB) and ``ScenarioRecord.load`` reads through the
+sanitizer's budget reader (``maybe_wire_reader``), as in the reference;
+the ``wire_entry`` lint marker is dropped. Every replica installs the
+runtime sanitizer when ``HD_SANITIZE`` is on (HDS001–HDS003).
 
 With ``epochs=EpochConfig(...)`` (lock-step and unsigned, as in the
 reference) heights partition into epochs: every boundary commit elects
@@ -206,6 +207,8 @@ from typing import Callable, Optional
 
 import numpy as np
 
+from hyperdrive_tpu_torch.analysis.annotations import wire_codec
+from hyperdrive_tpu_torch.analysis.sanitizer import maybe_wire_reader
 from hyperdrive_tpu_torch.batch import MessageBlock, WindowColumns
 from hyperdrive_tpu_torch.codec import Reader, SerdeError, Writer
 from hyperdrive_tpu_torch.messages import (
@@ -277,6 +280,7 @@ class VirtualClock:
         return dropped
 
 
+@wire_codec(tag="scenario.record", max_bytes=1 << 30)
 @dataclass
 class ScenarioRecord:
     """A reproducible account of one simulated run (the Go reference's
@@ -433,7 +437,9 @@ class ScenarioRecord:
     @classmethod
     def load(cls, path: str) -> "ScenarioRecord":
         with open(path, "rb") as fh:
-            return cls.unmarshal(Reader(fh.read(), rem=1 << 30))
+            return cls.unmarshal(maybe_wire_reader(
+                "scenario.record", fh.read(), rem=1 << 30
+            ))
 
 
 class _Discard:
@@ -2268,16 +2274,16 @@ class Simulation:
             self.epoch_schedule.stake_source = stake_source
         if cfg.sign_txs and self._exec_launcher is None:
             # Sequential sign_txs: each committed height's block is
-            # verified ONCE, through the batch verifier (on the card by
-            # default), before any executor applies it; the executors
-            # read the verdicts from ``_exec_masks``. (The reference
-            # leaves it to each executor's own host verifier: n
-            # verifications of every block on the CPU without dedup.)
+            # verified ONCE, through the batch verifier, before any
+            # executor applies it; the executors read the verdicts from
+            # ``_exec_masks``. A lock-step run has none, so the blocks
+            # verify on ``device`` as the speculative launcher's do: a
+            # TorchBatchVerifier on the card, the host verifier on the CPU.
+            # (The reference leaves it to each executor's own host
+            # verifier: n verifications of every block without dedup.)
             self._exec_verifier = self.batch_verifier
             if self._exec_verifier is None:
-                from hyperdrive_tpu_torch.ops.ed25519 import TorchBatchVerifier
-
-                self._exec_verifier = TorchBatchVerifier(device=dev)
+                self._exec_verifier = _lockstep_verifier(dev)
 
     def _exec_value(self, height: Height, round_: int) -> Value:
         """Proposal value in execution mode: commits to the height's

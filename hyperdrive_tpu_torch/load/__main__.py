@@ -34,8 +34,8 @@ Scenarios run unsigned and touch no device, so the soak takes no
 ``--device``.
 
 Port of the JAX package's ``load/__main__.py``: the same flags, lines and
-failure dumps. Dropped: the runtime sanitizer (``HD_SANITIZE=1``; the
-port drops the lint hooks).
+failure dumps. ``HD_SANITIZE=1`` in the environment arms the runtime
+sanitizer on every replica, as in the reference.
 """
 
 from __future__ import annotations

@@ -13,9 +13,8 @@ detached Ed25519 signature for the first-class Verifier path (the reference
 assumes authentication happens outside the library,
 ``process/process.go:95-98``).
 
-Port copy of ``hyperdrive_tpu/messages.py`` for the PyTorch package: the ``@wire_codec`` lint decorators
-(``analysis.annotations``) are removed.
-Everything else is unchanged.
+Port copy of ``hyperdrive_tpu/messages.py`` for the PyTorch package,
+with the reference's ``@wire_codec`` registrations (``msg.*``).
 """
 
 from __future__ import annotations
@@ -23,6 +22,7 @@ from __future__ import annotations
 import hashlib
 from dataclasses import dataclass, field, replace
 
+from hyperdrive_tpu_torch.analysis.annotations import wire_codec
 from hyperdrive_tpu_torch.codec import Reader, SerdeError, Writer
 from hyperdrive_tpu_torch.types import (
     INT64_MIN,
@@ -47,6 +47,7 @@ def _check_i64(v: int, what: str) -> None:
         raise SerdeError(f"{what} out of int64 range: {v}")
 
 
+@wire_codec(tag="msg.propose", max_bytes=1 << 20)
 @dataclass(frozen=True, slots=True)
 class Propose:
     """A proposer's value suggestion for one (height, round).
@@ -132,6 +133,7 @@ class Propose:
         return replace(self, signature=signature)
 
 
+@wire_codec(tag="msg.prevote", max_bytes=256)
 @dataclass(frozen=True, slots=True)
 class Prevote:
     """The first voting step (reference: ``process/message.go:156-162``)."""
@@ -181,6 +183,7 @@ class Prevote:
         return replace(self, signature=signature)
 
 
+@wire_codec(tag="msg.precommit", max_bytes=256)
 @dataclass(frozen=True, slots=True)
 class Precommit:
     """The second voting step (reference: ``process/message.go:254-260``)."""
@@ -234,6 +237,7 @@ class Precommit:
         return replace(self, signature=signature)
 
 
+@wire_codec(tag="msg.timeout", max_bytes=32)
 @dataclass(frozen=True, slots=True)
 class Timeout:
     """A fired timeout event (reference: ``timer/timer.go:14-18``)."""
@@ -280,6 +284,7 @@ _TAG_CLASSES = {
 _MAX_SIGNATURE = 96
 
 
+@wire_codec(tag="msg.envelope", max_bytes=1 << 20)
 def marshal_message(msg, w: Writer) -> None:
     """Marshal any message with a leading type tag (the wire envelope used
     by scenario records). Unlike the core message serde, the envelope also
@@ -294,6 +299,7 @@ def marshal_message(msg, w: Writer) -> None:
         w.raw(msg.signature)
 
 
+@wire_codec(tag="msg.envelope", max_bytes=1 << 20)
 def unmarshal_message(r: Reader):
     """Inverse of :func:`marshal_message`. Unknown tags and oversized
     trailing signatures are typed rejections — the envelope is the first

@@ -26,18 +26,18 @@ journals and the Perfetto exporter draws cross-process flow arrows on.
 
 Port copy of ``hyperdrive_tpu/obs/tracectx.py``: stamps are byte for
 byte the JAX package's, so a traced process of either package merges
-with the other's. Dropped, as the port's conventions say: the
-``wire_codec`` lint marker and the sanitizer's budget reader;
-:func:`decode_stamp` reads through a plain
-:class:`~hyperdrive_tpu_torch.codec.Reader`, as the reference does with
-the sanitizer off.
+with the other's. The codec registers as the ``trace.ctx`` wire family
+(64 bytes) and :func:`decode_stamp` reads through the sanitizer's budget
+reader, as in the reference.
 """
 
 from __future__ import annotations
 
 import threading
 
-from hyperdrive_tpu_torch.codec import Reader, SerdeError, Writer
+from hyperdrive_tpu_torch.analysis.annotations import wire_codec
+from hyperdrive_tpu_torch.analysis.sanitizer import maybe_wire_reader
+from hyperdrive_tpu_torch.codec import SerdeError, Writer
 from hyperdrive_tpu_torch.obs.recorder import NULL_BOUND
 
 __all__ = [
@@ -59,6 +59,7 @@ TRACE_MAGIC = 0x54
 STAMP_LEN = 1 + 4 + 8 + 8
 
 
+@wire_codec(tag="trace.ctx", max_bytes=64)
 def encode_stamp(origin: int, seq: int, parent: int = 0) -> bytes:
     w = Writer()
     w.u8(TRACE_MAGIC)
@@ -68,13 +69,16 @@ def encode_stamp(origin: int, seq: int, parent: int = 0) -> bytes:
     return w.data()
 
 
+@wire_codec(tag="trace.ctx", max_bytes=64)
 def decode_stamp(payload: bytes):
     """Decode one bare stamp to ``(origin, seq, parent)``.
 
     Rejects a wrong magic byte and trailing garbage with
-    :class:`SerdeError`, so a fuzzed frame fails typed.
+    :class:`SerdeError`, so a fuzzed frame fails typed; the HDS005 budget
+    (64 bytes) is charged through :func:`maybe_wire_reader` like every
+    registered family.
     """
-    r = Reader(payload)
+    r = maybe_wire_reader("trace.ctx", payload)
     magic = r.u8()
     if magic != TRACE_MAGIC:
         raise SerdeError(f"bad trace stamp magic {magic:#x}")

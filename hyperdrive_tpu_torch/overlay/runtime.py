@@ -42,9 +42,9 @@ Robustness mechanics (Handel, arXiv:1906.05132):
 
 Port copy of ``hyperdrive_tpu/overlay/runtime.py``. The decisions, the
 frames and the accounting are the reference's, so an overlay run commits
-the JAX package's chain in the JAX package's steps. Dropped, as the
-port's conventions say: the wire-budget hooks (``declare_wire_budget``,
-``wire_charge``) with the other analysis hooks. The recorder handle
+the JAX package's chain in the JAX package's steps, and the wire-budget
+hooks are the reference's: the ``overlay.partial`` budget and the HDS005
+charge at every partial frame's ingress (``wire_charge``). The recorder handle
 (``obs``) and the metrics registry (``registry``) take the reference's
 ``overlay.*`` and ``bls.partial.reject`` events and counts. The verify
 launcher and the :class:`~hyperdrive_tpu_torch.
@@ -58,11 +58,24 @@ import hashlib
 import random
 from dataclasses import dataclass
 
+from hyperdrive_tpu_torch.analysis.annotations import declare_wire_budget
+from hyperdrive_tpu_torch.analysis.sanitizer import wire_charge
 from hyperdrive_tpu_torch.load.frames import STALE_GENERATION, classify_frame
 from hyperdrive_tpu_torch.messages import Precommit, Prevote
 
 from .score import ContributionScores
 from .topology import Topology
+
+#: HDS005 budget for one partial-aggregate frame, as it would cost on a
+#: wire: header + committee-wide mask + 48-byte BLS aggregate + one
+#: full-envelope extra per committee member (the worst legal frame under
+#: the on_frame shape caps). Object frames charge an ESTIMATE of this
+#: footprint at ingress; the sanitizer fires only if the caps and this
+#: budget drift apart.
+declare_wire_budget("overlay.partial", 1 << 20)
+#: Wire-size estimate for one extras envelope (signed vote riding
+#: outside the table): 8 + 8 + 32 + 32 + 64 plus framing slack.
+_EXTRA_WIRE_BYTES = 160
 
 __all__ = [
     "OverlayConfig",
@@ -457,6 +470,13 @@ class OverlayRuntime:
             self._count("overlay.frame.reject")
             self._charge(frame.src, "invalid", frame.slot, to)
             return
+        # HDS005: charge the frame's estimated wire footprint against
+        # the declared overlay budget (object seam, no byte decode).
+        wire_charge(
+            "overlay.partial",
+            16 + (frame.mask.bit_length() + 7) // 8 + 48
+            + _EXTRA_WIRE_BYTES * len(frame.extras),
+        )
         slot = frame.slot
         st = self._slots.get(slot)
         if st is None:

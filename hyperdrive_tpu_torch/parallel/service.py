@@ -41,12 +41,11 @@ the launch probe (``devtel``) with the per-tenant latency histograms it
 feeds, the metrics registry (``registry``, which answers a metrics
 scrape) and the causal trace source (``trace``: stamped answers and
 requests, ``trace.recv`` marks, the hello-ack's origin and the client's
-clock-offset estimate). Dropped, as the port's conventions say: the
-wire-codec lint markers (``analysis.annotations.wire_codec``) and the
-sanitizer's budget reader (``analysis.sanitizer.maybe_wire_reader``;
-decoders read through a plain :class:`~hyperdrive_tpu_torch.codec.Reader`,
-as the reference does with the sanitizer off). The ``serve`` and
-``tenant`` CLI (``python -m hyperdrive_tpu.parallel``) is not ported yet.
+clock-offset estimate). The sixteen ``@wire_codec`` registrations of
+the service frames and every decoder's budget reader
+(``maybe_wire_reader``: HDS005 under ``HD_SANITIZE``) are the
+reference's. The ``serve`` and ``tenant`` CLI is
+``python -m hyperdrive_tpu_torch.parallel``.
 """
 
 from __future__ import annotations
@@ -58,11 +57,13 @@ import struct
 import threading
 import time
 
+from hyperdrive_tpu_torch.analysis.annotations import wire_codec
+from hyperdrive_tpu_torch.analysis.sanitizer import maybe_wire_reader
 from hyperdrive_tpu_torch.certificates import (
     marshal_certificate,
     unmarshal_certificate,
 )
-from hyperdrive_tpu_torch.codec import Reader, SerdeError, Writer
+from hyperdrive_tpu_torch.codec import SerdeError, Writer
 from hyperdrive_tpu_torch.crypto.keys import KeyRing
 from hyperdrive_tpu_torch.messages import Precommit
 from hyperdrive_tpu_torch.obs.recorder import NULL_BOUND
@@ -139,6 +140,7 @@ _MAX_NAME = 256
 _MAX_ROW_SIG = 96
 
 
+@wire_codec(tag="service.hello", max_bytes=1 << 18)
 def encode_hello(name: str, signatories, f: int, t0: float = 0.0) -> bytes:
     """``t0`` (optional trailing f64) is the client's wall-clock send
     stamp: the port echoes it back in the hello-ack so the client can
@@ -158,6 +160,7 @@ def encode_hello(name: str, signatories, f: int, t0: float = 0.0) -> bytes:
     return w.data()
 
 
+@wire_codec(tag="service.hello.ack", max_bytes=64)
 def encode_hello_ack(t0: float, t1: float, origin: int) -> bytes:
     """The port's answer to HELLO: the client's echoed send stamp, the
     server's own receive stamp, and the server's trace origin id. From
@@ -171,9 +174,10 @@ def encode_hello_ack(t0: float, t1: float, origin: int) -> bytes:
     return w.data()
 
 
+@wire_codec(tag="service.hello.ack", max_bytes=64)
 def decode_hello_ack(payload: bytes):
     """Client-side decode: ``(t0, t1, origin)``."""
-    r = Reader(payload)
+    r = maybe_wire_reader("service.hello.ack", payload)
     if r.u8() != TAG_HELLO:
         raise SerdeError("expected a hello-ack frame")
     t0 = r.f64()
@@ -184,6 +188,7 @@ def decode_hello_ack(payload: bytes):
     return t0, t1, origin
 
 
+@wire_codec(tag="service.submit", max_bytes=_MAX_FRAME)
 def encode_submit(req_id: int, height: int, round: int, value: bytes,
                   rows, generation: int = 0) -> bytes:
     """``rows``: signed :class:`~hyperdrive_tpu_torch.messages.Precommit`s (or
@@ -208,6 +213,7 @@ def encode_submit(req_id: int, height: int, round: int, value: bytes,
     return w.data()
 
 
+@wire_codec(tag="service.result", max_bytes=_MAX_FRAME)
 def encode_result(req_id: int, status: int, nrows: int, mask,
                   cert=None, root=None) -> bytes:
     """``root`` (32 bytes or None) rides between the mask and the
@@ -235,6 +241,7 @@ def encode_result(req_id: int, status: int, nrows: int, mask,
     return w.data()
 
 
+@wire_codec(tag="service.query", max_bytes=64)
 def encode_query(req_id: int, account: int) -> bytes:
     """A stateless client's proof request: ONE account id. The answer
     (:func:`encode_proof`) is self-contained — the client needs nothing
@@ -246,6 +253,7 @@ def encode_query(req_id: int, account: int) -> bytes:
     return w.data()
 
 
+@wire_codec(tag="service.metrics", max_bytes=64)
 def encode_metrics_request(req_id: int) -> bytes:
     """A live-metrics scrape: request the Registry's Prometheus
     snapshot over the service port. Carries nothing but the request id
@@ -256,6 +264,7 @@ def encode_metrics_request(req_id: int) -> bytes:
     return w.data()
 
 
+@wire_codec(tag="service.metrics.reply", max_bytes=1 << 18)
 def encode_metrics_reply(req_id: int, status: int, text: str = "") -> bytes:
     """ONE metrics answer: the rendered Prometheus exposition text (or
     an empty body for refusals). The 256 KiB budget bounds what a
@@ -269,9 +278,10 @@ def encode_metrics_reply(req_id: int, status: int, text: str = "") -> bytes:
     return w.data()
 
 
+@wire_codec(tag="service.metrics.reply", max_bytes=1 << 18)
 def decode_metrics_reply(payload: bytes):
     """Client-side decode: ``(req_id, status, text_or_None)``."""
-    r = Reader(payload)
+    r = maybe_wire_reader("service.metrics.reply", payload)
     if r.u8() != TAG_METRICS:
         raise SerdeError("expected a metrics reply frame")
     req_id = r.u64()
@@ -286,6 +296,7 @@ def decode_metrics_reply(payload: bytes):
     return req_id, status, text
 
 
+@wire_codec(tag="service.proof", max_bytes=4096)
 def encode_proof(req_id: int, status: int, proof=None) -> bytes:
     """ONE proof frame: leaf values, the O(1) chain witness (previous
     root + state digest), and the O(log n) sibling path — everything
@@ -309,12 +320,13 @@ def encode_proof(req_id: int, status: int, proof=None) -> bytes:
     return w.data()
 
 
+@wire_codec(tag="service.proof", max_bytes=4096)
 def decode_proof(payload: bytes):
     """Client-side decode: ``(req_id, status, proof_or_None)``. Raises
     SerdeError on malformed bytes, trailing garbage, or a path deeper
     than MAX_DEPTH — a Byzantine server cannot make the client loop or
     allocate unboundedly."""
-    r = Reader(payload)
+    r = maybe_wire_reader("service.proof", payload)
     if r.u8() != TAG_QUERY:
         raise SerdeError("expected a proof frame")
     req_id = r.u64()
@@ -367,6 +379,10 @@ _REQUEST_FAMILIES = {
 }
 
 
+@wire_codec(tag="service.hello", max_bytes=1 << 18)
+@wire_codec(tag="service.submit", max_bytes=_MAX_FRAME)
+@wire_codec(tag="service.query", max_bytes=64)
+@wire_codec(tag="service.metrics", max_bytes=64)
 def decode_request(payload: bytes):
     """Server-side decode: ``("hello", name, f, signatories, t0)``,
     ``("submit", req_id, height, round, value, generation, rows)`` with
@@ -380,7 +396,7 @@ def decode_request(payload: bytes):
     family = _REQUEST_FAMILIES.get(payload[0])
     if family is None:
         raise SerdeError(f"unknown service frame tag: {payload[0]}")
-    r = Reader(payload)
+    r = maybe_wire_reader(family, payload)
     tag = r.u8()
     if tag == TAG_HELLO:
         name_raw = r.raw()
@@ -428,12 +444,13 @@ def decode_request(payload: bytes):
     return req
 
 
+@wire_codec(tag="service.result", max_bytes=_MAX_FRAME)
 def decode_result(payload: bytes):
     """Client-side decode:
     ``(req_id, status, mask, cert_or_None, root_or_None)``. The bitmap
     must be exactly ``ceil(n/8)`` wide (the canonical encoding) and the
     frame must end where the certificate tail ends."""
-    r = Reader(payload)
+    r = maybe_wire_reader("service.result", payload)
     if r.u8() != TAG_RESULT:
         raise SerdeError("expected a result frame")
     req_id = r.u64()
@@ -449,7 +466,9 @@ def decode_result(payload: bytes):
     if root is not None and len(root) != 32:
         raise SerdeError(f"state root must be 32 bytes, got {len(root)}")
     cert_bytes = r.raw()
-    cert = unmarshal_certificate(Reader(cert_bytes)) if cert_bytes else None
+    cert = unmarshal_certificate(
+        maybe_wire_reader("cert.quorum", cert_bytes)
+    ) if cert_bytes else None
     if not r.done():
         raise SerdeError("trailing bytes after result frame")
     return req_id, status, mask, cert, root

@@ -31,16 +31,16 @@ Rule map (paper label -> method):
 - L55      _try_skip_to_future_round
 - L57/61/65  on_timeout_propose / on_timeout_prevote / on_timeout_precommit
 
-Port copy of ``hyperdrive_tpu/process.py`` for the PyTorch package: the
-``@wire_codec`` lint decorator is removed. Everything else, the
-flight-recorder hook (``obs`` and every ``obs.emit`` site) included, is
-unchanged.
+Port copy of ``hyperdrive_tpu/process.py`` for the PyTorch package,
+unchanged: the ``process.checkpoint`` wire registration and the
+flight-recorder hook (``obs`` and every ``obs.emit`` site) included.
 """
 
 from __future__ import annotations
 
 from typing import Optional, Protocol, runtime_checkable
 
+from hyperdrive_tpu_torch.analysis.annotations import wire_codec
 from hyperdrive_tpu_torch.codec import Reader, Writer
 from hyperdrive_tpu_torch.messages import Precommit, Prevote, Propose
 from hyperdrive_tpu_torch.obs.recorder import NULL_BOUND
@@ -140,6 +140,7 @@ class Catcher(Protocol):
 # -------------------------------------------------------------------- process
 
 
+@wire_codec(tag="process.checkpoint", max_bytes=1 << 28)
 class Process:
     """The consensus automaton for one replica identity.
 

@@ -32,8 +32,10 @@ The tracer (``ReplicaOptions.tracer``: ``replica.msg.*``,
 ``replica.caught.*``) and the flight recorder (``ReplicaOptions.obs``)
 are the reference's, with the committer and catcher wrappers that feed
 them. Removed: the logger (``utils.log``: ``ReplicaOptions.logger`` and
-every log line), the sanitizer hook (``analysis.sanitizer``) and the
-``@hot_path`` lint marker. The epoch
+every log line) and the ``@hot_path`` lint marker. The sanitizer hook is
+the reference's: with ``HD_SANITIZE`` on, the Process's committer and
+broadcaster go through :func:`~hyperdrive_tpu_torch.analysis.sanitizer.
+maybe_install` (HDS001–HDS003). The epoch
 stale-key filter (``retired``, ``stale_votes``) and the admission gate
 (``admission``, a :class:`~hyperdrive_tpu_torch.load.backpressure.
 AdmissionGate` consulted after the height and stale-key filters) are the
@@ -50,6 +52,7 @@ from collections import deque
 from dataclasses import dataclass, replace
 from typing import Callable, Optional
 
+from hyperdrive_tpu_torch.analysis.sanitizer import maybe_install as _maybe_sanitize
 from hyperdrive_tpu_torch.messages import Precommit, Prevote, Propose, Timeout
 from hyperdrive_tpu_torch.mq import DEFAULT_MAX_CAPACITY, MessageQueue
 from hyperdrive_tpu_torch.obs.recorder import NULL_BOUND
@@ -217,6 +220,10 @@ class Replica:
             height=opts.starting_height,
             obs=self.obs,
         )
+        # Consensus sanitizer (HDS001-HDS003): interposes on the
+        # committer/broadcaster seams when HD_SANITIZE is on; no-op
+        # otherwise.
+        _maybe_sanitize(self.proc)
         self.procs_allowed: set[Signatory] = set(signatories)
         self.mq = MessageQueue(max_capacity=opts.max_capacity)
         self.mq.obs = self.obs

@@ -8,15 +8,15 @@ rule L55). The whole State round-trips through the canonical codec so a
 replica can be checkpointed after every method call and restored after a
 crash (reference contract: process/state.go:18-20).
 
-Port copy of ``hyperdrive_tpu/state.py`` for the PyTorch package: the ``@wire_codec`` lint decorator
-(``analysis.annotations``) is removed.
-Everything else is unchanged.
+Port copy of ``hyperdrive_tpu/state.py`` for the PyTorch package,
+unchanged, with its ``state.checkpoint`` wire registration.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
 
+from hyperdrive_tpu_torch.analysis.annotations import wire_codec
 from hyperdrive_tpu_torch.codec import Reader, SerdeError, Writer
 from hyperdrive_tpu_torch.messages import Precommit, Prevote, Propose
 from hyperdrive_tpu_torch.types import (
@@ -46,6 +46,7 @@ class OnceFlag:
 _MAX_LOG_ENTRIES = 1 << 20
 
 
+@wire_codec(tag="state.checkpoint", max_bytes=1 << 28)
 @dataclass
 class State:
     """Consensus-automaton state (paper L1 initialization block)."""

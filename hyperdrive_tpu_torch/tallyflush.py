@@ -43,8 +43,9 @@ flight-recorder seam (``obs``, a keyword here: ``flush.launch``,
 ``tally.launch`` and ``flush.settle`` events; queue-mode windows submit
 its track as their ``origin``) and the two mask fetches through
 :func:`~hyperdrive_tpu_torch.analysis.annotations.device_fetch`. Dropped:
-the ``@async_scope`` lint marker and the sanitizer's default
-``tally_check`` (``analysis.sanitizer.maybe_tally_check``). Added: the
+the ``@async_scope`` lint marker. With no ``tally_check`` given, the
+sanitizer's (``analysis.sanitizer.maybe_tally_check``, HDS004 under
+``HD_SANITIZE``) is installed, as in the reference. Added: the
 ``cancelled`` and ``plane_resets`` counts.
 
 A ``certifier`` (:class:`~hyperdrive_tpu_torch.certificates.Certifier`,
@@ -61,6 +62,7 @@ import numpy as np
 import torch
 
 from hyperdrive_tpu_torch.analysis.annotations import device_fetch
+from hyperdrive_tpu_torch.analysis.sanitizer import maybe_tally_check
 from hyperdrive_tpu_torch.batch import MessageBlock
 from hyperdrive_tpu_torch.obs.recorder import NULL_BOUND
 from hyperdrive_tpu_torch.ops.tally import pack_value
@@ -119,6 +121,11 @@ class DeviceTallyFlusher:
             # the creating thread's stream: order this stream after them.
             self._stream.wait_stream(torch.cuda.current_stream(self.device))
         self._pos = {s: i for i, s in enumerate(validators)}
+        if tally_check is None:
+            # Sanitizer HDS004: under HD_SANITIZE every launch's device
+            # counts are cross-checked against the host counters; a
+            # caller that passes its own tally_check keeps it.
+            tally_check = maybe_tally_check()
         self.tally_check = tally_check
         self._height = None
         self._dirty: set = set()

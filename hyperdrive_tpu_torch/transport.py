@@ -32,11 +32,12 @@ ungated) with the priority-aware shedding of a full peer backlog. Epoch
 rotation is the reference's: :meth:`TcpNode.rotate_epoch` installs the
 new table on every registered wire verifier, and wire ingress drops (and
 counts in ``stale_frames``) frames signed under a retired identity,
-classified by :mod:`~hyperdrive_tpu_torch.load.frames`. Dropped, as the
-port's conventions say: the wire-codec lint markers
-(``analysis.annotations``), the sanitizer's wire reader
-(``analysis.sanitizer``) and the logger (``utils.log``; the counters
-stay).
+classified by :mod:`~hyperdrive_tpu_torch.load.frames`. The wire
+registrations (``msg.envelope`` on :func:`encode_frame`, ``flight.record``
+on :class:`FlightRecorder`) and the sanitizer's budget reader at every
+decode (``maybe_wire_reader``: HDS005 under ``HD_SANITIZE``, a plain
+``Reader`` otherwise) are the reference's. Dropped: the ``wire_entry``
+lint marker and the logger (``utils.log``; the counters stay).
 """
 
 from __future__ import annotations
@@ -47,7 +48,9 @@ import socket
 import struct
 import threading
 
-from hyperdrive_tpu_torch.codec import Reader, SerdeError, Writer
+from hyperdrive_tpu_torch.analysis.annotations import wire_codec
+from hyperdrive_tpu_torch.analysis.sanitizer import maybe_wire_reader
+from hyperdrive_tpu_torch.codec import SerdeError, Writer
 from hyperdrive_tpu_torch.load.backpressure import SHED_LOW_PRIORITY
 from hyperdrive_tpu_torch.load.frames import STALE_GENERATION, classify_frame
 from hyperdrive_tpu_torch.messages import (
@@ -83,6 +86,7 @@ _MAX_FRAME = 1 << 20  # 1 MiB: far above any consensus envelope
 _PEER_QUEUE = 4096
 
 
+@wire_codec(tag="msg.envelope", max_bytes=_MAX_FRAME)
 def encode_frame(msg) -> bytes:
     w = Writer()
     marshal_message(msg, w)
@@ -326,7 +330,10 @@ class TcpNode:
                     ctx = None
                     if payload and payload[0] == TRACE_MAGIC:
                         ctx, payload = split_trace_frame(payload)
-                    msg = unmarshal_message(Reader(payload))
+                    msg = unmarshal_message(
+                        maybe_wire_reader("msg.envelope", payload,
+                                          obs=self.obs)
+                    )
                 except SerdeError:
                     with self._lock:
                         self.malformed_frames += 1
@@ -501,6 +508,7 @@ class TcpNode:
             self.obs.emit("transport.peer.dropped", -1, -1, count)
 
 
+@wire_codec(tag="flight.record", max_bytes=_MAX_FRAME)
 class FlightRecorder:
     """One replica's consumption log: every input the replica's event loop
     consumed (votes, local timeouts, resets) in consumption order.
@@ -571,9 +579,11 @@ class FlightRecorder:
                 break  # partial body: killed mid-write
             off += 5 + length
             if kind == FlightRecorder.KIND_MSG:
-                out.append(unmarshal_message(Reader(body)))
+                out.append(unmarshal_message(
+                    maybe_wire_reader("msg.envelope", body)
+                ))
             elif kind == FlightRecorder.KIND_RESET:
-                r = Reader(body)
+                r = maybe_wire_reader("flight.record", body)
                 height = r.i64()
                 sigs = tuple(r.raw() for _ in range(r.u32()))
                 out.append(ResetHeight(height, sigs))

@@ -11,9 +11,9 @@ never sees a torn checkpoint.
 
 Port copy of ``hyperdrive_tpu/utils/checkpoint.py``; its envelopes are
 byte for byte the JAX package's, so a checkpoint written by either
-restores in the other. Dropped: the sanitizer's wire-reader hook
-(``analysis.sanitizer.maybe_wire_reader``); the payload is read by a plain
-:class:`~hyperdrive_tpu_torch.codec.Reader`.
+restores in the other. The payload is read through the sanitizer's
+budget reader (``maybe_wire_reader("process.checkpoint")``), as in the
+reference.
 """
 
 from __future__ import annotations
@@ -21,6 +21,7 @@ from __future__ import annotations
 import os
 import zlib
 
+from hyperdrive_tpu_torch.analysis.sanitizer import maybe_wire_reader
 from hyperdrive_tpu_torch.codec import Reader, SerdeError, Writer
 from hyperdrive_tpu_torch.process import Process
 
@@ -74,7 +75,9 @@ def restore_bytes(proc: Process, data: bytes) -> None:
         )
     if (zlib.crc32(payload) & 0xFFFFFFFF) != crc:
         raise SerdeError("checkpoint checksum mismatch")
-    proc.unmarshal_into(Reader(payload, rem=_MAX_BYTES))
+    proc.unmarshal_into(maybe_wire_reader(
+        "process.checkpoint", payload, rem=_MAX_BYTES
+    ))
 
 
 def save_process(proc: Process, path: str) -> None:

@@ -9,7 +9,9 @@
   ``apply_block_chain_merkle_cols_torch`` against
   ``apply_block_chain_merkle_cols_jax`` on both Merkle branches;
 - ``exec/ledger.py`` and ``exec/device.py``: ``BlockSource`` columns,
-  values and signature triples byte for byte; the port's host and device
+  values and signature triples byte for byte, and one signed block's
+  verdicts from row 1's plain version (``TorchBatchVerifier`` on the CPU)
+  against the JAX host oracle; the port's host and device
   (``device="cpu"``) executors against the JAX executors over six
   heights, through speculation with wrong guesses, a double rollback
   against one capture, ``discarded_roots``, ``prove`` and ``ProofBasis``;
@@ -57,6 +59,7 @@ from hyperdrive_tpu_torch.exec.ledger import (
 from hyperdrive_tpu_torch.harness import ScenarioRecord, Simulation
 from hyperdrive_tpu_torch.load import LoadProfile
 from hyperdrive_tpu_torch.ops import ledger, rootmix
+from hyperdrive_tpu_torch.ops.ed25519 import TorchBatchVerifier
 from hyperdrive_tpu_torch.verifier import HostVerifier
 
 # The port's tests work on small tensors, where torch's intra-op threads
@@ -249,6 +252,18 @@ def test_block_source_matches_reference_byte_for_byte(height):
     assert items == ref.sig_items(rblk)
     mask = HostVerifier().verify_signatures(items)
     assert [bool(v) for v in mask] == [(t + 1) % 4 != 0 for t in range(len(items))]
+
+
+def test_plain_ladder_verifies_a_signed_block_as_the_reference_oracle():
+    # Row 1's plain version, the verifier a signed sim on the card uses for
+    # its blocks, against the JAX package's host oracle on the same block.
+    cfg, ref_cfg = _pair(**SIGNED)
+    src, ref = BlockSource(cfg), RefBlockSource(ref_cfg)
+    items = src.sig_items(src.block(2))
+    got = TorchBatchVerifier(device="cpu", buckets=(32,)).verify_signatures(items)
+    want = RefHostVerifier().verify_signatures(ref.sig_items(ref.block(2)))
+    assert [bool(v) for v in got] == [bool(v) for v in want]
+    assert any(want) and not all(want)
 
 
 # ---------------------------------------------------------------- executors

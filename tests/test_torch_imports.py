@@ -57,7 +57,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                  "obs.report", "obs.slo", "analysis", "analysis.annotations",
                  "utils.trace", "utils.cli", "obs.__main__", "campaign.__main__",
                  "ops.__main__", "exec.__main__", "parallel.__main__",
-                 "load.__main__", "devsched.__main__"):
+                 "load.__main__", "devsched.__main__", "analysis.sanitizer",
+                 "chaos.__main__", "entry"):
         assert f"hyperdrive_tpu_torch.{name}" in out["names"]
     assert out["bad"] == []
     assert out["built"] is False
